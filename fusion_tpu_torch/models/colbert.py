@@ -1,0 +1,149 @@
+"""ColBERT late-interaction retriever.
+
+Per-token 128-d embeddings, query mask-augmentation (pads become [MASK] and
+are attended), a punctuation skiplist on documents, and a device-resident
+token index scored by MaxSim (``ops/maxsim.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import string
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from fusion_tpu_torch.data.tokenization import TextEncoder, WordHashTokenizer
+from fusion_tpu_torch.models.encoder import (
+    Encoder,
+    EncoderConfig,
+    init_weights,
+    place,
+    token_tensors,
+)
+from fusion_tpu_torch.models.heads import ColBERTHead
+from fusion_tpu_torch.ops.maxsim import prepare_token_corpus
+
+_PUNCT = set(string.punctuation)
+
+
+class ColBERTModule(nn.Module):
+    """Trunk + projection head."""
+
+    def __init__(self, cfg: EncoderConfig, dim: int = 128):
+        super().__init__()
+        self.encoder = Encoder(cfg)
+        self.colbert = ColBERTHead(cfg.hidden_size, dim)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        return self.colbert(self.encoder(input_ids, attention_mask), attention_mask)
+
+
+@dataclasses.dataclass
+class TokenIndex:
+    """Device-resident token-matrix index: [N, Ld, D] bf16 + [N, Ld] f32 mask.
+
+    ``prepared()`` caches the search layout (token-major, masked tokens
+    zeroed, per-doc validity) so query batches never relayout the corpus."""
+
+    tokens: torch.Tensor
+    mask: torch.Tensor
+    _prepared: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
+
+    def prepared(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(corpus_tm [Ld, N, D] bf16 zeroed, doc_valid [N] bool)."""
+        if self._prepared is None:
+            self._prepared = prepare_token_corpus(self.tokens, self.mask)
+        return self._prepared
+
+
+class ColBERT:
+    """Late-interaction bi-encoder with token-level MaxSim."""
+
+    def __init__(
+        self,
+        cfg: EncoderConfig,
+        params: Mapping[str, torch.Tensor] | None = None,
+        tokenizer=None,
+        dim: int = 128,
+        max_query_length: int = 32,
+        max_doc_length: int = 128,
+        mask_punctuation: bool = True,
+        seed: int = 42,
+        device="cpu",
+    ):
+        self.cfg = cfg
+        self.dim = dim
+        self.mask_punctuation = mask_punctuation
+        self.device = torch.device(device)
+        self.module = ColBERTModule(cfg, dim=dim)
+        if params is None:
+            init_weights(self.module, seed)
+        else:
+            self.module.load_state_dict(params)
+        place(self.module, cfg.dtype, self.device)
+        tokenizer = tokenizer or WordHashTokenizer(vocab_size=cfg.vocab_size)
+        # ColBERT-style query augmentation: pad → [MASK], attended
+        self.text_encoder = TextEncoder(
+            tokenizer,
+            max_query_length=max_query_length,
+            max_doc_length=max_doc_length,
+            augment_query_to_maxlen=True,
+        )
+        self._punct_ids = sorted(self._punctuation_token_ids(tokenizer))
+
+    @staticmethod
+    def _punctuation_token_ids(tokenizer) -> set[int]:
+        """Token ids whose surface form is pure punctuation (the colbert-ai
+        document skiplist)."""
+        ids: set[int] = set()
+        if hasattr(tokenizer, "tok"):
+            for tok, tid in tokenizer.tok.get_vocab().items():
+                stripped = tok.lstrip("Ġ▁")
+                if stripped and all(c in _PUNCT for c in stripped):
+                    ids.add(tid)
+        elif isinstance(tokenizer, WordHashTokenizer):
+            for ch in string.punctuation:
+                ids.update(tokenizer.token_ids(ch))
+        return ids
+
+    @torch.inference_mode()
+    def embed_tokens(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """Token batch → per-token embeddings [B, L, dim] f32 (pads zeroed)."""
+        return self.module(input_ids, attention_mask)
+
+    def _encode_texts(
+        self, texts: Sequence[str], query_mode: bool, batch_size: int
+    ) -> tuple[torch.Tensor, np.ndarray]:
+        """(token embeddings [n, L, dim] f32 on device, host masks [n, L])."""
+        toks, masks = [], []
+        for start in range(0, len(texts), batch_size):
+            chunk = list(texts[start : start + batch_size])
+            real = len(chunk)
+            while len(chunk) < batch_size and len(texts) > batch_size:
+                chunk.append("")
+            ids, mask = self.text_encoder.encode(chunk, query_mode=query_mode)
+            if not query_mode and self.mask_punctuation and self._punct_ids:
+                mask = np.where(np.isin(ids, self._punct_ids), 0, mask)
+            toks.append(self.embed_tokens(*token_tensors(ids, mask, self.device))[:real])
+            masks.append(np.asarray(mask)[:real])
+        return torch.cat(toks, dim=0), np.concatenate(masks, axis=0)
+
+    def encode_queries(self, queries: Sequence[str], batch_size: int = 32):
+        return self._encode_texts(queries, query_mode=True, batch_size=batch_size)
+
+    def index(
+        self, documents: Sequence[str], batch_size: int = 32, pad_docs_to: int = 128
+    ) -> TokenIndex:
+        """Encode the collection into a bf16 token-matrix index on the device;
+        ``pad_docs_to`` rounds the doc count up with fully masked docs."""
+        toks, masks = self._encode_texts(documents, query_mode=False, batch_size=batch_size)
+        n = toks.shape[0]
+        n_pad = -(-max(n, 1) // pad_docs_to) * pad_docs_to
+        tokens = torch.zeros((n_pad,) + tuple(toks.shape[1:]), dtype=torch.bfloat16, device=self.device)
+        tokens[:n] = toks
+        mask = torch.zeros((n_pad, masks.shape[1]), dtype=torch.float32, device=self.device)
+        mask[:n] = torch.as_tensor(masks, dtype=torch.float32, device=self.device)
+        return TokenIndex(tokens=tokens, mask=mask)

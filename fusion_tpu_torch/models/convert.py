@@ -1,0 +1,86 @@
+"""Flax parameter trees (numpy leaves) → state dicts of the port's modules.
+
+Layouts that differ between the two packages:
+  * a Flax ``Dense`` kernel is ``[in, out]``, the transpose of
+    ``nn.Linear.weight``;
+  * the fused qkv kernel is ``[H, 3, heads, hd]`` with bias ``[3, heads, hd]``;
+    the port's ``qkv`` Linear orders its outputs the same way, flattened;
+  * the attention ``out`` kernel is ``[heads, hd, H]``;
+  * ``Embed.embedding`` and LayerNorm ``scale``/``bias`` map to
+    ``weight``/``bias``.
+
+The functions take either a full variables dict (``{"params": ...}``) or the
+bare parameter tree, and return f32 CPU tensors; ``load_state_dict`` casts
+them to each module's dtype and device.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _tree(variables: Mapping) -> Mapping:
+    return variables["params"] if "params" in variables else variables
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _dense(tree: Mapping, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _t(tree["kernel"]).T.contiguous()
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def _ln(tree: Mapping, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _t(tree["scale"])
+    out[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def encoder_state_dict(variables: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+    """Flax ``Encoder`` params → ``Encoder`` state dict (keys under ``prefix``)."""
+    tree = _tree(variables)
+    out: dict[str, torch.Tensor] = {}
+    emb = tree["embeddings"]
+    for name in ("word", "position", "token_type"):
+        out[f"{prefix}embeddings.{name}.weight"] = _t(emb[name]["embedding"])
+    _ln(emb["ln"], f"{prefix}embeddings.ln", out)
+    i = 0
+    while f"layer_{i}" in tree:
+        lt, lp = tree[f"layer_{i}"], f"{prefix}layers.{i}"
+        qkv = lt["attention"]["qkv"]
+        h = qkv["kernel"].shape[0]
+        out[f"{lp}.attention.qkv.weight"] = _t(qkv["kernel"]).reshape(h, -1).T.contiguous()
+        out[f"{lp}.attention.qkv.bias"] = _t(qkv["bias"]).reshape(-1)
+        o = lt["attention"]["out"]
+        out[f"{lp}.attention.out.weight"] = _t(o["kernel"]).reshape(-1, h).T.contiguous()
+        out[f"{lp}.attention.out.bias"] = _t(o["bias"])
+        _ln(lt["attn_ln"], f"{lp}.attn_ln", out)
+        _dense(lt["ffn_in"], f"{lp}.ffn_in", out)
+        _dense(lt["ffn_out"], f"{lp}.ffn_out", out)
+        _ln(lt["ffn_ln"], f"{lp}.ffn_ln", out)
+        i += 1
+    return out
+
+
+def encoder_with_mlm_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``EncoderWithMLM`` params → ``EncoderWithMLM`` state dict."""
+    tree = _tree(variables)
+    out = encoder_state_dict(tree["encoder"], prefix="encoder.")
+    mlm = tree["mlm"]
+    _dense(mlm["transform"], "mlm.transform", out)
+    _ln(mlm["ln"], "mlm.ln", out)
+    _dense(mlm["decoder"], "mlm.decoder", out)
+    return out
+
+
+def colbert_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``ColBERTModule`` params → ``ColBERTModule`` state dict."""
+    tree = _tree(variables)
+    out = encoder_state_dict(tree["encoder"], prefix="encoder.")
+    _dense(tree["colbert"]["proj"], "colbert.proj", out)
+    return out
