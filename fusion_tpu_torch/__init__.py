@@ -8,8 +8,10 @@ tensor on the card always goes to its kernel; a tensor on the CPU goes to the
 kernel's plain PyTorch version, which the CPU tests compare with the JAX
 package.  This package never imports JAX.
 
-Ported so far: the non-scale ``HybridSearcher`` (BM25 dense impacts, DPR,
-SPLADE, ColBERT MaxSim, rank fusion) and everything it runs.
+Ported so far: the ``HybridSearcher`` (BM25 dense impacts, DPR, SPLADE,
+ColBERT MaxSim, rank fusion, int8 corpora) and its scale mode (impact-ordered
+BM25, the int8 DPR corpus through the binned top-k kernel, SPLADE through the
+scatter kernel with an exact rescore), and everything they run.
 """
 
 __version__ = "0.1.0"

@@ -145,3 +145,27 @@ class BiEncoder:
         if out is None:
             return torch.zeros((0, 1), dtype=torch.float32, device=self.device)
         return out
+
+    def build_sparse_index(
+        self, documents: Sequence[str], prune_topk: int = 128, batch_size: int = 32
+    ):
+        """Prune each doc's activations to its top ``prune_topk`` (host-side,
+        numpy, one batch at a time) into a fixed-K ``SparseIndex`` on the
+        model's device; ``cos_sim`` models l2-normalize each doc first."""
+        if self.head != "splade":
+            raise ValueError("the sparse index is for SPLADE models")
+        from fusion_tpu_torch.index.sparse import build_sparse_index
+
+        def batches():
+            for start in range(0, len(documents), batch_size):
+                embs = self.encode(
+                    documents[start : start + batch_size], query_mode=False, batch_size=batch_size
+                ).float().cpu().numpy()
+                if self.similarity == "cos_sim":
+                    norms = np.linalg.norm(embs, axis=-1, keepdims=True)
+                    embs = embs / np.maximum(norms, 1e-12)
+                yield embs
+
+        return build_sparse_index(
+            batches(), vocab_size=self.cfg.vocab_size, prune_topk=prune_topk, device=self.device
+        )

@@ -153,6 +153,34 @@ class BM25Index:
         denom = tf + k1 * (1.0 - b + b * dl / self.avgdl)
         return idf * (tf * (k1 + 1.0)) / torch.clamp(denom, min=1e-9)
 
+    def _impacts_host(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(term, doc, impact f32) COO postings, computed on the host in f64
+        from the stored f32 idf and doc lengths."""
+        term = self.entry_term[: self.nnz].cpu().numpy()
+        doc = self.entry_doc[: self.nnz].cpu().numpy()
+        tf = self.entry_tf[: self.nnz].cpu().numpy().astype(np.float64)
+        idf = self.idf.cpu().numpy().astype(np.float64)[term]
+        if self.variant == "tfidf":
+            impacts = idf * tf
+        else:
+            dl = self.doc_len.cpu().numpy().astype(np.float64)[doc]
+            impacts = idf * tf * (self.k1 + 1.0) / (
+                tf + self.k1 * (1.0 - self.b + self.b * dl / self.avgdl)
+            )
+        return term, doc, impacts.astype(np.float32)
+
+    def to_impact_index(self, cap: int = 4096):
+        """Term-major impact-ordered index (``index/inverted.py``), the
+        corpus-scale BM25 form: scoring costs O(Q·terms·cap), independent of
+        N.  Built on the host, placed on the index's device."""
+        from fusion_tpu_torch.index.inverted import build_impact_index
+
+        term, doc, impacts = self._impacts_host()
+        return build_impact_index(
+            term, doc, impacts, vocab_size=self.vocab_size, n_docs=self.n_docs, cap=cap,
+            device=self.entry_tf.device,
+        )
+
     def build_dense_impacts(self, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         """The [V+1, N] impact matrix for the current (k1, b), built on the
         index's device.  Postings are unique (doc, term) pairs, so each cell

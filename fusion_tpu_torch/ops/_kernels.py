@@ -4,7 +4,7 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  ``load(name)``
 compiles it for Hopper (``sm_90a``) at first use into ``_build/`` (listed in
 ``.gitignore``), keyed by a hash of the source and flags, and returns the
-loaded library.  Nothing here runs at import, so the package imports on a
+loaded library; ``load_all(names)`` runs the compilers in parallel.  Nothing here runs at import, so the package imports on a
 machine without ``nvcc`` or a card; a build failure raises with the
 compiler's output.
 """
@@ -65,3 +65,13 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.build_log, lib.build_seconds = log, seconds
     return lib
+
+
+def load_all(names) -> list[ctypes.CDLL]:
+    """``load`` for several sources at once: one ``nvcc`` per source, all
+    running together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(load, names))

@@ -72,8 +72,8 @@ def test_search_systems_leg_matches_jax(searchers, system):
 @pytest.mark.parametrize(
     "option",
     [
-        dict(scale_mode=True),
-        dict(int8_corpus=True),
+        dict(scale_mode=True, colbert_compressed=True, colbert_plaid=True),
+        dict(int8_corpus=True, colbert_compressed=True),
         dict(colbert_compressed=True),
         dict(colbert_plaid=True),
         dict(cross_encoder=object()),
