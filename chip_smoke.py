@@ -4,9 +4,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 
 Phases (each prints its result and wall time; any failed check exits 1):
   1. device   — requires CUDA; prints the card's name and power limit;
-  2. build    — compiles the three kernels (csrc/maxsim.cu, dense_topk.cu,
-                scatter_score.cu), one nvcc each, all at once; prints their
-                register / shared-memory reports;
+  2. build    — compiles the four kernels (csrc/maxsim.cu, dense_topk.cu,
+                scatter_score.cu, gather_rows.cu), one nvcc each, all at once;
+                prints their register / shared-memory reports;
   3. kernel   — K1 (MaxSim) against its plain version at the serving shape
                 (Ld 128, N 28,032, D 128, QL 64x32) and a ragged one;
                 |kernel - plain| <= 1e-2 + 1e-3 |plain| (bf16 products
@@ -29,14 +29,24 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 scores within 1e-6 + 1e-5 |plain| (a doc's score is an f32
                 sum of at most Kq bf16 values; the kernel's shared-memory
                 atomics add them in another order on every run);
-  6. small    — a tiny searcher on the CPU (plain paths) and on the card
+  6. k4       — K4 (the candidate-row gather) against its plain version
+                (index_select per source) at a ragged shape (Q 5, K 37, five
+                sources: int32 rows of 7, u8 rows of 3 bytes, f32 rows of 5,
+                u8 [4, 32] rows and bool scalars; rows 0 and N-1 in every
+                query): outputs byte-equal (torch.equal); the serving shape
+                runs in phase 12;
+  7. small    — a tiny searcher on the CPU (plain paths) and on the card
                 (kernels) from the same seeds: per-system sorted scores agree
                 within 1e-2 (f32 encoders, bf16/int8-stored corpora: an ulp
                 of f32 difference can round a stored or query value to its
                 bf16 neighbour, 2^-8 apart relatively);
-  7. scale_small — the same for a tiny scale-mode searcher with an int8
+  8. scale_small — the same for a tiny scale-mode searcher with an int8
                 corpus (dense_impl="fused", splade_impl="scatter"), 1e-2;
-  8. slice    — HybridSearcher.build at CamemBERT-base width (random seeded
+  9. plaid_small — a tiny ColBERT searcher whose compressed index and IVF are
+                built once on the CPU and copied to the card: PLAID (K4) and
+                the exhaustive compressed search (K1) on the CPU (plain
+                paths) and on the card agree within 1e-2 (sorted scores);
+ 10. slice    — HybridSearcher.build at CamemBERT-base width (random seeded
                 weights, bf16) over the synthetic zipf corpus of bench.py
                 (seed 42, N 27,940, 40-160 words per doc; Lq 32, Ld 128), then
                 search 192 queries at batch 64 with every kernel launch count
@@ -45,14 +55,23 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 the ColBERT leg through the kernel matches the plain path on
                 one batch (mean top-100 overlap >= 0.99); times warm batches
                 with CUDA events and reads the peak device memory;
-  9. scale_build — HybridSearcher.build(scale_mode=True, int8_corpus=True,
+ 11. scale_build — HybridSearcher.build(scale_mode=True, int8_corpus=True,
                 dense_impl="fused", splade_impl="scatter") over the same
                 corpus and models, all four legs (impact_cap 1024: at 14
                 chunks of 2048 docs, 64 query terms x the equal-mass
                 per-chunk cap must fit the 8,192-posting layout); search 192
                 queries at batch 64: K1, K2 and K3 each launch; fused output
                 checked; warm timing and peak memory;
- 10. scale_mmarco — the three-leg scale-mode searcher (BM25 impact index, int8
+ 12. plaid_build — the same build with colbert_compressed=True and
+                colbert_plaid=True (serving defaults: nbits 2, IVF cap 1,024,
+                nprobe 4, ncand 1,024, no prune tier, gather rescore); search
+                192 queries at batch 64: K2, K3 and K4 each launch; fused
+                output checked; on one batch the exhaustive compressed search
+                (decompress + K1) against the same search with the plain
+                maxima (top-100 overlap >= 0.99) and PLAID against it (overlap
+                reported, not a gate); build time by part (encode, k-means,
+                compression, IVF), warm timing and peak memory;
+ 13. scale_mmarco — the three-leg scale-mode searcher (BM25 impact index, int8
                 DPR, SPLADE scatter + exact rescore) at mMARCO's 8,912,896 docs:
                 the query side is real (tokenizers, the zipf BM25Index, the
                 CamemBERT-width DPR and SPLADE encoders), the index arrays are
@@ -64,13 +83,32 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 batch 64: K2 and K3 launch; fused output checked; the DPR and
                 SPLADE legs through the kernels against the same legs through
                 the plain versions on one batch (top-100 overlap >= 0.99);
-                warm timing and peak memory.
+                warm timing and peak memory.  Then ColBERT joins as the fourth
+                leg: a PLAID index synthesized on the card at
+                bench_mmarco.py's shapes (C 131,072 centroids ~ N(0, 0.08^2),
+                Ld 32, nbits 2 codes of random bytes, bucket weights
+                [-0.04, -0.01, 0.01, 0.04], an all-ones u8 mask, a deduped IVF
+                of cap 1,024), the real CamemBERT-width ColBERT query encoder;
+                K4 against its plain version at the serving shape (Q 64 x
+                K 512 over those arrays, byte-equal; device time per call
+                from 10 back-to-back calls queued behind a device sleep, and
+                median CUDA-event stream times of 10 alternating runs, host
+                calls included; the calls cycle through 10 random index
+                sets); search 192 queries: K2, K3 and K4 launch; the
+                PLAID leg through K4 against the same leg with the plain
+                gather (top-100 overlap >= 0.99, max score difference
+                reported); the served ColBERT leg traced on one batch: device
+                time inside each plaid.* profiler range of index/plaid.py,
+                device operations and stream time per call; warm timing and
+                peak memory of the four-leg searcher.
 
 ``--profile`` adds a torch.profiler pass over one warm search of each
 searcher and prints the device busy share and the top kernels.
 
 The line before the last is the kernels' JSON record (launches from the
-slice's search for K1 and the mMARCO search for K2 and K3); the last line is
+slice's search for K1 and the four-leg mMARCO search for K2, K3 and K4; ms
+are CUDA-event medians for K1-K3 and queued device times for K4); the
+last line is
 {"ok": true, "device": {...}}.  Matmul precision on the card: TF32 off for
 matmuls and cuDNN, bf16 reduced-precision reductions off.
 """
@@ -79,6 +117,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import os
 import statistics
@@ -96,6 +135,9 @@ MM_DOCS, MM_H, MM_DPC, MM_CAPC, MM_BM25_CAP, MM_STORE_K, MM_DEPTH = (
     8_912_896, 768, 16_384, 32, 2048, 128, 512,
 )
 SPLADE_VOCAB = 32_005  # CamemBERT's vocabulary: the SPLADE encoder's output width
+# the PLAID index of bench_mmarco.py: centroids, tokens per doc, bits per
+# dimension, docs per centroid list, and the serving rescore chunk
+MM_C, MM_LD, MM_NBITS, MM_IVF_CAP, MM_CAND_CHUNK = 131_072, 32, 2, 1024, 512
 
 
 def fail(msg: str) -> None:
@@ -124,6 +166,43 @@ def timed_ms(torch, fn, runs: int) -> list[float]:
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end))
     return out
+
+
+def device_events(prof) -> list:
+    """The device operations of a torch.profiler trace (kernels, copies,
+    fills), without the device-side spans of ``record_function`` ranges."""
+    return [
+        e for e in prof.events()
+        if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
+        and not e.name.startswith("plaid.")
+    ]
+
+
+def queued_ms(torch, fn, runs: int, sleep_cycles=50_000_000) -> tuple[float, bool]:
+    """(device time in ms per call of ``fn()``, whether the queue stayed
+    full): ``runs`` back-to-back calls between two CUDA events that the host
+    enqueues behind a device sleep of ``sleep_cycles`` clocks (~25 ms), so
+    every call is queued before the first one starts and no host time falls
+    between the events.  The queue stayed full if the host finished
+    enqueueing before the sleep ended."""
+    sleep0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda.synchronize()
+    sleep0.record()
+    torch.cuda._sleep(sleep_cycles)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1000
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs, enqueue_ms < sleep0.elapsed_time(start)
+
+
+def cycling(fn, args, start=0):
+    """``fn`` as a no-argument call that takes the next of ``args`` each time."""
+    it = itertools.islice(itertools.cycle(args), start, None)
+    return lambda: fn(next(it))
 
 
 def alternating_ms(torch, kernel_fn, plain_fn, runs: int) -> tuple[float, float]:
@@ -281,6 +360,52 @@ def k3_check(torch, scatter_score, seed, q_n, kq, vocab, n_chunks, capc, dpc, ru
     return err, checked, k_ms, p_ms
 
 
+def k4_check(torch, gather_rows, srcs, idx, runs, fresh=()):
+    """K4 at one shape: every output byte-equal to the plain gather's (fails
+    otherwise); (max |kernel - plain|, {kernel and plain device ms per call,
+    from ``runs`` queued back-to-back calls each (``queued_ms``); kernel and
+    plain stream ms, medians of ``runs`` alternating CUDA-event runs, host
+    calls included}).  The timed calls cycle through ``idx`` and the index
+    tensors in ``fresh``, so that rows are not all still in L2."""
+    got = gather_rows.gather_rows_cuda(srcs, idx)
+    want = gather_rows.gather_rows_plain(srcs, idx)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w),
+              f"K4 source {i} ({w.dtype}, rows {tuple(w.shape[2:])}) differs from the plain gather")
+        err = max(err, (g.to(torch.float64) - w.to(torch.float64)).abs().max().item())
+    if not runs:
+        return err, {}
+    pool = (idx, *fresh)
+    stream = alternating_ms(
+        torch, cycling(lambda i: gather_rows.gather_rows_cuda(srcs, i), pool),
+        cycling(lambda i: gather_rows.gather_rows_plain(srcs, i), pool, len(pool) // 2), runs,
+    )
+    k_ms, k_full = queued_ms(torch, cycling(lambda i: gather_rows.gather_rows_cuda(srcs, i), pool), runs)
+    p_ms, p_full = queued_ms(torch, cycling(lambda i: gather_rows.gather_rows_plain(srcs, i), pool), runs)
+    return err, {
+        "kernel_device_ms": k_ms, "plain_device_ms": p_ms, "queue_full": k_full and p_full,
+        "kernel_stream_ms": stream[0], "plain_stream_ms": stream[1],
+    }
+
+
+def k4_ragged(torch, gather_rows, seed=8, n=1000) -> float:
+    """K4 at a ragged shape (odd row widths, mixed dtypes, rows 0 and N-1):
+    the max |kernel - plain|."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    srcs = (
+        torch.randint(0, 2**31 - 1, (n, 7), device="cuda", generator=gen, dtype=torch.int32),
+        torch.randint(0, 256, (n, 3), device="cuda", generator=gen, dtype=torch.uint8),
+        torch.rand(n, 5, device="cuda", generator=gen),
+        torch.randint(0, 256, (n, 4, 32), device="cuda", generator=gen, dtype=torch.uint8),
+        torch.rand(n, device="cuda", generator=gen) > 0.5,
+    )
+    idx = torch.randint(0, n, (5, 37), device="cuda", generator=gen, dtype=torch.int32)
+    idx[:, 0], idx[:, 1] = n - 1, 0
+    return k4_check(torch, gather_rows, srcs, idx, 0)[0]
+
+
 def check_ranked(torch, np, ranked, n_queries, topk, n_docs) -> None:
     """Fused output: int32 [Q, k] ids in [0, N) or -1, no duplicates in a
     row, finite scores that never increase along a row."""
@@ -348,6 +473,101 @@ def scale_legs_overlap(torch, np, searcher, batch) -> dict[str, float]:
     }
 
 
+def query_tokens(searcher, batch):
+    """(ColBERT query tokens f32 [Q, Lq, D], mask f32 [Q, Lq]) of a batch."""
+    inputs = searcher._prepare_inputs(batch)
+    q_tok = searcher.colbert_model.embed_tokens(inputs["cb_ids"], inputs["cb_mask"])
+    return q_tok.float(), inputs["cb_mask"].float()
+
+
+def compressed_overlaps(torch, np, maxsim, searcher, batch) -> dict[str, float]:
+    """On one batch: the exhaustive compressed search (decompress + the
+    maxima op, K1 on the card) against the same search with the plain maxima
+    op, and the served PLAID leg against the exhaustive search."""
+    from fusion_tpu_torch.core.ranked import ranked_from_scores
+    from fusion_tpu_torch.index.compression import maxsim_search_compressed
+
+    q_tok, mask = query_tokens(searcher, batch)
+    index = searcher.colbert_index
+    kernel = maxsim_search_compressed(q_tok, mask, index, k=searcher.topk)
+    cid_tm, codes_tm, mask_tm, doc_valid = index.prepared()
+    corpus_tm = index.decompress_tm(cid_tm, codes_tm, mask_tm)
+    maxima = maxsim.maxsim_maxima_plain(q_tok.to(torch.bfloat16).flatten(0, 1), corpus_tm)
+    plain = (maxima.view(-1, *mask.shape) * mask[None]).sum(-1).T
+    plain = ranked_from_scores(torch.where(doc_valid[None], plain, -torch.inf), kernel.depth)
+    plaid = searcher.search_systems(batch, batch_size=len(batch), external_ids=False)["colbert"]
+    return {
+        "exhaustive_kernel_vs_plain": overlap100(np, kernel.ids.cpu().numpy(), plain.ids.cpu().numpy()),
+        "plaid_vs_exhaustive": overlap100(np, plaid.ids.numpy(), kernel.ids.cpu().numpy()),
+    }
+
+
+def plaid_leg_vs_plain(torch, np, searcher, batch) -> tuple[float, float]:
+    """The PLAID leg as served (candidate rows through K4) against the same
+    leg with ``index/plaid.py``'s gather pointed at the plain version for one
+    call: (top-100 overlap, max |score diff|)."""
+    from fusion_tpu_torch.index import plaid
+    from fusion_tpu_torch.ops.gather_rows import gather_rows, gather_rows_cuda, gather_rows_plain
+
+    leg = searcher.search_systems(batch, batch_size=len(batch), external_ids=False)["colbert"]
+    launches = gather_rows_cuda.launches
+    plaid.gather_rows = gather_rows_plain
+    try:
+        plain = searcher.search_systems(batch, batch_size=len(batch), external_ids=False)["colbert"]
+    finally:
+        plaid.gather_rows = gather_rows
+    check(gather_rows_cuda.launches == launches, "PLAID leg: the plain-gather search launched K4")
+    a, b = leg.scores.numpy(), plain.scores.numpy()
+    fin = np.isfinite(b)
+    check(bool((np.isfinite(a) == fin).all()), "PLAID leg: the -inf pattern differs kernel vs plain gather")
+    diff = float(np.abs(np.where(fin, a - b, 0.0)).max())
+    return overlap100(np, leg.ids.numpy(), plain.ids.numpy()), diff
+
+
+def plaid_breakdown(torch, searcher, batch, runs=3) -> dict:
+    """The served ColBERT leg (query encoder + ``plaid_search``) on one
+    batch, traced with torch.profiler over ``runs`` calls: per ``plaid.*``
+    range of ``index/plaid.py``, the device time (ms per call) of the
+    device operations that ran inside the range's device-side span (one
+    stream, so exactly those launched inside the range, nested ranges
+    included; the gaps between them are not counted); K4's traced device
+    time by kernel name, and its traced launches beside its counted ones;
+    the whole leg's device time and device operations per call; and its
+    stream time (median of ``runs`` CUDA-event runs, host dispatch
+    included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fusion_tpu_torch.ops.gather_rows import gather_rows_cuda
+
+    inputs = searcher._prepare_inputs(batch)
+    leg = lambda: searcher._colbert_leg(inputs)  # noqa: E731
+    stream = statistics.median(timed_ms(torch, leg, runs))
+    torch.cuda.synchronize()
+    launches = gather_rows_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            leg()
+        torch.cuda.synchronize()
+    launches = (gather_rows_cuda.launches - launches) / runs
+    ops = device_events(prof)
+    spans = [e for e in prof.events() if e.device_type.name == "CUDA" and e.name.startswith("plaid.")]
+    check(bool(spans), "PLAID breakdown: the trace holds no device-side span of a plaid.* range")
+    out = {}
+    for span in spans:
+        lo, hi = span.time_range.start, span.time_range.end
+        inside = sum(e.self_device_time_total for e in ops if lo <= e.time_range.start and e.time_range.end <= hi)
+        key = f"{span.name[len('plaid.'):]}_device_ms"
+        out[key] = out.get(key, 0.0) + inside / 1000 / runs
+    k4 = [e for e in ops if "gather_rows_kernel" in e.name]
+    out["k4_traced_device_ms"] = sum(e.self_device_time_total for e in k4) / 1000 / runs
+    out["k4_traced_launches"], out["k4_launches"] = len(k4) / runs, launches
+    out["leg_device_ms"] = sum(e.self_device_time_total for e in ops) / 1000 / runs
+    out["leg_stream_ms"] = stream
+    out["leg_device_ops"] = len(ops) / runs
+    check(launches > 0, f"PLAID breakdown: K4 never launched in the served leg: {out}")
+    return out
+
+
 def zipf_corpus(np, n, n_queries, seed=42, vocab=30_000):
     """The synthetic corpus of bench.py: zipf-distributed words t<id>,
     40-160 words per doc; queries of 6 words."""
@@ -397,17 +617,83 @@ def small_agreement(torch, np, scale: bool):
     return worst
 
 
-def reset_counts(maxsim, dense_topk, scatter_score) -> None:
+def plaid_small_agreement(torch, np) -> float:
+    """A tiny compressed ColBERT searcher whose index and IVF are built once
+    on the CPU and copied to the card: PLAID and the exhaustive compressed
+    search on the CPU (plain paths) against the card (K4, K1)."""
+    from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.models.encoder import EncoderConfig
+    from fusion_tpu_torch.serving import HybridSearcher
+
+    docs, queries = zipf_corpus(np, 300, 9, seed=7, vocab=400)
+    cfg = EncoderConfig.tiny(vocab_size=512)
+    kw = dict(dim=16, seed=3, max_query_length=LQ, max_doc_length=48)
+    cpu = HybridSearcher.build(
+        dict(enumerate(docs)), colbert_model=ColBERT(cfg, device="cpu", **kw), topk=20,
+        batch_size=64, colbert_compressed=True, colbert_plaid=True,
+    )
+    card_model = ColBERT(cfg, device="cuda", **kw)
+    index, ivf, cpu_ivf = cpu.colbert_index.to("cuda"), cpu.colbert_ivf.to("cuda"), cpu.colbert_ivf
+    worst = 0.0
+    for name, plaid in (("plaid", True), ("exhaustive", False)):
+        cpu.colbert_ivf = cpu_ivf if plaid else None
+        card = HybridSearcher(
+            corpus_ids=cpu.corpus_ids, colbert_model=card_model, colbert_index=index,
+            colbert_ivf=ivf if plaid else None, topk=20, device=torch.device("cuda"),
+        )
+        a = torch.sort(cpu.search_systems(queries, batch_size=4)["colbert"].scores, dim=1, descending=True).values
+        b = torch.sort(card.search_systems(queries, batch_size=4)["colbert"].scores, dim=1, descending=True).values
+        fin = torch.isfinite(a)
+        check(bool((fin == torch.isfinite(b)).all()), f"plaid_small: {name} -inf pattern differs")
+        err = torch.where(fin, (a - b).abs(), 0.0).max().item()
+        check(err <= 1e-2, f"plaid_small: {name} scores differ CPU vs card by {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def synth_plaid(torch, n=MM_DOCS, gen_seed=31, device="cuda", ch=131_072):
+    """The mMARCO-size PLAID index on the card from a seeded generator, at
+    bench_mmarco.py's shapes and distributions."""
+    from fusion_tpu_torch.index.compression import CompressedTokenIndex
+    from fusion_tpu_torch.index.plaid import IVFIndex, dedup_ivf_rows
+
+    gen = torch.Generator(device=device).manual_seed(gen_seed)
+    packed = DIM * MM_NBITS // 8
+    cid = torch.empty((n, MM_LD), dtype=torch.int32, device=device)
+    codes = torch.empty((n, MM_LD, packed), dtype=torch.uint8, device=device)
+    for s in range(0, n, ch):
+        rows = min(ch, n - s)
+        cid[s : s + rows] = torch.randint(0, MM_C, (rows, MM_LD), device=device, generator=gen, dtype=torch.int32)
+        codes[s : s + rows] = torch.randint(0, 256, (rows, MM_LD, packed), device=device, generator=gen,
+                                            dtype=torch.uint8)
+    index = CompressedTokenIndex(
+        centroids=torch.randn(MM_C, DIM, device=device, generator=gen) * 0.08,
+        centroid_ids=cid, codes=codes,
+        mask=torch.ones((n, MM_LD), dtype=torch.uint8, device=device),
+        bucket_weights=torch.tensor([-0.04, -0.01, 0.01, 0.04], device=device), nbits=MM_NBITS,
+    )
+    # duplicate-free lists: the candidate stage's suffix max relies on it
+    ivf_doc = dedup_ivf_rows(
+        torch.randint(0, n, (MM_C, MM_IVF_CAP), device=device, generator=gen, dtype=torch.int32), n
+    )
+    ivf = IVFIndex(ivf_doc, n_docs=n, cap=MM_IVF_CAP)
+    gb = (index.nbytes() + index.mask.nbytes + ivf.nbytes()) / 1e9
+    return index, ivf, gb
+
+
+def reset_counts(maxsim, dense_topk, scatter_score, gather_rows) -> None:
     maxsim.maxsim_maxima_cuda.launches = 0
     dense_topk.binmax_cuda.launches = 0
     scatter_score.scatter_binmax_cuda.launches = 0
+    gather_rows.gather_rows_cuda.launches = 0
 
 
-def counts(maxsim, dense_topk, scatter_score) -> dict[str, int]:
+def counts(maxsim, dense_topk, scatter_score, gather_rows) -> dict[str, int]:
     return {
         "K1": maxsim.maxsim_maxima_cuda.launches,
         "K2": dense_topk.binmax_cuda.launches,
         "K3": scatter_score.scatter_binmax_cuda.launches,
+        "K4": gather_rows.gather_rows_cuda.launches,
     }
 
 
@@ -439,7 +725,11 @@ def profile_search(torch, searcher, queries, name) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - w0) * 1000
     averages = prof.key_averages()
-    events = [e for e in averages if e.device_type.name == "CUDA"]
+    events = [
+        e for e in averages
+        if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
+        and not e.key.startswith("plaid.")
+    ]
     dev_ms = sum(e.self_device_time_total for e in events) / 1000
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     host = sorted((e for e in averages if e.device_type.name == "CPU"),
@@ -525,10 +815,11 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     phase("device", t0, kind=repr(kind), count=count, torch=torch.__version__, cuda=torch.version.cuda)
 
-    from fusion_tpu_torch.ops import _kernels, dense_topk, maxsim, scatter_score
+    from fusion_tpu_torch.ops import _kernels, dense_topk, gather_rows, maxsim, scatter_score
 
+    kernels = (maxsim, dense_topk, scatter_score, gather_rows)
     t0 = time.perf_counter()
-    libs = _kernels.load_all(["maxsim", "dense_topk", "scatter_score"])
+    libs = _kernels.load_all(["maxsim", "dense_topk", "scatter_score", "gather_rows"])
     phase("build", t0, nvcc_s=[f"{lib.build_seconds:.3f}" for lib in libs])
     for lib in libs:
         print(lib.build_log.strip(), flush=True)
@@ -567,9 +858,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    k4_err = k4_ragged(torch, gather_rows)
+    phase("k4", t0, shape="Q5xK37 (int32x7, u8x3, f32x5, u8x4x32, bool rows; rows 0 and N-1)",
+          byte_equal=True, max_abs_err=k4_err)
+
+    t0 = time.perf_counter()
     phase("small", t0, max_sorted_score_diff=small_agreement(torch, np, scale=False))
     t0 = time.perf_counter()
     phase("scale_small", t0, max_sorted_score_diff=small_agreement(torch, np, scale=True))
+    t0 = time.perf_counter()
+    phase("plaid_small", t0, max_sorted_score_diff=plaid_small_agreement(torch, np))
 
     from fusion_tpu_torch.models.biencoder import BiEncoder
     from fusion_tpu_torch.models.colbert import ColBERT
@@ -594,10 +892,10 @@ def main() -> int:
     torch.cuda.synchronize()
     phase("index", t0, systems=",".join(searcher.active_systems), docs=N_DOCS)
 
-    reset_counts(maxsim, dense_topk, scatter_score)
+    reset_counts(*kernels)
     t0 = time.perf_counter()
     ranked, _ = searcher.search(queries, batch_size=BATCH)
-    slice_counts = counts(maxsim, dense_topk, scatter_score)
+    slice_counts = counts(*kernels)
     phase("search", t0, queries=N_QUERIES, launches=slice_counts)
     check(slice_counts["K1"] >= N_QUERIES // BATCH, f"MaxSim kernel launched {slice_counts['K1']} times")
     check_ranked(torch, np, ranked, N_QUERIES, TOPK, N_DOCS)
@@ -625,18 +923,52 @@ def main() -> int:
     sc_idx = scale.splade_scatter_index
     phase("scale_index", t0, systems=",".join(scale.active_systems), docs=N_DOCS,
           splade_layout=f"C{sc_idx.num_chunks}xcapc{sc_idx.cap_per_chunk}xdpc{sc_idx.docs_per_chunk}")
-    reset_counts(maxsim, dense_topk, scatter_score)
+    reset_counts(*kernels)
     t0 = time.perf_counter()
     ranked, _ = scale.search(queries, batch_size=BATCH)
-    build_counts = counts(maxsim, dense_topk, scatter_score)
+    build_counts = counts(*kernels)
     phase("scale_search", t0, queries=N_QUERIES, launches=build_counts)
-    for name, launched in build_counts.items():
-        check(launched > 0, f"scale_build: {name} never launched during the search")
+    for name in ("K1", "K2", "K3"):
+        check(build_counts[name] > 0, f"scale_build: {name} never launched during the search")
     check_ranked(torch, np, ranked, N_QUERIES, TOPK, N_DOCS)
     warm_timing(torch, scale, queries, "scale_build", smi)
     if args.profile:
         profile_search(torch, scale, queries, "scale_build")
-    del scale, ranked, colbert
+    del scale, ranked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    pb = HybridSearcher.build(
+        dict(enumerate(docs)), bm25_docs=docs, dense_model=dense, splade_model=splade,
+        colbert_model=colbert, topk=TOPK, batch_size=256, fusion_method="rrf", device="cuda",
+        scale_mode=True, int8_corpus=True, dense_impl="fused", splade_impl="scatter",
+        impact_cap=1024, colbert_compressed=True, colbert_plaid=True,
+    )
+    torch.cuda.synchronize()
+    cb = pb.colbert_index
+    phase("plaid_index", t0, systems=",".join(pb.active_systems), docs=N_DOCS,
+          colbert_parts_s=pb.build_seconds, centroids=cb.centroids.shape[0],
+          colbert_gb=(cb.nbytes() + cb.mask.nbytes + pb.colbert_ivf.nbytes()) / 1e9,
+          build_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    ranked, _ = pb.search(queries, batch_size=BATCH)
+    plaid_counts = counts(*kernels)
+    phase("plaid_search", t0, queries=N_QUERIES, launches=plaid_counts)
+    for name in ("K2", "K3", "K4"):
+        check(plaid_counts[name] > 0, f"plaid_build: {name} never launched during the search")
+    check_ranked(torch, np, ranked, N_QUERIES, TOPK, N_DOCS)
+    t0 = time.perf_counter()
+    overlaps = compressed_overlaps(torch, np, maxsim, pb, queries[:BATCH])
+    phase("plaid_colbert_leg", t0, top100_overlap=overlaps)
+    check(overlaps["exhaustive_kernel_vs_plain"] >= 0.99,
+          f"plaid_build: exhaustive compressed search kernel vs plain overlap {overlaps}")
+    warm_timing(torch, pb, queries, "plaid_build", smi)
+    if args.profile:
+        profile_search(torch, pb, queries, "plaid_build")
+    del pb, cb, ranked
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -652,10 +984,10 @@ def main() -> int:
     torch.cuda.synchronize()
     phase("mmarco_index", t0, systems=",".join(mm.active_systems), docs=MM_DOCS, index_gb=index_gb,
           bm25_vocab=bm25.vocab_size, splade_vocab=SPLADE_VOCAB)
-    reset_counts(maxsim, dense_topk, scatter_score)
+    reset_counts(*kernels)
     t0 = time.perf_counter()
     ranked, _ = mm.search(queries, batch_size=BATCH)
-    mm_counts = counts(maxsim, dense_topk, scatter_score)
+    mm_counts = counts(*kernels)
     phase("mmarco_search", t0, queries=N_QUERIES, launches=mm_counts)
     for name in ("K2", "K3"):
         check(mm_counts[name] > 0, f"scale_mmarco: {name} never launched during the search")
@@ -669,6 +1001,46 @@ def main() -> int:
     if args.profile:
         profile_search(torch, mm, queries, "scale_mmarco")
 
+    # ColBERT joins as the fourth leg: PLAID over the synthesized index
+    t0 = time.perf_counter()
+    cb_index, cb_ivf, cb_gb = synth_plaid(torch)
+    torch.cuda.synchronize()
+    phase("mmarco_plaid_index", t0, docs=MM_DOCS, colbert_gb=cb_gb, index_gb=index_gb + cb_gb,
+          centroids=MM_C, ld=MM_LD, nbits=MM_NBITS, ivf_cap=MM_IVF_CAP)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    idx = torch.randint(0, MM_DOCS, (BATCH, MM_CAND_CHUNK), device="cuda", generator=gen, dtype=torch.int32)
+    idx[:, 0] = MM_DOCS - 1
+    fresh = [torch.randint(0, MM_DOCS, idx.shape, device="cuda", generator=gen, dtype=torch.int32)
+             for _ in range(RUNS - 1)]
+    err, k4_times = k4_check(
+        torch, gather_rows, (cb_index.centroid_ids, cb_index.codes, cb_index.mask), idx, RUNS, fresh
+    )
+    phase("k4", t0, shape=f"Q64xK512 over cid i32[{MM_DOCS},32], codes u8[{MM_DOCS},32,32], mask u8[{MM_DOCS},32]",
+          byte_equal=True, max_abs_err=err, **k4_times)
+    k4_ms, k4_plain = k4_times["kernel_device_ms"], k4_times["plain_device_ms"]
+    k4_err = max(k4_err, err)
+    mm.colbert_model, mm.colbert_index, mm.colbert_ivf = colbert, cb_index, cb_ivf
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    ranked, _ = mm.search(queries, batch_size=BATCH)
+    mm4_counts = counts(*kernels)
+    phase("mmarco4_search", t0, queries=N_QUERIES, systems=",".join(mm.active_systems), launches=mm4_counts)
+    for name in ("K2", "K3", "K4"):
+        check(mm4_counts[name] > 0, f"scale_mmarco four legs: {name} never launched during the search")
+    check_ranked(torch, np, ranked, N_QUERIES, TOPK, MM_DOCS)
+    t0 = time.perf_counter()
+    legs = scale_legs_overlap(torch, np, mm, queries[:BATCH])
+    legs["colbert"], colbert_diff = plaid_leg_vs_plain(torch, np, mm, queries[:BATCH])
+    phase("mmarco4_legs", t0, top100_overlap_kernel_vs_plain=legs, colbert_max_score_diff=colbert_diff)
+    for name, value in legs.items():
+        check(value >= 0.99, f"scale_mmarco four legs: {name} leg kernel vs plain top-100 overlap {value}")
+    t0 = time.perf_counter()
+    phase("mmarco_plaid_breakdown", t0, **plaid_breakdown(torch, mm, queries[:BATCH]))
+    warm_timing(torch, mm, queries, "scale_mmarco4", smi)
+    if args.profile:
+        profile_search(torch, mm, queries, "scale_mmarco4")
+
     record = {"kernels": [
         {
             "name": "maxsim_maxima_T", "route": "cuda",
@@ -680,13 +1052,19 @@ def main() -> int:
             "name": "dense_binmax", "route": "cuda",
             "source": "fusion_tpu_torch/csrc/dense_topk.cu",
             "replaces": "fusion_tpu/ops/dense_topk.py:102",
-            "launches": mm_counts["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
+            "launches": mm4_counts["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
         },
         {
             "name": "scatter_binmax", "route": "cuda",
             "source": "fusion_tpu_torch/csrc/scatter_score.cu",
             "replaces": "fusion_tpu/ops/scatter_score.py:138",
-            "launches": mm_counts["K3"], "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
+            "launches": mm4_counts["K3"], "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
+        },
+        {
+            "name": "gather_rows", "route": "cuda",
+            "source": "fusion_tpu_torch/csrc/gather_rows.cu",
+            "replaces": "fusion_tpu/ops/gather_rows.py:41",
+            "launches": mm4_counts["K4"], "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
         },
     ]}
     print(json.dumps(record), flush=True)

@@ -11,7 +11,9 @@ package.  This package never imports JAX.
 Ported so far: the ``HybridSearcher`` (BM25 dense impacts, DPR, SPLADE,
 ColBERT MaxSim, rank fusion, int8 corpora) and its scale mode (impact-ordered
 BM25, the int8 DPR corpus through the binned top-k kernel, SPLADE through the
-scatter kernel with an exact rescore), and everything they run.
+scatter kernel with an exact rescore, ColBERT's residual-compressed index
+searched exhaustively or by PLAID through the row-gather kernel), and
+everything they run.
 """
 
 __version__ = "0.1.0"

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import string
+import time
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from fusion_tpu_torch.data.tokenization import TextEncoder, WordHashTokenizer
+from fusion_tpu_torch.index.compression import compress_token_index
 from fusion_tpu_torch.models.encoder import (
     Encoder,
     EncoderConfig,
@@ -147,3 +149,27 @@ class ColBERT:
         mask = torch.zeros((n_pad, masks.shape[1]), dtype=torch.float32, device=self.device)
         mask[:n] = torch.as_tensor(masks, dtype=torch.float32, device=self.device)
         return TokenIndex(tokens=tokens, mask=mask)
+
+    def index_compressed(
+        self,
+        documents: Sequence[str],
+        batch_size: int = 32,
+        pad_docs_to: int = 128,
+        nbits: int = 2,
+        kmeans_iters: int = 4,
+        num_centroids: int | None = None,
+        timings: dict | None = None,
+    ):
+        """Residual-compressed index (colbert-ai's nbits=2, kmeans_niters=4),
+        about 7x smaller than the bf16 token matrix.  ``timings``, when given,
+        receives the seconds spent encoding, in k-means and compressing."""
+        t0 = time.perf_counter()
+        raw = self.index(documents, batch_size=batch_size, pad_docs_to=pad_docs_to)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if timings is not None:
+            timings["encode"] = time.perf_counter() - t0
+        return compress_token_index(
+            raw.tokens.to(torch.float32), raw.mask, nbits=nbits, kmeans_iters=kmeans_iters,
+            num_centroids=num_centroids, timings=timings,
+        )

@@ -1,4 +1,6 @@
-"""Flax parameter trees (numpy leaves) → state dicts of the port's modules.
+"""Flax parameter trees (numpy leaves) → state dicts of the port's modules,
+and the JAX package's compressed ColBERT index (as numpy arrays) → the
+port's index objects.
 
 Layouts that differ between the two packages:
   * a Flax ``Dense`` kernel is ``[in, out]``, the transpose of
@@ -20,6 +22,10 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+
+def _array(x, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=dtype))
 
 
 def _tree(variables: Mapping) -> Mapping:
@@ -84,3 +90,28 @@ def colbert_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     out = encoder_state_dict(tree["encoder"], prefix="encoder.")
     _dense(tree["colbert"]["proj"], "colbert.proj", out)
     return out
+
+
+def plaid_index_from_arrays(
+    centroids, centroid_ids, codes, mask, bucket_weights, nbits: int,
+    ivf_doc=None, n_docs: int | None = None, cap: int | None = None, device="cpu",
+):
+    """The JAX package's ``CompressedTokenIndex`` arrays (and, with
+    ``ivf_doc``, its ``IVFIndex``), given as numpy arrays → the port's
+    ``(CompressedTokenIndex, IVFIndex | None)`` on ``device``, so both
+    packages search one index.  The mask keeps its dtype (f32 or u8)."""
+    from fusion_tpu_torch.index.compression import CompressedTokenIndex
+    from fusion_tpu_torch.index.plaid import IVFIndex
+
+    index = CompressedTokenIndex(
+        centroids=_array(centroids, np.float32).to(device),
+        centroid_ids=_array(centroid_ids, np.int32).to(device),
+        codes=_array(codes, np.uint8).to(device),
+        mask=_array(mask).to(device),
+        bucket_weights=_array(bucket_weights, np.float32).to(device),
+        nbits=int(nbits),
+    )
+    ivf = None
+    if ivf_doc is not None:
+        ivf = IVFIndex(_array(ivf_doc, np.int32).to(device), n_docs=int(n_docs), cap=int(cap))
+    return index, ivf

@@ -9,7 +9,7 @@ Two serving forms:
 
   * default — BM25 as a dense-impact matmul, DPR and SPLADE as exact MIPS
     over their corpus matrices (bf16, or per-row int8 with ``int8_corpus``),
-    ColBERT through the MaxSim kernel;
+    ColBERT through the MaxSim kernel over its bf16 token matrix;
   * ``scale_mode`` — the corpus-scale forms: BM25 and SPLADE as impact-ordered
     inverted indexes (SPLADE as the chunked index behind the scatter kernel
     once the corpus spans ≥ 2^20 docs, or on request), with SPLADE queries
@@ -17,17 +17,23 @@ Two serving forms:
     against its stored doc vector; the int8 DPR corpus goes through the
     fused binned-top-k kernel at the same size (``dense_impl``).
 
-The offline ``build()`` encodes the corpus once per system.  Compressed /
-PLAID ColBERT, the cross-encoder rerank, int8 query encoders, percentile
-normalizations and index persistence are later slices of the port
-(ROADMAP.md Queue 1); asking for them raises ``NotImplementedError``.
+ColBERT at corpus scale is the residual-compressed token index
+(``colbert_compressed``), searched exhaustively by block decompression into
+the MaxSim kernel, or with ``colbert_plaid`` by PLAID: centroid probe → IVF
+candidates → exact rescore of the candidates' rows, which the gather kernel
+fetches.
+
+The offline ``build()`` encodes the corpus once per system.  The
+cross-encoder rerank, int8 query encoders, percentile normalizations and
+index persistence are later slices of the port (ROADMAP.md Queue 1); asking
+for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import ClassVar, Mapping, Sequence
 
 import numpy as np
@@ -35,6 +41,7 @@ import torch
 
 from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores
 from fusion_tpu_torch.fusion.aggregator import FUSION_METHODS, NORMALIZATIONS, Aggregator
+from fusion_tpu_torch.index.compression import CompressedTokenIndex, maxsim_search_compressed
 from fusion_tpu_torch.index.dense_quant import (
     QuantizedDenseIndex,
     quantize_dense_index,
@@ -48,6 +55,7 @@ from fusion_tpu_torch.index.inverted import (
     sparse_to_chunked_impact_index,
     sparse_to_impact_index,
 )
+from fusion_tpu_torch.index.plaid import build_ivf, plaid_search
 from fusion_tpu_torch.index.sparse import build_rescore_store, sparse_rescore
 from fusion_tpu_torch.models.bm25 import BM25Index
 from fusion_tpu_torch.models.encoder import token_tensors
@@ -60,8 +68,6 @@ from fusion_tpu_torch.ops.scatter_score import MAX_POSTING_WIDTH, scatter_impact
 # build() options of the JAX searcher that this port does not serve yet,
 # with the ROADMAP.md Queue 1 item that brings each
 _NOT_PORTED = {
-    "colbert_compressed": "the compressed ColBERT index (Slice B, item 13: the next slice of the port)",
-    "colbert_plaid": "PLAID search (Slice B, item 13: the next slice of the port)",
     "cross_encoder": "the cross-encoder rerank (Slice A, item 9)",
     "encoders_int8": "int8 query encoders (Slice C, item 17)",
 }
@@ -99,7 +105,8 @@ class HybridSearcher:
       'splade'  — BiEncoder(head='splade') + corpus matrix (bf16 or int8), or
                   in scale mode an ImpactIndex / ChunkedImpactIndex with an
                   exact-rescore store
-      'colbert' — ColBERT + TokenIndex
+      'colbert' — ColBERT + TokenIndex, or a CompressedTokenIndex searched
+                  exhaustively, or with an IVFIndex by PLAID
     """
 
     corpus_ids: np.ndarray
@@ -125,7 +132,16 @@ class HybridSearcher:
     splade_rescore_store: object | None = None
     splade_rescore_depth: int = 0
     colbert_model: object | None = None
-    colbert_index: object | None = None
+    colbert_index: object | None = None  # TokenIndex or CompressedTokenIndex
+    colbert_ivf: object | None = None  # IVFIndex → PLAID search
+    plaid_nprobe: int = 4
+    # candidates per query reaching the exact rescore (JAX's measured default)
+    plaid_ncand: int = 1024
+    # candidates left by the centroid-only prune tier; None = no prune tier
+    plaid_ncand_rescore: int | None = None
+    # 'gather' reconstructs every candidate token; 'factored' reuses the
+    # centroid-score table and reconstructs only the residuals
+    plaid_rescore_impl: str = "gather"
     fusion_method: str = "rrf"
     normalization: str | None = None
     linear_weights: Mapping[str, float] | None = None
@@ -135,6 +151,9 @@ class HybridSearcher:
     bm25_preprocess: object | None = None
     device: torch.device = torch.device("cpu")
     _cap_guard_warned: bool = False
+    # seconds per part of the compressed ColBERT build (encode, k-means,
+    # compression, IVF)
+    build_seconds: dict = field(default_factory=dict)
 
     # below this, bin collisions in the binned kernels' 16-doc argmax pack
     # cost real top-k recall (loss ~ k^2 / (2 * N/16))
@@ -160,7 +179,15 @@ class HybridSearcher:
         device="cpu",
         cross_encoder=None,
         colbert_compressed: bool = False,
+        colbert_nbits: int = 2,
         colbert_plaid: bool = False,
+        plaid_nprobe: int = 4,
+        plaid_ncand: int = 1024,
+        plaid_ncand_rescore: int | None = None,
+        plaid_rescore_impl: str = "gather",
+        plaid_gather_impl: str = "auto",
+        plaid_topk_impl: str = "approx",
+        ivf_cap: int = 1024,
         int8_corpus: bool = False,
         scale_mode: bool = False,
         impact_cap: int = 4096,
@@ -181,11 +208,16 @@ class HybridSearcher:
         ``splade_impl`` is 'auto' (the scatter form at ≥ 2^20 docs), 'scatter'
         or 'impact'; the rescore depth defaults to 512 there.
         ``int8_corpus`` stores the DPR / SPLADE corpus matrices (and, outside
-        scale mode, the BM25 impacts) as per-row symmetric int8."""
-        requested = dict(
-            colbert_compressed=colbert_compressed, colbert_plaid=colbert_plaid,
-            cross_encoder=cross_encoder is not None, encoders_int8=encoders_int8,
-        )
+        scale mode, the BM25 impacts) as per-row symmetric int8.
+        ``colbert_compressed`` stores ColBERT's tokens residual-compressed
+        (``colbert_nbits`` per dimension); ``colbert_plaid`` adds the IVF
+        (``ivf_cap`` docs per centroid) and serves the leg by PLAID with the
+        ``plaid_*`` knobs; ``plaid_gather_impl`` takes only 'auto': the
+        candidate-row gather runs the Hopper kernel for an index on the card
+        and the plain gather on the CPU.  ``plaid_topk_impl`` ('approx' or
+        'exact') is checked and dropped: every PLAID select in the port is
+        exact."""
+        requested = dict(cross_encoder=cross_encoder is not None, encoders_int8=encoders_int8)
         for option, wanted in requested.items():
             if wanted:
                 raise NotImplementedError(
@@ -205,6 +237,19 @@ class HybridSearcher:
             raise ValueError(f"splade_impl must be 'auto', 'scatter' or 'impact', got {splade_impl!r}")
         if dense_impl not in ("auto", "exact", "fused"):
             raise ValueError(f"dense_impl must be 'auto', 'exact' or 'fused', got {dense_impl!r}")
+        if colbert_plaid and not colbert_compressed:
+            raise ValueError("colbert_plaid needs colbert_compressed=True: PLAID searches the compressed index")
+        if plaid_gather_impl != "auto":
+            raise ValueError(
+                f"plaid_gather_impl={plaid_gather_impl!r}: the port picks the candidate-row "
+                "gather by device ('auto': the Hopper kernel for an index on the card, the plain "
+                "gather on the CPU); the JAX package's 'pallas', 'pallas_interpret' and 'xla' "
+                "have no counterpart"
+            )
+        if plaid_topk_impl not in ("approx", "exact"):
+            raise ValueError(f"plaid_topk_impl must be 'approx' or 'exact', got {plaid_topk_impl!r}")
+        if plaid_rescore_impl not in ("gather", "factored"):
+            raise ValueError(f"plaid_rescore_impl must be 'gather' or 'factored', got {plaid_rescore_impl!r}")
         device = torch.device(device)
         for model in (dense_model, splade_model, colbert_model):
             if model is not None and model.device != device:
@@ -218,6 +263,10 @@ class HybridSearcher:
             splade_model=splade_model,
             splade_query_terms=splade_query_terms,
             colbert_model=colbert_model,
+            plaid_nprobe=plaid_nprobe,
+            plaid_ncand=plaid_ncand,
+            plaid_ncand_rescore=plaid_ncand_rescore,
+            plaid_rescore_impl=plaid_rescore_impl,
             fusion_method=fusion_method,
             normalization=normalization,
             linear_weights=linear_weights,
@@ -254,9 +303,33 @@ class HybridSearcher:
                     acts = quantize_dense_index(acts, similarity=splade_model.similarity)
                 out.splade_corpus = acts
         if colbert_model is not None:
-            out.colbert_index = colbert_model.index(documents, batch_size=batch_size)
-            out.colbert_index.prepared()  # the search layout, once, at build
+            out._build_colbert(documents, batch_size, colbert_compressed, colbert_nbits,
+                               colbert_plaid, ivf_cap)
         return out
+
+    def _build_colbert(self, documents, batch_size, compressed, nbits, plaid, ivf_cap) -> None:
+        """ColBERT's index: the bf16 token matrix, or the compressed index
+        (with the IVF for PLAID), timed per part into ``build_seconds``."""
+        if not compressed:
+            self.colbert_index = self.colbert_model.index(documents, batch_size=batch_size)
+            self.colbert_index.prepared()  # the search layout, once, at build
+            return
+        timings: dict[str, float] = {}
+        self.colbert_index = self.colbert_model.index_compressed(
+            documents, batch_size=batch_size, nbits=nbits, timings=timings
+        )
+        if plaid:
+            t0 = time.perf_counter()
+            index = self.colbert_index
+            self.colbert_ivf = build_ivf(
+                index.centroid_ids, index.mask, index.centroids.shape[0], cap=ivf_cap
+            )
+            timings["ivf"] = time.perf_counter() - t0
+        else:
+            # the exhaustive search's token-major layout; PLAID never reads it,
+            # and at corpus scale it would double the index's memory
+            self.colbert_index.prepared()
+        self.build_seconds = {f"colbert_{part}": s for part, s in timings.items()}
 
     def _build_splade_scale(
         self, documents, batch_size, impact_cap, prune_topk, splade_impl, rescore_depth,
@@ -477,13 +550,25 @@ class HybridSearcher:
         if self._splade_active:
             results["splade"] = self._splade_leg(inputs)
         if self.colbert_index is not None:
-            q_tok = self.colbert_model.embed_tokens(inputs["cb_ids"], inputs["cb_mask"])
-            corpus_tm, doc_valid = self.colbert_index.prepared()
-            results["colbert"] = maxsim_search_tm(
-                q_tok.to(torch.bfloat16), inputs["cb_mask"].to(torch.float32),
-                corpus_tm, doc_valid, k=self.topk,
-            )
+            results["colbert"] = self._colbert_leg(inputs)
         return results
+
+    def _colbert_leg(self, inputs: dict[str, torch.Tensor]) -> RankedLists:
+        """PLAID if there is an IVF, else the exhaustive compressed search,
+        else MaxSim over the token matrix."""
+        q_tok = self.colbert_model.embed_tokens(inputs["cb_ids"], inputs["cb_mask"])
+        q_mask = inputs["cb_mask"].to(torch.float32)
+        index = self.colbert_index
+        if self.colbert_ivf is not None:
+            return plaid_search(
+                q_tok.to(torch.float32), q_mask, index, self.colbert_ivf, k=self.topk,
+                nprobe=self.plaid_nprobe, ncand=min(self.plaid_ncand, self.colbert_ivf.n_docs),
+                ncand_rescore=self.plaid_ncand_rescore, rescore_impl=self.plaid_rescore_impl,
+            )
+        if isinstance(index, CompressedTokenIndex):
+            return maxsim_search_compressed(q_tok, q_mask, index, k=self.topk)
+        corpus_tm, doc_valid = index.prepared()
+        return maxsim_search_tm(q_tok.to(torch.bfloat16), q_mask, corpus_tm, doc_valid, k=self.topk)
 
     def _fuse(self, results: dict[str, RankedLists]) -> RankedLists:
         if len(results) == 1:

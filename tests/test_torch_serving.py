@@ -72,10 +72,6 @@ def test_search_systems_leg_matches_jax(searchers, system):
 @pytest.mark.parametrize(
     "option",
     [
-        dict(scale_mode=True, colbert_compressed=True, colbert_plaid=True),
-        dict(int8_corpus=True, colbert_compressed=True),
-        dict(colbert_compressed=True),
-        dict(colbert_plaid=True),
         dict(cross_encoder=object()),
         dict(encoders_int8=True),
         dict(fusion_method="nsf", normalization="percentile-rank"),
