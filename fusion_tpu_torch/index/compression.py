@@ -328,13 +328,14 @@ def maxsim_search_compressed(
 ) -> RankedLists:
     """Exhaustive MaxSim with block decompression: per ``doc_block`` docs, a
     token-major bf16 [Ld, B, D] block (masked tokens zeroed) is rebuilt from
-    centroid ids and codes and scored with bf16 queries through
-    ``maxsim_scores_tm`` (the MaxSim kernel on the card); invalid docs score
-    -inf.  Only one decompressed block exists at a time."""
+    centroid ids and codes and scored through ``maxsim_scores_tm`` (the
+    MaxSim kernel on the card, with bf16 queries; f32 queries on the CPU, as
+    the JAX package's CPU path keeps them); invalid docs score -inf.  Only one
+    decompressed block exists at a time."""
     cid_tm, codes_tm, mask_tm, doc_valid = index.prepared()
     n = cid_tm.shape[1]
     doc_block = min(doc_block, n)
-    q_b = q_tokens.to(torch.bfloat16)
+    q_b = q_tokens.to(torch.bfloat16 if cid_tm.is_cuda else torch.float32)
     q_m = q_mask.to(torch.float32)
     offsets = torch.arange(doc_block, device=cid_tm.device)
 

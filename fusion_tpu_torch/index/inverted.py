@@ -98,7 +98,8 @@ def build_impact_index(
     vocab_size: int,
     n_docs: int,
     cap: int = 4096,
-    device="cpu",
+    *,
+    device,
 ) -> ImpactIndex:
     """Host-side build from COO postings; the arrays then live on ``device``."""
     t = np.asarray(entry_term, dtype=np.int64)
@@ -199,7 +200,8 @@ def build_chunked_impact_index(
     n_docs: int,
     docs_per_chunk: int = 32768,
     cap_per_chunk: int = 64,
-    device="cpu",
+    *,
+    device,
 ) -> ChunkedImpactIndex:
     """Host-side build from COO postings; the arrays then live on ``device``."""
     if docs_per_chunk >= CHUNK_SENTINEL:

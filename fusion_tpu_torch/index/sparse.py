@@ -2,8 +2,11 @@
 
   * ``SparseIndex`` — each doc's top-K pruned activations in a fixed-K
     layout, ``entry_term int32[N, K]`` (pad = vocab_size) and
-    ``entry_weight f32[N, K]`` (pad = 0).  Scale mode converts it to the
-    impact forms (``index/inverted.py``).
+    ``entry_weight f32[N, K]`` (pad = 0).  ``sparse_search`` scores it
+    directly (one gather and weighted sum per doc block, streamed through a
+    running top-k); ``lexical_query_matrix`` makes the dense query side of a
+    lexical (BM25) search.  Scale mode converts it to the impact forms
+    (``index/inverted.py``).
   * ``SpladeRescoreStore`` — one row per doc, ``[2K]`` = K term ids ++ K f16
     weight bits, as uint16 values in an int16 tensor (widen the terms with
     ``& 0xFFFF``; the weights are a ``view(torch.float16)``).
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from fusion_tpu_torch.core.ranked import RankedLists
-from fusion_tpu_torch.ops.topk import blockwise_topk
+from fusion_tpu_torch.ops.topk import blockwise_topk, blockwise_topk_offset
 
 
 class SparseIndex(NamedTuple):
@@ -37,7 +40,7 @@ class SparseIndex(NamedTuple):
 
 
 def build_sparse_index(
-    doc_activations_iter, vocab_size: int, prune_topk: int = 128, device="cpu"
+    doc_activations_iter, vocab_size: int, prune_topk: int = 128, *, device
 ) -> SparseIndex:
     """Build from an iterator of dense activation batches [B, V] (numpy).
 
@@ -71,6 +74,49 @@ def build_sparse_index(
         vocab_size=vocab_size,
         nnz=nnz,
     )
+
+
+def lexical_query_matrix(
+    q_terms: torch.Tensor,  # int [Q, Kq] term ids (pad slots >= vocab_size)
+    q_weights: torch.Tensor,  # f32 [Q, Kq]
+    vocab_size: int,
+) -> torch.Tensor:
+    """Per-query (term id, weight) lists → dense f32 [Q, V] query matrix on
+    their device; pad slots collect in a dropped column V."""
+    qv = torch.zeros((q_terms.shape[0], vocab_size + 1), dtype=torch.float32, device=q_terms.device)
+    terms = q_terms.long().clamp(0, vocab_size)
+    weights = torch.where(q_terms < vocab_size, q_weights.to(torch.float32), 0.0)
+    qv.scatter_add_(1, terms, weights)
+    return qv[:, :vocab_size]
+
+
+def sparse_search(
+    query_activations: torch.Tensor,  # [Q, V] dense query activations
+    index: SparseIndex,
+    k: int = 1000,
+    doc_block: int = 16384,
+) -> RankedLists:
+    """Dot-product search over the fixed-K pruned index, on its device: per
+    block of ``doc_block`` docs (the tail block clamped into range, its
+    overlap masked), the query values at each doc's term ids times the doc's
+    weights, summed over K, streamed through a running top-k."""
+    q = query_activations.shape[0]
+    n = index.entry_term.shape[0]
+    # column V scores the pad term 0
+    qv = torch.cat([query_activations, query_activations.new_zeros((q, 1))], dim=-1)
+    doc_block = min(doc_block, n)
+    offsets = torch.arange(doc_block, device=index.entry_term.device)
+
+    def block_scores(bi: int):
+        start = bi * doc_block
+        real_start = min(start, n - doc_block)
+        terms = index.entry_term[real_start : real_start + doc_block].long()
+        weights = index.entry_weight[real_start : real_start + doc_block]
+        scores = (qv[:, terms] * weights[None]).sum(dim=-1)  # [Q, B, K] → [Q, B]
+        fresh = real_start + offsets >= start
+        return torch.where(fresh[None, :], scores, -torch.inf), real_start
+
+    return blockwise_topk_offset(block_scores, -(-n // doc_block), q, min(k, n))
 
 
 class SpladeRescoreStore(NamedTuple):

@@ -9,7 +9,9 @@ the shared encoder trunk:
 
 The model holds its module on an explicit ``device``; ``encode`` returns the
 embeddings as a tensor on that device, so an encoded corpus never makes a
-host round trip (a SPLADE corpus at 28k docs is 1.8 GB in bf16).
+host round trip (a SPLADE corpus at 28k docs is 1.8 GB in bf16).  ``search``
+is the model's own exact search over an encoded corpus, ``search_sparse``
+the SPLADE search over a fixed-K pruned index.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from fusion_tpu_torch.core.device import resolve_device
+from fusion_tpu_torch.core.ranked import RankedLists
 from fusion_tpu_torch.data.tokenization import TextEncoder, WordHashTokenizer
 from fusion_tpu_torch.models import heads
 from fusion_tpu_torch.models.encoder import (
@@ -29,6 +33,7 @@ from fusion_tpu_torch.models.encoder import (
     place,
     token_tensors,
 )
+from fusion_tpu_torch.ops.mips import dense_search
 
 
 def bucket_width(mask: np.ndarray) -> int:
@@ -63,7 +68,7 @@ class BiEncoder:
         augment_doc_to_maxlen: bool = False,
         do_lowercase: bool = False,
         seed: int = 42,
-        device="cpu",
+        device="cuda",
     ):
         if head not in ("dense", "splade"):
             raise ValueError(f"head must be 'dense' or 'splade', got {head!r}")
@@ -77,7 +82,7 @@ class BiEncoder:
             raise ValueError(f"pooling {self.pooling!r} not in {allowed} for head {head!r}")
         self.similarity = similarity
         self.pruning_topk = pruning_topk
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.module = EncoderWithMLM(cfg) if head == "splade" else Encoder(cfg)
         if params is None:
             init_weights(self.module, seed)
@@ -145,6 +150,42 @@ class BiEncoder:
         if out is None:
             return torch.zeros((0, 1), dtype=torch.float32, device=self.device)
         return out
+
+    def _embeddings(self, texts_or_embs, query_mode: bool, batch_size: int) -> torch.Tensor:
+        """Texts → their embeddings; anything else is taken as precomputed
+        embeddings and put on the model's device."""
+        if isinstance(texts_or_embs, (list, tuple)) and (
+            not texts_or_embs or isinstance(texts_or_embs[0], str)
+        ):
+            return self.encode(texts_or_embs, query_mode=query_mode, batch_size=batch_size)
+        return torch.as_tensor(texts_or_embs).to(self.device)
+
+    def search(
+        self,
+        queries,
+        documents,
+        topk: int = 10,
+        batch_size: int = 32,
+        doc_block: int = 65536,
+    ) -> RankedLists:
+        """Exact search of ``queries`` over ``documents``, each given as texts
+        or as precomputed embeddings, with the model's similarity
+        (``ops/mips.dense_search``)."""
+        d_embs = self._embeddings(documents, query_mode=False, batch_size=batch_size)
+        q_embs = self._embeddings(queries, query_mode=True, batch_size=batch_size)
+        return dense_search(q_embs, d_embs, k=topk, similarity=self.similarity, doc_block=doc_block)
+
+    def search_sparse(self, queries, index, topk: int = 1000, batch_size: int = 32) -> RankedLists:
+        """SPLADE search of query texts over a fixed-K pruned ``SparseIndex``
+        (``build_sparse_index``); ``cos_sim`` models l2-normalize the
+        queries, as the index's docs were."""
+        from fusion_tpu_torch.index.sparse import sparse_search
+        from fusion_tpu_torch.models.heads import l2_normalize
+
+        q_embs = self.encode(queries, query_mode=True, batch_size=batch_size).float()
+        if self.similarity == "cos_sim":
+            q_embs = l2_normalize(q_embs)
+        return sparse_search(q_embs, index, k=topk)
 
     def build_sparse_index(
         self, documents: Sequence[str], prune_topk: int = 128, batch_size: int = 32

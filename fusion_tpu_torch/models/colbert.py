@@ -2,7 +2,8 @@
 
 Per-token 128-d embeddings, query mask-augmentation (pads become [MASK] and
 are attended), a punctuation skiplist on documents, and a device-resident
-token index scored by MaxSim (``ops/maxsim.py``).
+token index scored by MaxSim (``ops/maxsim.py``); ``ColBERT.search`` is the
+retriever's own search over a token index or a compressed one.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from fusion_tpu_torch.core.device import resolve_device
+from fusion_tpu_torch.core.ranked import RankedLists
 from fusion_tpu_torch.data.tokenization import TextEncoder, WordHashTokenizer
-from fusion_tpu_torch.index.compression import compress_token_index
+from fusion_tpu_torch.index.compression import compress_token_index, maxsim_search_compressed
 from fusion_tpu_torch.models.encoder import (
     Encoder,
     EncoderConfig,
@@ -26,7 +29,7 @@ from fusion_tpu_torch.models.encoder import (
     token_tensors,
 )
 from fusion_tpu_torch.models.heads import ColBERTHead
-from fusion_tpu_torch.ops.maxsim import prepare_token_corpus
+from fusion_tpu_torch.ops.maxsim import maxsim_search, maxsim_search_tm, prepare_token_corpus
 
 _PUNCT = set(string.punctuation)
 
@@ -54,6 +57,10 @@ class TokenIndex:
     mask: torch.Tensor
     _prepared: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
 
+    @property
+    def num_docs(self) -> int:
+        return self.tokens.shape[0]
+
     def prepared(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(corpus_tm [Ld, N, D] bf16 zeroed, doc_valid [N] bool)."""
         if self._prepared is None:
@@ -74,12 +81,12 @@ class ColBERT:
         max_doc_length: int = 128,
         mask_punctuation: bool = True,
         seed: int = 42,
-        device="cpu",
+        device="cuda",
     ):
         self.cfg = cfg
         self.dim = dim
         self.mask_punctuation = mask_punctuation
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.module = ColBERTModule(cfg, dim=dim)
         if params is None:
             init_weights(self.module, seed)
@@ -173,3 +180,44 @@ class ColBERT:
             raw.tokens.to(torch.float32), raw.mask, nbits=nbits, kmeans_iters=kmeans_iters,
             num_centroids=num_centroids, timings=timings,
         )
+
+    def search(
+        self,
+        queries,
+        index,
+        k: int = 1000,
+        batch_size: int = 32,
+        doc_block: int = 1024,
+        use_pallas: bool = True,
+    ) -> RankedLists:
+        """Top-``k`` MaxSim search of ``queries`` (texts, or precomputed
+        ``(tokens [Q, Lq, D], mask [Q, Lq])``) over ``index``, on the index's
+        device.  Three branches, as ``fusion_tpu``'s ``ColBERT.search``:
+
+          * a ``CompressedTokenIndex``: exhaustive search by block
+            decompression (``maxsim_search_compressed``), ``doc_block`` 1024
+            read as the compressed search's 8192;
+          * a ``TokenIndex`` with ``use_pallas`` (the default): the prepared
+            token-major corpus through ``maxsim_search_tm`` (K1 on the card);
+          * a ``TokenIndex`` without: the doc-major token matrix through
+            ``maxsim_search`` (K1 on the card, the dense reference in
+            ``doc_block`` blocks on the CPU).
+
+        Zeroed-mask semantics throughout; fully padded docs never rank."""
+        if isinstance(queries, tuple) and len(queries) == 2 and not isinstance(queries[0], str):
+            q_tok, q_mask = queries
+        else:
+            q_tok, q_mask = self.encode_queries(queries, batch_size=batch_size)
+        device = index.mask.device
+        q_tok = torch.as_tensor(q_tok).to(device=device, dtype=torch.float32)
+        q_mask = torch.as_tensor(q_mask).to(device=device, dtype=torch.float32)
+        if not isinstance(index, TokenIndex):  # CompressedTokenIndex
+            return maxsim_search_compressed(
+                q_tok, q_mask, index, k=k, doc_block=doc_block if doc_block != 1024 else 8192
+            )
+        if use_pallas:
+            corpus_tm, doc_valid = index.prepared()
+            q = q_tok.to(torch.bfloat16) if corpus_tm.is_cuda else q_tok
+            return maxsim_search_tm(q, q_mask, corpus_tm, doc_valid, k=k)
+        tokens = index.tokens if index.tokens.is_cuda else index.tokens.float()
+        return maxsim_search(q_tok, q_mask, tokens, index.mask, k=k, doc_block=doc_block)

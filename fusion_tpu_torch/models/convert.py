@@ -23,6 +23,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from fusion_tpu_torch.core.device import resolve_device
+
 
 def _array(x, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=dtype))
@@ -94,7 +96,7 @@ def colbert_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
 
 def plaid_index_from_arrays(
     centroids, centroid_ids, codes, mask, bucket_weights, nbits: int,
-    ivf_doc=None, n_docs: int | None = None, cap: int | None = None, device="cpu",
+    ivf_doc=None, n_docs: int | None = None, cap: int | None = None, device="cuda",
 ):
     """The JAX package's ``CompressedTokenIndex`` arrays (and, with
     ``ivf_doc``, its ``IVFIndex``), given as numpy arrays → the port's
@@ -103,6 +105,7 @@ def plaid_index_from_arrays(
     from fusion_tpu_torch.index.compression import CompressedTokenIndex
     from fusion_tpu_torch.index.plaid import IVFIndex
 
+    device = resolve_device(device)
     index = CompressedTokenIndex(
         centroids=_array(centroids, np.float32).to(device),
         centroid_ids=_array(centroid_ids, np.int32).to(device),

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fusion_tpu_torch.core.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
@@ -226,9 +228,9 @@ def place(module: nn.Module, dtype: torch.dtype, device) -> nn.Module:
 
 
 def init_encoder_params(
-    cfg: EncoderConfig, seed: int = 0, with_mlm: bool = True, device="cpu"
+    cfg: EncoderConfig, seed: int = 0, with_mlm: bool = True, device="cuda"
 ) -> nn.Module:
     """Random-init encoder (with the MLM head when ``with_mlm``) on ``device``."""
     model = EncoderWithMLM(cfg) if with_mlm else Encoder(cfg)
     init_weights(model, seed)
-    return place(model, cfg.dtype, device)
+    return place(model, cfg.dtype, resolve_device(device))

@@ -39,6 +39,7 @@ from typing import ClassVar, Mapping, Sequence
 import numpy as np
 import torch
 
+from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores
 from fusion_tpu_torch.fusion.aggregator import FUSION_METHODS, NORMALIZATIONS, Aggregator
 from fusion_tpu_torch.index.compression import CompressedTokenIndex, maxsim_search_compressed
@@ -149,11 +150,14 @@ class HybridSearcher:
     # applied to queries for the lexical leg only (the neural legs take the
     # raw text)
     bm25_preprocess: object | None = None
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
     _cap_guard_warned: bool = False
     # seconds per part of the compressed ColBERT build (encode, k-means,
     # compression, IVF)
     build_seconds: dict = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        self.device = resolve_device(self.device)
 
     # below this, bin collisions in the binned kernels' 16-doc argmax pack
     # cost real top-k recall (loss ~ k^2 / (2 * N/16))
@@ -176,7 +180,7 @@ class HybridSearcher:
         linear_weights: Mapping[str, float] | None = None,
         topk: int = 1000,
         bm25_preprocess=None,
-        device="cpu",
+        device="cuda",
         cross_encoder=None,
         colbert_compressed: bool = False,
         colbert_nbits: int = 2,
@@ -250,7 +254,7 @@ class HybridSearcher:
             raise ValueError(f"plaid_topk_impl must be 'approx' or 'exact', got {plaid_topk_impl!r}")
         if plaid_rescore_impl not in ("gather", "factored"):
             raise ValueError(f"plaid_rescore_impl must be 'gather' or 'factored', got {plaid_rescore_impl!r}")
-        device = torch.device(device)
+        device = resolve_device(device)
         for model in (dense_model, splade_model, colbert_model):
             if model is not None and model.device != device:
                 raise ValueError(f"model lives on {model.device}, the searcher on {device}")
@@ -487,11 +491,8 @@ class HybridSearcher:
         imp = self.bm25_impacts
         if isinstance(imp, QuantizedDenseIndex):
             # the doc-major int8 form: an f32 [Q, V+1] query matrix
-            qmat = torch.zeros((terms.shape[0], imp.values.shape[1]), device=self.device)
-            qmat.scatter_add_(1, terms, weights.to(torch.float32))
-            return quantized_dense_search(qmat, imp, k=topk)
-        qmat = torch.zeros((terms.shape[0], imp.shape[0]), dtype=imp.dtype, device=self.device)
-        qmat.scatter_add_(1, terms, weights.to(imp.dtype))
+            return quantized_dense_search(self.bm25.query_matrix(terms, weights), imp, k=topk)
+        qmat = self.bm25.query_matrix(terms, weights, dtype=imp.dtype)
         return ranked_from_scores(matmul_f32(qmat, imp), topk)
 
     def _dpr_leg(self, inputs: dict[str, torch.Tensor]) -> RankedLists:

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_ranked_match
+from torch_parity import DEVICE, assert_ranked_match
 
 from fusion_tpu.core.ranked import RankedLists as JaxRanked
 from fusion_tpu.fusion.aggregator import Aggregator as JaxAggregator
@@ -31,7 +31,7 @@ def _zipf_docs(rng, n, vocab=60):
 def test_bm25_build_and_dense_impacts_equal(rng, variant):
     docs = _zipf_docs(rng, 40)
     want = JaxBM25.build(docs, k1=2.5, b=0.2, variant=variant, pad_multiple=64, use_native=False)
-    got = BM25Index.build(docs, k1=2.5, b=0.2, variant=variant, pad_multiple=64)
+    got = BM25Index.build(docs, k1=2.5, b=0.2, variant=variant, pad_multiple=64, device=DEVICE)
     assert got.vocab == want.vocab and got.nnz == want.nnz and got.avgdl == want.avgdl
     for name in ("entry_term", "entry_doc", "entry_tf", "idf", "doc_len"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))

@@ -7,13 +7,14 @@ decompression (bf16) and the quantile cutoffs are bit-equal; Lloyd steps
 from JAX's initial centroids agree within 1e-5 (f32 sums in another order);
 the bucket weights within one f32 ulp (rtol 2.4e-7: numpy averages in f32
 pairwise, the port in f64); the exhaustive compressed search within 1e-5
-when JAX is given the bf16-rounded queries the port scores with."""
+(on the CPU both packages score f32 queries)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import DEVICE
 
 from fusion_tpu.index import compression as jc
 from fusion_tpu_torch.index import compression as tc
@@ -38,7 +39,8 @@ def indexes():
         jnp.asarray(toks), jnp.asarray(mask), num_centroids=32, nbits=2, kmeans_iters=4
     )
     got, _ = plaid_index_from_arrays(
-        want.centroids, want.centroid_ids, want.codes, want.mask, want.bucket_weights, want.nbits
+        want.centroids, want.centroid_ids, want.codes, want.mask, want.bucket_weights, want.nbits,
+        device=DEVICE,
     )
     return toks, mask, want, got
 
@@ -170,11 +172,9 @@ def test_maxsim_search_compressed_matches_jax(indexes, doc_block):
     q = rng.standard_normal((4, 5, 16)).astype(np.float32)
     qm = np.ones((4, 5), np.float32)
     qm[2, 3:] = 0.0
-    # the port scores bf16 queries; JAX's non-Pallas path takes f32, so it
-    # gets the same bf16-rounded values
-    q_b = np.asarray(jnp.asarray(q).astype(jnp.bfloat16).astype(jnp.float32))
+    # on the CPU both packages score f32 queries (bf16 only on the card)
     want = jc.maxsim_search_compressed(
-        jnp.asarray(q_b), jnp.asarray(qm), want_index, k=20, doc_block=doc_block, use_pallas=False
+        jnp.asarray(q), jnp.asarray(qm), want_index, k=20, doc_block=doc_block, use_pallas=False
     )
     got = tc.maxsim_search_compressed(
         torch.from_numpy(q), torch.from_numpy(qm), got_index, k=20, doc_block=doc_block
@@ -212,7 +212,7 @@ def test_colbert_index_compressed_from_converted_weights(monkeypatch):
     docs = [f"document numéro {i} avec des mots t{i} t{i + 1}" for i in range(12)]
     jm = JaxColBERT(JaxConfig.tiny(vocab_size=256), dim=16, max_query_length=8, max_doc_length=16)
     tm = ColBERT(EncoderConfig.tiny(vocab_size=256), params=convert.colbert_state_dict(jm.params),
-                 dim=16, max_query_length=8, max_doc_length=16)
+                 dim=16, max_query_length=8, max_doc_length=16, device=DEVICE)
     want = jm.index_compressed(docs, batch_size=4, pad_docs_to=4, nbits=2, num_centroids=32)
     timings = {}
     got = tm.index_compressed(docs, batch_size=4, pad_docs_to=4, nbits=2, num_centroids=32, timings=timings)

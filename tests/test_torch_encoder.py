@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import DEVICE
 
 from fusion_tpu.models.biencoder import BiEncoder as JaxBiEncoder
 from fusion_tpu.models.colbert import ColBERT as JaxColBERT
@@ -34,9 +35,9 @@ def pair():
     jd = JaxBiEncoder(jcfg, head="dense", **kw)
     js = JaxBiEncoder(jcfg, head="splade", **kw)
     jc = JaxColBERT(jcfg, dim=16, **kw)
-    td = BiEncoder(tcfg, params=convert.encoder_state_dict(jd.params), head="dense", **kw)
-    ts = BiEncoder(tcfg, params=convert.encoder_with_mlm_state_dict(js.params), head="splade", **kw)
-    tc = ColBERT(tcfg, params=convert.colbert_state_dict(jc.params), dim=16, **kw)
+    td = BiEncoder(tcfg, params=convert.encoder_state_dict(jd.params), head="dense", device=DEVICE, **kw)
+    ts = BiEncoder(tcfg, params=convert.encoder_with_mlm_state_dict(js.params), head="splade", device=DEVICE, **kw)
+    tc = ColBERT(tcfg, params=convert.colbert_state_dict(jc.params), dim=16, device=DEVICE, **kw)
     return {"dense": (jd, td), "splade": (js, ts), "colbert": (jc, tc)}
 
 
@@ -75,7 +76,7 @@ def test_biencoder_embed_tokens(pair, rng, head, options):
     jm, tm = pair[head]
     kw = dict(max_query_length=8, max_doc_length=16, **options)
     jm = JaxBiEncoder(jm.cfg, params=jm.params, head=head, **kw)
-    tm = BiEncoder(tm.cfg, params=tm.module.state_dict(), head=head, **kw)
+    tm = BiEncoder(tm.cfg, params=tm.module.state_dict(), head=head, device=DEVICE, **kw)
     ids, mask = _tokens(rng)
     want = np.asarray(jm.embed_tokens(jm.params, jnp.asarray(ids), jnp.asarray(mask)))
     got = tm.embed_tokens(*token_tensors(ids, mask, "cpu")).numpy()

@@ -122,7 +122,10 @@ def test_cpu_tensors_never_reach_the_kernel(data):
 def test_import_needs_no_nvcc_triton_or_jax():
     code = (
         "import sys, os; os.environ['PATH'] = ''; "
-        "import fusion_tpu_torch.ops.maxsim, fusion_tpu_torch.serving; "
+        "import fusion_tpu_torch.ops.maxsim, fusion_tpu_torch.serving, "
+        "fusion_tpu_torch.models.colbert, fusion_tpu_torch.models.biencoder, "
+        "fusion_tpu_torch.models.bm25, fusion_tpu_torch.index.sparse, "
+        "fusion_tpu_torch.tools.bench_maxsim; "
         "print(sorted(m for m in ('jax', 'triton', 'fusion_tpu') if m in sys.modules))"
     )
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

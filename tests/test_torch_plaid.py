@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_ranked_match
+from torch_parity import DEVICE, assert_ranked_match
 
 from fusion_tpu.index import compression as jc
 from fusion_tpu.index import plaid as jp
@@ -43,7 +43,7 @@ def small():
     t_index, t_ivf = plaid_index_from_arrays(
         j_index.centroids, j_index.centroid_ids, j_index.codes, j_index.mask,
         j_index.bucket_weights, j_index.nbits, ivf_doc=j_ivf.ivf_doc, n_docs=j_ivf.n_docs,
-        cap=j_ivf.cap,
+        cap=j_ivf.cap, device=DEVICE,
     )
     q = rng.standard_normal((4, 5, d)).astype(np.float32)
     q /= np.linalg.norm(q, axis=-1, keepdims=True)
@@ -188,10 +188,12 @@ def test_rescore_pads_sentinels(small):
 def test_full_candidate_plaid_equals_exhaustive_compressed_search(small):
     """With every centroid probed and every doc a candidate, PLAID rescoring
     and the exhaustive compressed search score the same bf16 tokens with the
-    same bf16 queries."""
+    same bf16 queries (PLAID rounds its queries to bf16; on the CPU the
+    exhaustive search keeps them as given, so it is given the rounded ones)."""
     _, (t_index, t_ivf), q, qm = small
+    q_bf16 = torch.from_numpy(q).to(torch.bfloat16).float()
     got = tp.plaid_search(*_port_q(q, qm), t_index, t_ivf, k=20, nprobe=C, ncand=N, cand_chunk=32)
-    want = tc.maxsim_search_compressed(*_port_q(q, qm), t_index, k=20)
+    want = tc.maxsim_search_compressed(q_bf16, torch.from_numpy(qm), t_index, k=20)
     assert_ranked_match(got.ids, got.scores, want.ids, want.scores, atol=ATOL)
 
 

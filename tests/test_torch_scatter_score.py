@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_ranked_match
+from torch_parity import DEVICE, assert_ranked_match
 
 from fusion_tpu.index import inverted as jax_inv
 from fusion_tpu.index import sparse as jax_sparse
@@ -49,7 +49,7 @@ def test_flat_build_and_impact_search_bit_exact(rng, cap):
     n, vocab = 3000, 120
     term, doc, imp = _postings(rng, n, vocab, 4)
     want = jax_inv.build_impact_index(term, doc, imp, vocab, n, cap=cap, use_native=False)
-    got = inverted.build_impact_index(term, doc, imp, vocab, n, cap=cap)
+    got = inverted.build_impact_index(term, doc, imp, vocab, n, cap=cap, device=DEVICE)
     np.testing.assert_array_equal(got.post_doc.numpy(), np.asarray(want.post_doc))
     np.testing.assert_array_equal(_f16_bits(got.post_impact), _f16_bits(want.post_impact))
     assert got.nnz_kept == want.nnz_kept
@@ -70,7 +70,8 @@ def test_chunked_build_bit_exact(rng, docs_per_chunk, cap):
     want = jax_inv.build_chunked_impact_index(
         term, doc, imp, vocab, n, docs_per_chunk, cap, use_native=False
     )
-    got = inverted.build_chunked_impact_index(term, doc, imp, vocab, n, docs_per_chunk, cap)
+    got = inverted.build_chunked_impact_index(term, doc, imp, vocab, n, docs_per_chunk, cap,
+                                             device=DEVICE)
     assert got.post_doc.dtype == torch.int16 and got.num_chunks == want.num_chunks
     np.testing.assert_array_equal(got.post_doc.numpy().view(np.uint16), np.asarray(want.post_doc))
     np.testing.assert_array_equal(_f16_bits(got.post_impact), _f16_bits(want.post_impact))
@@ -82,7 +83,7 @@ def test_unsafe_term_warning(rng):
     doc = np.arange(500)
     imp = np.ones(500, np.float32)
     with pytest.warns(inverted.ImpactCapTruncationWarning):
-        inverted.build_impact_index(term, doc, imp, vocab_size=4, n_docs=500, cap=8)
+        inverted.build_impact_index(term, doc, imp, vocab_size=4, n_docs=500, cap=8, device=DEVICE)
 
 
 @pytest.mark.parametrize("max_run", [1, 3, 8, 1000])
@@ -109,7 +110,7 @@ def test_activations_to_query_terms_matches(rng):
 def _chunked(rng, n=5000, vocab=64, dpc=2048, cap=32):
     term, doc, imp = _postings(rng, n, vocab, 3)
     want = jax_inv.build_chunked_impact_index(term, doc, imp, vocab, n, dpc, cap, use_native=False)
-    got = inverted.build_chunked_impact_index(term, doc, imp, vocab, n, dpc, cap)
+    got = inverted.build_chunked_impact_index(term, doc, imp, vocab, n, dpc, cap, device=DEVICE)
     return want, got
 
 
@@ -152,7 +153,7 @@ def test_scatter_impact_search_matches(rng, n, dpc, cap, kq, k):
 
 def test_scatter_rejects_bad_chunk_width(rng):
     term, doc, imp = _postings(rng, 2000, 32, 2)
-    index = inverted.build_chunked_impact_index(term, doc, imp, 32, 2000, 1000, 16)
+    index = inverted.build_chunked_impact_index(term, doc, imp, 32, 2000, 1000, 16, device=DEVICE)
     with pytest.raises(ValueError, match="docs_per_chunk"):
         scatter_score.scatter_impact_search(torch.zeros((1, 2), dtype=torch.int32), torch.ones(1, 2), index)
 
@@ -162,7 +163,7 @@ def _sparse_pair(rng, n=80, vocab=200, k=24):
     acts[3] = 0.0  # an empty doc
     batches = [acts[i : i + 32] for i in range(0, n, 32)]
     want = jax_sparse.build_sparse_index(iter(batches), vocab, prune_topk=k)
-    got = sparse.build_sparse_index(iter(batches), vocab, prune_topk=k)
+    got = sparse.build_sparse_index(iter(batches), vocab, prune_topk=k, device=DEVICE)
     return want, got
 
 

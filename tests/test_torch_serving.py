@@ -11,7 +11,7 @@ import sys
 import pytest
 import torch
 from test_serving import CORPUS, QUERIES
-from torch_parity import assert_ranked_match
+from torch_parity import DEVICE, assert_ranked_match
 
 from fusion_tpu.data.preprocessor import TextPreprocessor
 from fusion_tpu.models.biencoder import BiEncoder as JaxBiEncoder
@@ -36,9 +36,9 @@ def searchers():
     jd = JaxBiEncoder(jcfg, head="dense", **kw)
     js = JaxBiEncoder(jcfg, head="splade", **kw)
     jc = JaxColBERT(jcfg, dim=16, **kw)
-    td = BiEncoder(tcfg, params=convert.encoder_state_dict(jd.params), head="dense", **kw)
-    ts = BiEncoder(tcfg, params=convert.encoder_with_mlm_state_dict(js.params), head="splade", **kw)
-    tc = ColBERT(tcfg, params=convert.colbert_state_dict(jc.params), dim=16, **kw)
+    td = BiEncoder(tcfg, params=convert.encoder_state_dict(jd.params), head="dense", device=DEVICE, **kw)
+    ts = BiEncoder(tcfg, params=convert.encoder_with_mlm_state_dict(js.params), head="splade", device=DEVICE, **kw)
+    tc = ColBERT(tcfg, params=convert.colbert_state_dict(jc.params), dim=16, device=DEVICE, **kw)
     prep = TextPreprocessor(spacy_model=None)
     common = dict(
         bm25_docs=prep.preprocess(list(CORPUS.values())),
@@ -47,7 +47,7 @@ def searchers():
         bm25_preprocess=lambda texts: prep.preprocess(list(texts)),
     )
     want = JaxSearcher.build(CORPUS, dense_model=jd, splade_model=js, colbert_model=jc, **common)
-    got = HybridSearcher.build(CORPUS, dense_model=td, splade_model=ts, colbert_model=tc, **common)
+    got = HybridSearcher.build(CORPUS, device=DEVICE, dense_model=td, splade_model=ts, colbert_model=tc, **common)
     return want, got
 
 
@@ -79,7 +79,7 @@ def test_search_systems_leg_matches_jax(searchers, system):
 )
 def test_unported_build_options_raise(option):
     with pytest.raises(NotImplementedError):
-        HybridSearcher.build(CORPUS, bm25_docs=list(CORPUS.values()), **option)
+        HybridSearcher.build(CORPUS, device=DEVICE, bm25_docs=list(CORPUS.values()), **option)
 
 
 def test_persistence_is_not_ported(searchers):

@@ -13,7 +13,7 @@ test_torch_serving_scale.py."""
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_ranked_match
+from torch_parity import DEVICE, assert_ranked_match
 
 from fusion_tpu.models.biencoder import BiEncoder as JaxBiEncoder
 from fusion_tpu.models.colbert import ColBERT as JaxColBERT
@@ -63,8 +63,8 @@ def models():
     kw = dict(max_query_length=8, max_doc_length=24)
     js = JaxBiEncoder(jcfg, head="splade", **kw)
     jc = JaxColBERT(jcfg, dim=16, **kw)
-    ts = BiEncoder(tcfg, params=convert.encoder_with_mlm_state_dict(js.params), head="splade", **kw)
-    tc = ColBERT(tcfg, params=convert.colbert_state_dict(jc.params), dim=16, **kw)
+    ts = BiEncoder(tcfg, params=convert.encoder_with_mlm_state_dict(js.params), head="splade", device=DEVICE, **kw)
+    tc = ColBERT(tcfg, params=convert.colbert_state_dict(jc.params), dim=16, device=DEVICE, **kw)
     return (js, jc), (ts, tc)
 
 
@@ -74,6 +74,7 @@ def _converted(want: JaxSearcher):
         ci.centroids, ci.centroid_ids, ci.codes, ci.mask, ci.bucket_weights, ci.nbits,
         ivf_doc=None if ivf is None else ivf.ivf_doc,
         n_docs=None if ivf is None else ivf.n_docs, cap=None if ivf is None else ivf.cap,
+        device=DEVICE,
     )
 
 
@@ -86,7 +87,7 @@ def searchers(request, models):
     common = dict(bm25_docs=list(CORPUS.values()), batch_size=16, topk=20, scale_mode=True,
                   impact_cap=8, splade_impl="impact", splade_query_terms=16, splade_prune_topk=32)
     want = JaxSearcher.build(CORPUS, splade_model=js, colbert_model=jc, **common, **opts)
-    got = HybridSearcher.build(CORPUS, splade_model=ts, colbert_model=tc, **common, **opts)
+    got = HybridSearcher.build(CORPUS, device=DEVICE, splade_model=ts, colbert_model=tc, **common, **opts)
     got.colbert_index, got.colbert_ivf = _converted(want)
     return request.param, want, got
 
@@ -146,9 +147,9 @@ def own_builds(models):
     _, (_, tc) = models
     kw = dict(colbert_model=tc, topk=20, batch_size=16)
     return {
-        "tokens": HybridSearcher.build(CORPUS, **kw),
-        "compressed": HybridSearcher.build(CORPUS, colbert_compressed=True, **kw),
-        "plaid": HybridSearcher.build(CORPUS, colbert_compressed=True, colbert_plaid=True,
+        "tokens": HybridSearcher.build(CORPUS, device=DEVICE, **kw),
+        "compressed": HybridSearcher.build(CORPUS, device=DEVICE, colbert_compressed=True, **kw),
+        "plaid": HybridSearcher.build(CORPUS, device=DEVICE, colbert_compressed=True, colbert_plaid=True,
                                       ivf_cap=64, **kw),
     }
 
@@ -205,4 +206,4 @@ def test_own_compressed_build_ranks_like_the_token_index(own_builds):
 )
 def test_bad_colbert_options_raise(bad, match):
     with pytest.raises(ValueError, match=match):
-        HybridSearcher.build(CORPUS, bm25_docs=list(CORPUS.values()), **bad)
+        HybridSearcher.build(CORPUS, device=DEVICE, bm25_docs=list(CORPUS.values()), **bad)

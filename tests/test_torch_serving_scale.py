@@ -13,7 +13,7 @@ match as sets.  Where no leg reorders, the fused RRF lists match at 1e-6."""
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_ranked_match
+from torch_parity import DEVICE, assert_ranked_match
 
 from fusion_tpu.models.biencoder import BiEncoder as JaxBiEncoder
 from fusion_tpu.models.colbert import ColBERT as JaxColBERT
@@ -68,9 +68,9 @@ def models():
     jd = JaxBiEncoder(jcfg, head="dense", **kw)
     js = JaxBiEncoder(jcfg, head="splade", **kw)
     jc = JaxColBERT(jcfg, dim=16, **kw)
-    td = BiEncoder(tcfg, params=convert.encoder_state_dict(jd.params), head="dense", **kw)
-    ts = BiEncoder(tcfg, params=convert.encoder_with_mlm_state_dict(js.params), head="splade", **kw)
-    tc = ColBERT(tcfg, params=convert.colbert_state_dict(jc.params), dim=16, **kw)
+    td = BiEncoder(tcfg, params=convert.encoder_state_dict(jd.params), head="dense", device=DEVICE, **kw)
+    ts = BiEncoder(tcfg, params=convert.encoder_with_mlm_state_dict(js.params), head="splade", device=DEVICE, **kw)
+    tc = ColBERT(tcfg, params=convert.colbert_state_dict(jc.params), dim=16, device=DEVICE, **kw)
     return (jd, js, jc), (td, ts, tc)
 
 
@@ -79,7 +79,7 @@ def searchers(request, models):
     (jd, js, jc), (td, ts, tc) = models
     common = dict(bm25_docs=list(CORPUS.values()), batch_size=16, topk=20, **CONFIGS[request.param])
     want = JaxSearcher.build(CORPUS, dense_model=jd, splade_model=js, colbert_model=jc, **common)
-    got = HybridSearcher.build(CORPUS, dense_model=td, splade_model=ts, colbert_model=tc, **common)
+    got = HybridSearcher.build(CORPUS, device=DEVICE, dense_model=td, splade_model=ts, colbert_model=tc, **common)
     return request.param, want, got
 
 
@@ -150,12 +150,13 @@ def test_fused_search_matches_jax(searchers):
 def test_auto_impls_take_the_exact_paths_on_the_cpu(models):
     _, (td, ts, _) = models
     got = HybridSearcher.build(
-        CORPUS, dense_model=td, splade_model=ts, scale_mode=True, int8_corpus=True, topk=5,
+        CORPUS, device=DEVICE, dense_model=td, splade_model=ts, scale_mode=True, int8_corpus=True,
+        topk=5,
     )
     assert not got._dense_fused_active()
     assert got.splade_scatter_index is None and got.splade_impact_index is not None
     with pytest.raises(ValueError, match="scatter"):
-        HybridSearcher.build(CORPUS, splade_model=ts, scale_mode=True, splade_impl="scatter")
+        HybridSearcher.build(CORPUS, device=DEVICE, splade_model=ts, scale_mode=True, splade_impl="scatter")
 
 
 @pytest.mark.parametrize("option", ["colbert_plaid", "colbert_compressed"])
@@ -168,4 +169,4 @@ def test_colbert_scale_forms_still_raise(option):
         "colbert_compressed": dict(colbert_compressed=True, plaid_gather_impl="pallas_interpret"),
     }[option]
     with pytest.raises(ValueError, match="colbert_compressed|by device"):
-        HybridSearcher.build(CORPUS, bm25_docs=list(CORPUS.values()), scale_mode=True, **bad)
+        HybridSearcher.build(CORPUS, device=DEVICE, bm25_docs=list(CORPUS.values()), scale_mode=True, **bad)

@@ -1,7 +1,11 @@
-"""Shared check for the fusion_tpu_torch parity tests: ranked lists equal up
-to the order of ids whose reference scores tie."""
+"""Shared pieces of the fusion_tpu_torch parity tests: the device every
+port entry point is asked for (the tests run on the CPU; the entry points
+default to the card), and ranked lists equal up to the order of ids whose
+reference scores tie."""
 
 import numpy as np
+
+DEVICE = "cpu"
 
 
 def assert_ranked_match(got_ids, got_scores, want_ids, want_scores, atol, cut_ties=False):
