@@ -5,9 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 Phases (each prints its result and wall time; any failed check exits 1):
   1. device   — requires CUDA; prints the card's name and power limit;
   2. build    — compiles the five kernel sources (csrc/maxsim.cu,
-                maxsim_fused.cu, dense_topk.cu, scatter_score.cu,
-                gather_rows.cu), one nvcc each, all at once; prints their
-                register / shared-memory reports;
+                maxsim_fused.cu, dense_topk.cu with K2 and P3 at three doc
+                blocks, scatter_score.cu with K3, P4 and P5, gather_rows.cu),
+                one nvcc each, all at once; prints their register /
+                shared-memory reports;
   3. kernel   — K1 (MaxSim) against its plain version at the serving shape
                 (Ld 128, N 28,032, D 128, QL 64x32) and a ragged one;
                 |kernel - plain| <= 1e-2 + 1e-3 |plain| (bf16 products
@@ -49,6 +50,23 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 scores within 1e-6 + 1e-5 |plain| (a doc's score is an f32
                 sum of at most Kq bf16 values; the kernel's shared-memory
                 atomics add them in another order on every run);
+     p3       — P3 (K2 without the dead-row term, doc_block 4096) against its
+                plain version on a synthesized mMARCO-size corpus (as K2's),
+                and K2 at doc_block 4096 and 8192 on the same rows; P3 and K2
+                at a ragged shape (Q 37, N 100,003 padded to 106,496, every
+                13th row scale 0); K2's tolerance;
+     p4, p5   — the pre-gathered scatter kernel, term-major (P4) and
+                chunk-major (P5), against its plain version at the probe
+                shape (Q 64, Kq 64, V 32,768, C 544, capc 32, dpc 16,384) and
+                at K3's ragged shape, and against K3 on the same index; K3's
+                tolerance;
+     probe_dense, probe_scatter_layout, probe_scatter_kernel — the three
+                probe tools of fusion_tpu_torch/tools/ at the scripts'
+                default mMARCO shapes, each with every launch count set to 0
+                just before and read just after (K2 and P3; K3 and P4; K3
+                and P5 must launch), each printing its JSON line; the
+                layout probe's term-major search must match K3's (scores
+                within 1e-5, top-10 overlap >= 0.99);
   6. k4       — K4 (the candidate-row gather) against its plain version
                 (index_select per source) at a ragged shape (Q 5, K 37, five
                 sources: int32 rows of 7, u8 rows of 3 bytes, f32 rows of 5,
@@ -68,10 +86,18 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 paths) and on the card agree within 1e-2 (sorted scores;
                 plus 2^-8 |score| for the exhaustive search, whose queries
                 are f32 on the CPU and bf16 on the card);
+     rerank_small — a tiny BM25 + monoBERT searcher, packed and flat, on the
+                CPU and on the card from the same seeds (f32): CPU vs card
+                per stage and packed vs flat on the card, sorted scores
+                within 1e-5 and equal ids at every rank whose score stands
+                apart from the rest of its row;
  10. slice    — HybridSearcher.build at CamemBERT-base width (random seeded
                 weights, bf16) over the synthetic zipf corpus of bench.py
-                (seed 42, N 27,940, 40-160 words per doc; Lq 32, Ld 128), then
-                search 192 queries at batch 64 with every kernel launch count
+                (seed 42, N 27,940, 40-160 words per doc; Lq 32, Ld 128), with
+                a CamemBERT-base-width cross-encoder (max_length 256, rerank
+                depth 100); the phases up to [rerank] serve it without the
+                rerank stage (rerank_depth 0); search 192 queries at batch 64
+                with every kernel launch count
                 set to 0 just before and read just after; checks shapes, id
                 range, finite non-increasing scores, that K1 ran, and that
                 the ColBERT leg through the kernel matches the plain path on
@@ -85,7 +111,17 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 same docs), BM25Index.search_all (gather and matmul),
                 search_dense, search_impact and search_sparse, each against
                 the matching leg of search_systems or the same search on the
-                CPU: top-100 overlap >= 0.99 each;
+                CPU: top-100 overlap >= 0.99 each; then
+     rerank   — the main path: the slice with the monoBERT stage over the
+                fused top 100, packed (the default) and flat: 192 queries
+                each, every launch count set to 0 just before the packed
+                search and read just after (K1 once per batch, and the
+                count the kernels line gives K1), fused output checked, the
+                same top-100 set per query in both; on one batch the two
+                stages' logits (max gap reported), each within 0.04 of an
+                f32 forward of the same weights, each
+                stage's time, the packed plan's row fill, analytic FLOPs
+                and the rate reached; warm timing and peak memory of each;
  11. scale_build — HybridSearcher.build(scale_mode=True, int8_corpus=True,
                 dense_impl="fused", splade_impl="scatter") over the same
                 corpus and models, all four legs (impact_cap 1024: at 14
@@ -137,11 +173,12 @@ Phases (each prints its result and wall time; any failed check exits 1):
 ``--profile`` adds a torch.profiler pass over one warm search of each
 searcher and prints the device busy share and the top kernels.
 
-Before them, each maxsim_variants run prints its own JSON record.  The line
-before the last is the kernels' JSON record (launches from the slice's
-search for K1, the four-leg mMARCO search for K2, K3 and K4, and the two
-bench runs for K1-v1 and K1-v2; ms are CUDA-event medians for K1-K3, K1-v1
-and K1-v2 and queued device times for K4; bound_ms is the least time an
+Before them, each maxsim_variants run and each probe tool prints its own
+JSON record.  The line before the last is the kernels' JSON record
+(launches from the slice's search for K1, the four-leg mMARCO search for
+K2, K3 and K4, the two bench runs for K1-v1 and K1-v2, and the probe tools'
+runs for P3, P4 and P5; ms are CUDA-event medians for K1-K3, K1-v1, K1-v2
+and P3-P5 and queued device times for K4; bound_ms is the least time an
 H100 SXM could take for the same work, from this run's shapes and data;
 library_ms is index_select's time for K4 and null elsewhere: no one PyTorch
 call computes the others' functions); the last line is
@@ -152,6 +189,7 @@ matmuls and cuDNN, bf16 reduced-precision reductions off.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import itertools
 import json
@@ -165,6 +203,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = (1e-2, 1e-3)  # K1, K1-v1, K1-v2: atol, rtol
 K2_TOL = (1e-5, 4e-6)
 K3_TOL = (1e-6, 1e-5)
+# the tiny f32 rerank searcher, CPU vs card and packed vs flat: fused scores
+# at most 9.5e-7 apart on an H100
+RERANK_SMALL_TOL = 1e-5
+RERANK_SMALL_DEPTH = 10
+# the full-width bf16 rerank logits against an f32 forward of the same
+# weights: 0.012 (packed) and 0.013 (flat) apart on an H100, with the
+# logits spread over ±0.24
+RERANK_LOGIT_TOL = 0.04
 N_DOCS, BATCH, N_QUERIES, TOPK, LQ, LD, DIM = 27_940, 64, 192, 1000, 32, 128, 128
 RUNS = 10  # alternating kernel / plain timing runs
 MM_DOCS, MM_H, MM_DPC, MM_CAPC, MM_BM25_CAP, MM_STORE_K, MM_DEPTH = (
@@ -388,62 +434,78 @@ def compare_bins(torch, got, want, gap, tol, label):
     return err.max().item(), int(clear.sum())
 
 
-def k2_gap(torch, dense_topk, q, values, scales, n_docs, rows_per_step=65536):
+def k2_gap(torch, dense_topk, q, values, scales, n_docs, doc_block=2048, dead_rows=True, rows_per_step=65536):
     """Per bin: plain best score minus second best (f32 [Q, N/16])."""
     from fusion_tpu_torch.ops.mips import matmul_f32
 
     n_pad = values.shape[0]
+    lanes = doc_block // 16
     gap = torch.empty((q.shape[0], n_pad // 16), device=q.device)
-    lane = torch.arange(128, device=q.device)
+    lane = torch.arange(lanes, device=q.device)
     for start in range(0, n_pad, rows_per_step):
         vals = values[start : start + rows_per_step]
-        nb = vals.shape[0] // 2048
+        nb = vals.shape[0] // doc_block
         raw = matmul_f32(q, vals.to(torch.bfloat16).T)
-        sc = dense_topk._apply_scales(raw, scales[start : start + rows_per_step])
-        doc = start + (torch.arange(nb, device=q.device)[:, None, None] * 2048
-                       + torch.arange(16, device=q.device)[None, :, None] * 128 + lane)
-        sc = torch.where(doc < n_docs, sc.view(-1, nb, 16, 128), -torch.inf)
-        top2 = torch.topk(sc, 2, dim=2).values  # [Q, nb, 2, 128]
-        gap[:, start // 16 : start // 16 + nb * 128] = (top2[:, :, 0] - top2[:, :, 1]).reshape(q.shape[0], -1)
+        s = scales[start : start + rows_per_step]
+        sc = dense_topk._apply_scales(raw, s) if dead_rows else raw * s[None, :]
+        doc = start + (torch.arange(nb, device=q.device)[:, None, None] * doc_block
+                       + torch.arange(16, device=q.device)[None, :, None] * lanes + lane)
+        sc = torch.where(doc < n_docs, sc.view(-1, nb, 16, lanes), -torch.inf)
+        top2 = torch.topk(sc, 2, dim=2).values  # [Q, nb, 2, lanes]
+        gap[:, start // 16 : start // 16 + nb * lanes] = (top2[:, :, 0] - top2[:, :, 1]).reshape(q.shape[0], -1)
     return gap
 
 
-def k2_check(torch, dense_topk, q_n, n_real, n_pad, h, seed, runs, dead_every=97, device="cuda"):
-    """K2 at one shape: (max error, checked bins, kernel ms, plain ms)."""
+def k2_inputs(torch, q_n, n_real, n_pad, h, seed, dead_every=97, device="cuda"):
+    """Seeded int8 rows, f32 scales (every ``dead_every``-th row and the pad
+    rows past ``n_real`` at scale 0) and l2-normalized bf16 queries."""
     gen = torch.Generator(device=device).manual_seed(seed)
     values = torch.randint(-127, 128, (n_pad, h), device=device, generator=gen, dtype=torch.int8)
     scales = torch.rand(n_pad, device=device, generator=gen) * 2e-3 + 5e-4
     scales[::dead_every] = 0.0
     scales[n_real:] = 0.0  # the build pads: scale 0, masked by n_docs
     q = torch.randn(q_n, h, device=device, generator=gen)
-    q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-    got = dense_topk.binmax_cuda(q, values, scales, n_real)
-    want = dense_topk.binmax_plain(q, values, scales, n_real)
+    return (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16), values, scales
+
+
+def k2_check(torch, dense_topk, q_n, n_real, n_pad, h, seed, runs, dead_every=97, device="cuda",
+             doc_block=2048, dead_rows=True, inputs=None):
+    """K2 (or, with ``dead_rows=False``, the no-mask variant P3) at one
+    shape and doc block: (max error, checked bins, kernel ms, plain ms).
+    ``inputs`` reuses (q, values, scales) from ``k2_inputs``."""
+    q, values, scales = inputs or k2_inputs(torch, q_n, n_real, n_pad, h, seed, dead_every, device)
+    kernel = lambda: dense_topk.binmax_cuda(q, values, scales, n_real, doc_block, dead_rows)  # noqa: E731
+    plain = lambda: dense_topk.binmax_plain(q, values, scales, n_real, doc_block, dead_rows=dead_rows)  # noqa: E731
+    got, want = kernel(), plain()
     torch.cuda.synchronize()
-    gap = k2_gap(torch, dense_topk, q, values, scales, n_real)
-    err, checked = compare_bins(torch, got, want, gap, K2_TOL, f"K2 Q{q_n} N{n_real}")
+    gap = k2_gap(torch, dense_topk, q, values, scales, n_real, doc_block, dead_rows)
+    label = f"{'K2' if dead_rows else 'P3'} Q{q.shape[0]} N{n_real} doc_block {doc_block}"
+    err, checked = compare_bins(torch, got, want, gap, K2_TOL, label)
     del gap
     k_ms = p_ms = None
     if runs:
-        k_ms, p_ms = alternating_ms(
-            torch, lambda: dense_topk.binmax_cuda(q, values, scales, n_real),
-            lambda: dense_topk.binmax_plain(q, values, scales, n_real), runs,
-        )
+        k_ms, p_ms = alternating_ms(torch, kernel, plain, runs)
     return err, checked, k_ms, p_ms
 
 
-def k3_gap(torch, scatter_score, q_terms, q_weights, post_doc, post_impact, dpc, cb=16):
-    """Per bin: plain best score minus second best (f32 [Q, C·dpc/16])."""
+def chunk_gap(torch, scatter_score, docs, vals, dpc, cb=16):
+    """Per bin of chunk-major operands [Q, Cp, W]: plain best score minus
+    second best (f32 [Q, Cp, dpc/16])."""
     h = scatter_score._plan(dpc)
-    c = post_doc.shape[1]
-    docs, vals = scatter_score._gather_postings(q_terms, q_weights, post_doc, post_impact, cb)
-    q = q_terms.shape[0]
-    gap = torch.empty((q, docs.shape[1], dpc // 16), device=q_terms.device)
+    q = docs.shape[0]
+    gap = torch.empty((q, docs.shape[1], dpc // 16), device=docs.device)
     for ci in range(0, docs.shape[1], cb):
         sc = scatter_score._chunk_scores(docs[:, ci : ci + cb], vals[:, ci : ci + cb], h)
         top2 = torch.topk(sc.reshape(q, -1, 16, dpc // 16), 2, dim=2).values
         gap[:, ci : ci + cb] = top2[:, :, 0] - top2[:, :, 1]
-    return gap[:, :c].reshape(q, -1)
+    return gap
+
+
+def k3_gap(torch, scatter_score, q_terms, q_weights, post_doc, post_impact, dpc, cb=16):
+    """Per bin: plain best score minus second best (f32 [Q, C·dpc/16])."""
+    c = post_doc.shape[1]
+    docs, vals = scatter_score._gather_postings(q_terms, q_weights, post_doc, post_impact, cb)
+    return chunk_gap(torch, scatter_score, docs, vals, dpc, cb)[:, :c].reshape(q_terms.shape[0], -1)
 
 
 def k3_inputs(torch, seed, q_n, kq, vocab, n_chunks, capc, dpc, pad_rows=False, device="cuda"):
@@ -485,6 +547,217 @@ def k3_check(torch, scatter_score, seed, q_n, kq, vocab, n_chunks, capc, dpc, ru
             lambda: scatter_score.scatter_binmax_plain(*args, dpc), runs,
         )
     return err, checked, k_ms, p_ms
+
+
+def pregathered_check(torch, scatter_score, seed, q_n, kq, vocab, n_chunks, capc, dpc, runs,
+                      pad_rows=False, device="cuda") -> dict:
+    """P5 (chunk-major) and P4 (term-major): the pre-gathered kernel in each
+    layout against its plain version, and against K3 on the same index;
+    {layout: (max error, checked bins, kernel ms, plain ms, bound inputs)}."""
+    args = k3_inputs(torch, seed, q_n, kq, vocab, n_chunks, capc, dpc, pad_rows, device)
+    k3 = scatter_score.scatter_binmax_cuda(*args, dpc)
+    cm = scatter_score._gather_postings(*args, 16)
+    tm = scatter_score.gather_postings_term_major(*args, 16)
+    gap = chunk_gap(torch, scatter_score, *cm, dpc).reshape(q_n, -1)
+    out = {}
+    for layout, (docs, vals) in (("chunk_major", cm), ("term_major", tm)):
+        label = f"{'P5' if layout == 'chunk_major' else 'P4'} {layout} Q{q_n} C{n_chunks} dpc{dpc}"
+        kernel = lambda d=docs, v=vals, lay=layout: scatter_score.scatter_pregathered_cuda(d, v, dpc, lay)  # noqa: E731
+        plain = lambda d=docs, v=vals, lay=layout: scatter_score.scatter_pregathered_plain(d, v, dpc, lay)  # noqa: E731
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err, checked = compare_bins(torch, got, want, gap, K3_TOL, label)
+        # against K3 over the same index: the real chunks of the padded output
+        k3_err, _ = compare_bins(torch, got[:, : k3.shape[1]], k3, gap[:, : k3.shape[1]], K3_TOL, f"{label} vs K3")
+        k_ms = p_ms = None
+        if runs:
+            k_ms, p_ms = alternating_ms(torch, kernel, plain, runs)
+        # operands read once (4-byte docs, 2-byte values), packed bins written
+        # once; one f32 add per posting
+        out[layout] = (max(err, k3_err), checked, k_ms, p_ms,
+                       (float(docs.numel()), docs.nbytes + vals.nbytes + got.nbytes))
+    return out
+
+
+def rerank_small_agreement(torch, np) -> dict:
+    """A tiny BM25 + monoBERT searcher (packed and flat stages) on the CPU
+    and on the card from the same seeds (f32 models), compared pairwise
+    (CPU vs card per stage, packed vs flat on the card): sorted fused scores
+    within RERANK_SMALL_TOL, and the same id at every rank whose score no
+    other score of its row comes within 2 * RERANK_SMALL_TOL of (exact BM25
+    ties may order either way).  {pair: (max score diff, ranks whose ids
+    were compared)}."""
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+    from fusion_tpu_torch.models.encoder import EncoderConfig
+    from fusion_tpu_torch.serving import HybridSearcher
+
+    docs, queries = zipf_corpus(np, 300, 9, seed=7, vocab=400)
+    cfg = EncoderConfig.tiny(vocab_size=512)
+    # matrices ten times the seeded init (std 0.2): at std 0.02 the tiny
+    # model's logits differ by ~1e-6 across pairs, too little to order them
+    seeded = CrossEncoder(cfg, max_length=64, seed=5, device="cpu").module.state_dict()
+    params = {name: w * 10 if w.ndim == 2 else w for name, w in seeded.items()}
+    out = {}
+    for device in ("cpu", "cuda"):
+        ce = CrossEncoder(cfg, params=params, max_length=64, device=device)
+        for packed in (True, False):
+            searcher = HybridSearcher.build(
+                dict(enumerate(docs)), bm25_docs=docs, cross_encoder=ce, rerank_depth=RERANK_SMALL_DEPTH,
+                rerank_packed=packed, topk=20, device=device,
+            )
+            check(searcher.active_systems == ["bm25", "monobert"], f"rerank_small: {searcher.active_systems}")
+            out[device, packed] = searcher.search(queries, batch_size=4)[0]
+    result = {}
+    for a_key, b_key in ((("cpu", True), ("cuda", True)), (("cpu", False), ("cuda", False)),
+                         (("cuda", True), ("cuda", False))):
+        label = f"{a_key} vs {b_key}"
+        a_ids, a_scores = out[a_key].ids.numpy(), out[a_key].scores.numpy()
+        b_ids, b_scores = out[b_key].ids.numpy(), out[b_key].scores.numpy()
+        a, b = -np.sort(-a_scores, axis=1), -np.sort(-b_scores, axis=1)
+        fin = np.isfinite(a)
+        check(bool((fin == np.isfinite(b)).all()), f"rerank_small: {label} -inf pattern differs")
+        err = float(np.where(fin, np.abs(a - b), 0.0).max())
+        check(err <= RERANK_SMALL_TOL, f"rerank_small: {label} scores differ by {err}")
+        # ranks whose score stands apart from the rest of its row
+        with np.errstate(invalid="ignore"):
+            gaps = np.abs(a_scores[:, :, None] - a_scores[:, None, :])
+        rank = np.arange(a.shape[1])
+        gaps[:, rank, rank] = np.inf
+        gaps[np.isnan(gaps)] = np.inf
+        alone = np.isfinite(a_scores) & (gaps.min(axis=2) > 2 * RERANK_SMALL_TOL)
+        head_alone = int(alone[:, :RERANK_SMALL_DEPTH].sum())
+        check(head_alone * 2 >= alone[:, :RERANK_SMALL_DEPTH].size,
+              f"rerank_small: {label} only {head_alone} reranked ranks stand apart")
+        bad = np.argwhere(alone & (a_ids != b_ids))
+        check(len(bad) == 0, f"rerank_small: {label} ids differ at (query, rank) {bad[:5].tolist()}")
+        result[f"{a_key[0]}_{'packed' if a_key[1] else 'flat'}_vs_{b_key[0]}_{'packed' if b_key[1] else 'flat'}"] = (
+            err, int(alone.sum()))
+    return result
+
+
+# per token and layer, the trunk's multiply-adds outside attention: fused qkv
+# and out (4 H^2) and the FFN (2 H F)
+def _trunk_flops_per_token(cfg) -> float:
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    return 2.0 * cfg.num_layers * (4 * h * h + 2 * h * f)
+
+
+def _attention_flops(cfg, length: int) -> float:
+    """QK^T and PV of one sequence of ``length`` tokens over all layers."""
+    return 4.0 * cfg.num_layers * length * length * cfg.hidden_size
+
+
+def stage_profile(torch, fn, top: int = 6) -> dict:
+    """One traced call of ``fn``: its device time, the share of its stream
+    time the device was busy, and the device operations that took most of
+    it (name, ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1000
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
+    ]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1000
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return {
+        "device_ms": dev_ms, "wall_ms": wall_ms, "busy_share": dev_ms / wall_ms if wall_ms else None,
+        "top": [(e.key[:50], round(e.self_device_time_total / 1000, 2), e.count) for e in ranked],
+    }
+
+
+def rerank_check(torch, np, searcher, queries, smi, kernels) -> dict:
+    """The main path: the slice searcher with the monoBERT stage, packed
+    (the default), and the same with the flat stage
+    (``rerank_packed=False``).  Every kernel launch count is set to 0 just
+    before the packed search and read just after (``launches``; K1 must have
+    run once per batch).  Both searches' fused output checked, the top-100
+    head the same set per query in both, the stage's logits on one batch
+    compared (max |packed - flat|) and each held to an f32 forward of the
+    same weights within RERANK_LOGIT_TOL (the f32 forward is the packed
+    stage, so a fault in either stage shows in one of the two), each
+    stage's time on that batch (median of 3 CUDA-event runs, host plan and
+    read-back included), the packed row fill, analytic FLOPs and the rate
+    reached, warm timing and peak memory of each searcher.  One call of
+    each stage is traced (``stage_profile``)."""
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+
+    flat = dataclasses.replace(searcher, rerank_packed=False)
+    ce = searcher.cross_encoder
+    check(searcher.rerank_packed and "monobert" in searcher.active_systems, "rerank: the packed stage is not on")
+    out = {"depth": searcher.rerank_depth}
+    heads = {}
+    for name, s in (("packed", searcher), ("flat", flat)):
+        if name == "packed":
+            reset_counts(*kernels)
+        ranked, _ = s.search(queries, batch_size=BATCH)
+        if name == "packed":
+            out["launches"] = counts(*kernels)
+            check(out["launches"]["K1"] >= N_QUERIES // BATCH,
+                  f"rerank: MaxSim kernel launched {out['launches']['K1']} times in the main path")
+        check_ranked(torch, np, ranked, N_QUERIES, TOPK, N_DOCS)
+        heads[name] = ranked.ids.numpy()[:, : searcher.rerank_depth]
+    out["head_sets_equal"] = all(set(a) == set(b) for a, b in zip(heads["packed"], heads["flat"]))
+    out["head_order_equal_frac"] = float((heads["packed"] == heads["flat"]).mean())
+    check(out["head_sets_equal"], "rerank: packed and flat heads hold other docs")
+
+    inputs = searcher._prepare_inputs(queries[:BATCH])
+    fused = searcher._fuse(searcher._search_batch(inputs))
+    head = fused.ids[:, : searcher.rerank_depth]
+    valid = head >= 0
+    lp = searcher._packed_rerank_stage(inputs, head)
+    lf = flat._flat_rerank_stage(inputs, head)
+    out["max_logit_gap"] = (lp - lf).abs()[valid].max().item()
+    out["max_abs_logit"] = lf.abs()[valid].max().item()
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(lf).all()), "rerank: non-finite logits")
+    # both bf16 stages against an f32 forward of the same (bf16-valued)
+    # weights: the packed stage in f32 equals the flat one to ~1e-6 (CPU
+    # tests), so it serves as the reference of either
+    ce32 = CrossEncoder(dataclasses.replace(ce.cfg, dtype=torch.float32), params=ce.module.state_dict(),
+                        max_length=ce.max_length, device=ce.device)
+    ref = dataclasses.replace(searcher, cross_encoder=ce32)._packed_rerank_stage(inputs, head)
+    out["max_logit_err_vs_f32"] = {
+        "packed": (lp - ref).abs()[valid].max().item(), "flat": (lf - ref).abs()[valid].max().item(),
+    }
+    check(max(out["max_logit_err_vs_f32"].values()) <= RERANK_LOGIT_TOL,
+          f"rerank: bf16 logits off the f32 forward by {out['max_logit_err_vs_f32']} (> {RERANK_LOGIT_TOL})")
+    del ce32, ref
+    for name, s in (("packed", searcher), ("flat", flat)):
+        out[f"{name}_stage_ms"] = statistics.median(timed_ms(torch, lambda s=s: s._rerank(inputs, fused), 3))
+        out[f"{name}_stage_profile"] = stage_profile(torch, lambda s=s: s._rerank(inputs, fused))
+
+    # the plan of this batch: fill, rows scored, analytic FLOPs
+    head_np = head.cpu().numpy()
+    desc, tables, width, nchunks, rpc, _ = ce.plan_packed(
+        head_np, searcher.ce_doc_lens, inputs["ce_qlens"], LQ, searcher.ce_doc_tokens.shape[1],
+        searcher.ce_doc_tokens.shape[0],
+    )
+    plen = 2 + desc[4].astype(np.int64) + desc[5]
+    n_rows = int(desc[2].max()) + 1
+    cfg = ce.cfg
+    ftok = _trunk_flops_per_token(cfg)
+    useful = float(sum(ftok * p + _attention_flops(cfg, p) for p in plen.tolist()))
+    packed_flops = n_rows * (ftok * width + _attention_flops(cfg, width))  # the rows scored
+    ld = searcher.ce_doc_tokens.shape[1]
+    flat_len = 2 + LQ + ld + (-(2 + LQ + ld) % 128)
+    flat_flops = head_np.size * (ftok * flat_len + _attention_flops(cfg, flat_len))
+    out.update(
+        pairs=int(head_np.size), row_width=width, rows=n_rows, rows_per_chunk=rpc, plan_chunks=nchunks,
+        row_fill=float(plen.sum()) / (n_rows * width), flat_pair_len=flat_len,
+        useful_tflop=useful / 1e12, packed_tflop=packed_flops / 1e12, flat_tflop=flat_flops / 1e12,
+        packed_tflops_per_s=packed_flops / out["packed_stage_ms"] / 1e9,
+        flat_tflops_per_s=flat_flops / out["flat_stage_ms"] / 1e9,
+    )
+    for name, s in (("packed", searcher), ("flat", flat)):
+        timing = warm_timing(torch, s, queries, f"rerank_{name}", smi)
+        out[f"{name}_ms_per_batch"] = timing["ms_per_batch_median"]
+        out[f"{name}_peak_mem_gib"] = timing["peak_mem_gib"]
+    return out
 
 
 def k4_check(torch, gather_rows, srcs, idx, runs, fresh=()):
@@ -879,8 +1152,10 @@ def synth_plaid(torch, n=MM_DOCS, gen_seed=31, device="cuda", ch=131_072):
 
 def reset_counts(maxsim, dense_topk, scatter_score, gather_rows) -> None:
     maxsim.maxsim_maxima_cuda.launches = 0
-    dense_topk.binmax_cuda.launches = 0
+    dense_topk.binmax_cuda.launches = dense_topk.binmax_cuda.nomask_launches = 0
     scatter_score.scatter_binmax_cuda.launches = 0
+    scatter_score.scatter_pregathered_cuda.launches = 0
+    scatter_score.scatter_pregathered_cuda.term_major_launches = 0
     gather_rows.gather_rows_cuda.launches = 0
 
 
@@ -890,6 +1165,9 @@ def counts(maxsim, dense_topk, scatter_score, gather_rows) -> dict[str, int]:
         "K2": dense_topk.binmax_cuda.launches,
         "K3": scatter_score.scatter_binmax_cuda.launches,
         "K4": gather_rows.gather_rows_cuda.launches,
+        "P3": dense_topk.binmax_cuda.nomask_launches,
+        "P4": scatter_score.scatter_pregathered_cuda.term_major_launches,
+        "P5": scatter_score.scatter_pregathered_cuda.launches,
     }
 
 
@@ -1012,7 +1290,7 @@ def main() -> int:
     phase("device", t0, kind=repr(kind), count=count, torch=torch.__version__, cuda=torch.version.cuda)
 
     from fusion_tpu_torch.ops import _kernels, dense_topk, gather_rows, maxsim, scatter_score
-    from fusion_tpu_torch.tools import bench_maxsim
+    from fusion_tpu_torch.tools import bench_maxsim, probe_dense, probe_scatter_kernel, probe_scatter_layout
 
     kernels = (maxsim, dense_topk, scatter_score, gather_rows)
     t0 = time.perf_counter()
@@ -1120,6 +1398,79 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # P3: K2 without the dead-row term at doc_block 4096, on one synthesized
+    # mMARCO-size corpus (K2 checked at 4096 and 8192 on the same rows), and
+    # on a ragged shape with scale-0 rows and pad rows masked by n_docs
+    t0 = time.perf_counter()
+    mm_inputs = k2_inputs(torch, BATCH, MM_DOCS, MM_DOCS, MM_H, 31)
+    p3_err, checked, p3_ms, p3_plain = k2_check(
+        torch, dense_topk, BATCH, MM_DOCS, MM_DOCS, MM_H, 31, RUNS, doc_block=4096, dead_rows=False,
+        inputs=mm_inputs,
+    )
+    phase("p3", t0, shape=f"Q64xH768xN{MM_DOCS} doc_block 4096 no dead-row term", max_abs_err=p3_err,
+          offsets_checked=checked, kernel_ms=p3_ms, plain_ms=p3_plain, bound_ms=k2_bound)
+    for db in (4096, 8192):
+        t0 = time.perf_counter()
+        err, checked, _, _ = k2_check(torch, dense_topk, BATCH, MM_DOCS, MM_DOCS, MM_H, 31, 0, doc_block=db,
+                                      inputs=mm_inputs)
+        phase("p3", t0, shape=f"K2 Q64xH768xN{MM_DOCS} doc_block {db}", max_abs_err=err, offsets_checked=checked)
+        k2_err = max(k2_err, err)
+    del mm_inputs
+    for dead_rows in (False, True):
+        t0 = time.perf_counter()
+        err, checked, _, _ = k2_check(torch, dense_topk, 37, 100_003, -(-100_003 // 8192) * 8192, MM_H, 32, 0,
+                                      dead_every=13, doc_block=4096, dead_rows=dead_rows)
+        phase("p3", t0, shape=f"{'K2' if dead_rows else 'P3'} Q37xH768xN100003(pad 106496, every 13th row "
+              "scale 0) doc_block 4096", max_abs_err=err, offsets_checked=checked)
+        if dead_rows:
+            k2_err = max(k2_err, err)
+        else:
+            p3_err = max(p3_err, err)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # P4 and P5: the pre-gathered scatter kernel in each layout at the probe
+    # shape (V 32,768 as the probe scripts) and a ragged one
+    t0 = time.perf_counter()
+    pg = pregathered_check(torch, scatter_score, 33, BATCH, 64, 32_768, MM_DOCS // MM_DPC, MM_CAPC, MM_DPC, RUNS)
+    pg_bound = {lay: bench_maxsim.bound(*v[4], bench_maxsim.PEAK_F32_FLOPS) for lay, v in pg.items()}
+    for lay, v in pg.items():
+        phase("p5" if lay == "chunk_major" else "p4", t0, shape=f"Q64xKq64xC544xcapc32xdpc16384 {lay}",
+              max_abs_err=v[0], offsets_checked=v[1], kernel_ms=v[2], plain_ms=v[3], bound_ms=pg_bound[lay])
+    t0 = time.perf_counter()
+    ragged = pregathered_check(torch, scatter_score, 34, 5, 7, 50, 3, 16, 2048, 0, pad_rows=True)
+    for lay, v in ragged.items():
+        phase("p5" if lay == "chunk_major" else "p4", t0,
+              shape=f"Q5xKq7xC3xcapc16xdpc2048 {lay} (padded rows, empty chunk)", max_abs_err=v[0],
+              offsets_checked=v[1])
+    pg_err = {lay: max(pg[lay][0], ragged[lay][0]) for lay in pg}
+    pg_times = {lay: (pg[lay][2], pg[lay][3]) for lay in pg}
+    del pg, ragged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the probe tools: each one's path with every launch count set to 0 just
+    # before and read just after
+    probe_counts = {}
+    for name, tool, needs in (
+        ("probe_dense", probe_dense, ("K2", "P3")),
+        ("probe_scatter_layout", probe_scatter_layout, ("K3", "P4")),
+        ("probe_scatter_kernel", probe_scatter_kernel, ("K3", "P5")),
+    ):
+        t0 = time.perf_counter()
+        reset_counts(*kernels)
+        record = tool.run(runs=RUNS)
+        probe_counts[name] = counts(*kernels)
+        print(json.dumps(record), flush=True)
+        phase(name, t0, launches=probe_counts[name])
+        for k in needs:
+            check(probe_counts[name][k] > 0, f"{name}: {k} never launched")
+        detail = record["detail"]
+        check(detail.get("nt_scores_match", True) and detail.get("pattern_equal", True)
+              and detail.get("nt_top10_overlap", 1.0) >= 0.99, f"{name}: check failed: {detail}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     k4_err = k4_ragged(torch, gather_rows)
     phase("k4", t0, shape="Q5xK37 (int32x7, u8x3, f32x5, u8x4x32, bool rows; rows 0 and N-1)",
@@ -1131,9 +1482,12 @@ def main() -> int:
     phase("scale_small", t0, max_sorted_score_diff=small_agreement(torch, np, scale=True))
     t0 = time.perf_counter()
     phase("plaid_small", t0, max_sorted_score_diff=plaid_small_agreement(torch, np))
+    t0 = time.perf_counter()
+    phase("rerank_small", t0, score_diff_and_ids_checked=rerank_small_agreement(torch, np))
 
     from fusion_tpu_torch.models.biencoder import BiEncoder
     from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
     from fusion_tpu_torch.models.encoder import EncoderConfig
     from fusion_tpu_torch.serving import HybridSearcher
 
@@ -1144,16 +1498,23 @@ def main() -> int:
     dense = BiEncoder(cfg, head="dense", seed=11, **kw)
     splade = BiEncoder(cfg, head="splade", seed=12, **kw)
     colbert = ColBERT(cfg, dim=DIM, seed=13, **kw)
+    ce = CrossEncoder(cfg, max_length=256, seed=14, device="cuda")
     phase("models", t0, layers=cfg.num_layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size)
     check(cfg.vocab_size == SPLADE_VOCAB, "the SPLADE encoder's vocabulary is not CamemBERT's")
 
     t0 = time.perf_counter()
-    searcher = HybridSearcher.build(
+    # the slice with the monoBERT stage (packed, the default): the main
+    # path, driven in [rerank]; the phases before it serve the slice without
+    # the stage (rerank_depth 0)
+    reranked = HybridSearcher.build(
         dict(enumerate(docs)), bm25_docs=docs, dense_model=dense, splade_model=splade,
-        colbert_model=colbert, topk=TOPK, batch_size=256, fusion_method="rrf", device="cuda",
+        colbert_model=colbert, cross_encoder=ce, rerank_depth=100, topk=TOPK, batch_size=256,
+        fusion_method="rrf", device="cuda",
     )
     torch.cuda.synchronize()
-    phase("index", t0, systems=",".join(searcher.active_systems), docs=N_DOCS)
+    searcher = dataclasses.replace(reranked, rerank_depth=0)
+    phase("index", t0, systems=",".join(searcher.active_systems), docs=N_DOCS,
+          rerank_systems=",".join(reranked.active_systems))
 
     reset_counts(*kernels)
     t0 = time.perf_counter()
@@ -1172,8 +1533,11 @@ def main() -> int:
         profile_search(torch, searcher, queries, "slice")
     t0 = time.perf_counter()
     phase("retrievers", t0, **retrievers_check(torch, np, maxsim, searcher, docs, queries[:BATCH]))
+    t0 = time.perf_counter()
+    rerank = rerank_check(torch, np, reranked, queries, smi, kernels)
+    phase("rerank", t0, gpu=repr(smi), **rerank)
     bm25 = searcher.bm25
-    del searcher, ranked
+    del searcher, reranked, ranked
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1318,7 +1682,8 @@ def main() -> int:
         }
 
     record = {"kernels": [
-        entry("maxsim_maxima_T", "maxsim.cu", "fusion_tpu/ops/maxsim.py:225", slice_counts["K1"],
+        # K1's launches: the main path's run, the slice with the packed rerank
+        entry("maxsim_maxima_T", "maxsim.cu", "fusion_tpu/ops/maxsim.py:225", rerank["launches"]["K1"],
               k1_err, k1_ms, k1_plain, k1_bound),
         entry("dense_binmax", "dense_topk.cu", "fusion_tpu/ops/dense_topk.py:102", mm4_counts["K2"],
               k2_err, k2_ms, k2_plain, k2_bound),
@@ -1334,6 +1699,14 @@ def main() -> int:
               "fusion_tpu/ops/maxsim.py:148; scripts/bench_maxsim.py:26,37,239; "
               "scripts/bench_maxsim2.py:15,25,34", variant_counts["K1-v2"],
               k1v2_err, k1v2_ms, k1v2_plain, k1v2_bound),
+        entry("dense_binmax_nomask", "dense_topk.cu", "scripts/probe_dense.py:106",
+              probe_counts["probe_dense"]["P3"], p3_err, p3_ms, p3_plain, k2_bound),
+        entry("scatter_pregathered_term_major", "scatter_score.cu", "scripts/probe_scatter_layout.py:159",
+              probe_counts["probe_scatter_layout"]["P4"], pg_err["term_major"], *pg_times["term_major"],
+              pg_bound["term_major"]),
+        entry("scatter_pregathered_chunk_major", "scatter_score.cu", "scripts/probe_scatter_kernel.py:37",
+              probe_counts["probe_scatter_kernel"]["P5"], pg_err["chunk_major"], *pg_times["chunk_major"],
+              pg_bound["chunk_major"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -12,8 +12,9 @@ Ported so far: the ``HybridSearcher`` (BM25 dense impacts, DPR, SPLADE,
 ColBERT MaxSim, rank fusion, int8 corpora) and its scale mode (impact-ordered
 BM25, the int8 DPR corpus through the binned top-k kernel, SPLADE through the
 scatter kernel with an exact rescore, ColBERT's residual-compressed index
-searched exhaustively or by PLAID through the row-gather kernel), and
-everything they run.
+searched exhaustively or by PLAID through the row-gather kernel), the
+monoBERT cross-encoder rerank (flat and packed), the probe tools of the
+TPU kernels' variants (``tools/``), and everything they run.
 """
 
 __version__ = "0.1.0"
@@ -25,6 +26,7 @@ _LAZY = {
     "BM25Index": "fusion_tpu_torch.models.bm25",
     "BiEncoder": "fusion_tpu_torch.models.biencoder",
     "ColBERT": "fusion_tpu_torch.models.colbert",
+    "CrossEncoder": "fusion_tpu_torch.models.crossencoder",
     "EncoderConfig": "fusion_tpu_torch.models.encoder",
     "Aggregator": "fusion_tpu_torch.fusion.aggregator",
     "HybridSearcher": "fusion_tpu_torch.serving",

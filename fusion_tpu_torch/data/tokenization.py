@@ -2,9 +2,10 @@
 
 ``WordHashTokenizer`` is the dependency-free tokenizer: whitespace+punct
 split, stable FNV-1a hash into a fixed vocab.  ``TextEncoder`` carries the
-query/doc asymmetry (max lengths, prefixes, mask-token augmentation).  Both
-give the same ids as ``fusion_tpu.data.tokenization``, so one corpus indexes
-identically in either package.
+query/doc asymmetry (max lengths, prefixes, mask-token augmentation);
+``pair_encode_simple`` lays out cross-encoder pairs.  All give the same ids
+as ``fusion_tpu.data.tokenization``, so one corpus indexes identically in
+either package.
 """
 
 from __future__ import annotations
@@ -71,6 +72,22 @@ class WordHashTokenizer:
             out[i, : len(r)] = r
             mask[i, : len(r)] = 1
         return out, mask
+
+
+def pair_encode_simple(
+    tok: WordHashTokenizer, queries: Sequence[str], docs: Sequence[str], max_length: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """(query, doc) pair encoding for the hashing tokenizer:
+    ``[CLS] q [SEP] d [SEP]``, the query cut to ``max_length // 3`` tokens."""
+    ids = np.full((len(queries), max_length), tok.pad_token_id, dtype=np.int32)
+    mask = np.zeros((len(queries), max_length), dtype=np.int32)
+    for i, (q, d) in enumerate(zip(queries, docs)):
+        row = [tok.cls_token_id] + tok.token_ids(q)[: max_length // 3] + [tok.sep_token_id]
+        row += tok.token_ids(d)[: max_length - len(row) - 1] + [tok.sep_token_id]
+        row = row[:max_length]
+        ids[i, : len(row)] = row
+        mask[i, : len(row)] = 1
+    return ids, mask
 
 
 class TextEncoder:

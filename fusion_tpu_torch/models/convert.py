@@ -94,6 +94,16 @@ def colbert_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def crossencoder_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``CrossEncoderModule`` params (``{"encoder", "head"}``) →
+    ``CrossEncoderModule`` state dict."""
+    tree = _tree(variables)
+    out = encoder_state_dict(tree["encoder"], prefix="encoder.")
+    _dense(tree["head"]["pooler"], "head.pooler", out)
+    _dense(tree["head"]["classifier"], "head.classifier", out)
+    return out
+
+
 def plaid_index_from_arrays(
     centroids, centroid_ids, codes, mask, bucket_weights, nbits: int,
     ivf_doc=None, n_docs: int | None = None, cap: int | None = None, device="cuda",

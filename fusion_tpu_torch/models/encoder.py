@@ -9,7 +9,11 @@ The same trunk as ``fusion_tpu/models/encoder.py``, layer for layer:
     additive -1e9 bias, so a row with no attended key softmaxes uniformly
     instead of giving NaN;
   * positions count non-pad ids (RoBERTa scheme, offset past the pad index),
-    read from the ids and not from the attention mask;
+    read from the ids and not from the attention mask, unless the caller
+    passes ``position_ids`` (the packed rerank restarts them per pair);
+  * ``segment_ids`` (packed rows) make the allowed mask block-diagonal
+    ``[B, 1, L, L]``: a token attends only to tokens of its own segment, and
+    the −1e9 bias keeps an all-pad row finite as before;
   * GELU is exact.
 
 The port serves inference only: modules are built in eval mode and the
@@ -94,9 +98,11 @@ class Embeddings(nn.Module):
         self.token_type = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, position_ids: torch.Tensor | None = None) -> torch.Tensor:
         c = self.cfg
-        if c.position_offset:
+        if position_ids is not None:
+            pos_ids = position_ids
+        elif c.position_offset:
             pos_ids = roberta_position_ids(input_ids, c.pad_token_id)
         else:
             pos_ids = torch.arange(input_ids.shape[-1], device=input_ids.device).expand_as(
@@ -118,7 +124,9 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
         self.out = nn.Linear(cfg.hidden_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, attention_mask: torch.Tensor, segment_ids: torch.Tensor | None = None
+    ) -> torch.Tensor:
         c = self.cfg
         b, length, h = x.shape
         head_dim = h // c.num_heads
@@ -127,7 +135,12 @@ class SelfAttention(nn.Module):
         # f32 logits from the compute-dtype projections, as the JAX einsum
         # with preferred_element_type=f32 gives them
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(head_dim)
-        allowed = attention_mask[:, None, None, :] > 0
+        if segment_ids is None:
+            allowed = attention_mask[:, None, None, :] > 0
+        else:  # block-diagonal: pairs packed into one row never attend across
+            allowed = (
+                (segment_ids[:, None, :] == segment_ids[:, :, None]) & (attention_mask[:, None, :] > 0)
+            )[:, None]
         bias = torch.where(allowed, 0.0, -1e9).to(torch.float32)
         probs = torch.softmax(logits + bias, dim=-1).to(c.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -144,9 +157,11 @@ class TransformerLayer(nn.Module):
         self.ffn_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.ffn_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, attention_mask: torch.Tensor, segment_ids: torch.Tensor | None = None
+    ) -> torch.Tensor:
         dtype = self.cfg.dtype
-        x = self.attn_ln(x + self.attention(x, attention_mask)).to(dtype)
+        x = self.attn_ln(x + self.attention(x, attention_mask, segment_ids)).to(dtype)
         h = self.ffn_out(F.gelu(self.ffn_in(x), approximate="none"))
         return self.ffn_ln(x + h).to(dtype)
 
@@ -160,10 +175,16 @@ class Encoder(nn.Module):
         self.embeddings = Embeddings(cfg)
         self.layers = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_layers))
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        x = self.embeddings(input_ids)
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        position_ids: torch.Tensor | None = None,
+        segment_ids: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        x = self.embeddings(input_ids, position_ids)
         for layer in self.layers:
-            x = layer(x, attention_mask)
+            x = layer(x, attention_mask, segment_ids)
         return x
 
 
@@ -219,10 +240,11 @@ def init_weights(module: nn.Module, seed: int) -> None:
 
 def place(module: nn.Module, dtype: torch.dtype, device) -> nn.Module:
     """Move to ``device`` in eval mode; linear and embedding weights take the
-    compute dtype, LayerNorm weights stay f32."""
+    compute dtype, LayerNorm weights stay f32, and so does a layer marked
+    ``keep_f32`` (the cross-encoder's classifier)."""
     module.to(device).eval()
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Embedding)):
+        if isinstance(m, (nn.Linear, nn.Embedding)) and not getattr(m, "keep_f32", False):
             m.to(dtype)
     return module
 

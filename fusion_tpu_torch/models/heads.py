@@ -4,6 +4,8 @@
   * ``splade_activation`` — log1p(relu(logits)) masked, max- or sum-pooled
   * ``prune_topk``        — keep the top-k activations per row
   * ``ColBERTHead``       — per-token projection + L2 norm (late interaction)
+  * ``CrossEncoderHead``  — CLS → pooler dense → tanh → f32 classifier logit
+                            (monoBERT)
 
 Each computes in the dtype of its input, as ``fusion_tpu/models/heads.py``.
 """
@@ -65,3 +67,19 @@ class ColBERTHead(nn.Module):
     def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         tok = l2_normalize(self.proj(hidden).float())
         return tok * attention_mask[..., None].to(torch.float32)
+
+
+class CrossEncoderHead(nn.Module):
+    """CLS pooled representation → one relevance logit: the ``pooler`` dense
+    in the compute dtype, tanh, then the ``classifier`` in f32 (its weights
+    stay f32 when the module is placed)."""
+
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.pooler = nn.Linear(hidden_size, hidden_size)
+        self.classifier = nn.Linear(hidden_size, 1)
+        self.classifier.keep_f32 = True
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        x = torch.tanh(self.pooler(hidden[:, 0, :]))
+        return self.classifier(x.float())[..., 0]

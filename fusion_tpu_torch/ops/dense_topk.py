@@ -1,10 +1,11 @@
 """Fused matmul + binned top-k for corpus-scale dense search (the DPR leg of
 scale mode).
 
-One pass over the int8 corpus computes, per 2048-doc block,
+One pass over the int8 corpus computes, per doc block of B docs (2048, 4096
+or 8192 on the card),
 
     scores[Q, B] = (q_bf16 · blockᵀ) * scales     (dead rows → _DEAD)
-    bin max over 16 strided docs (bin lane l of a block = docs {s·128 + l})
+    bin max over 16 strided docs (bin lane l of a block = docs {s·B/16 + l})
     in-bin argmax offset packed into the score's 4 low mantissa bits
       → f32 [Q, N/16]
 
@@ -12,7 +13,10 @@ then one stable top-k over the bin maxima, and the doc ids come back
 arithmetically from the bin position and the packed offset.
 
   * ``binmax_cuda``  — the hand-written Hopper kernel (``csrc/dense_topk.cu``)
-    for tensors on the card; ``binmax_cuda.launches`` counts its launches;
+    for tensors on the card; ``binmax_cuda.launches`` counts its launches of
+    K2 (with the dead-row term) and ``binmax_cuda.nomask_launches`` those of
+    the variant without it (``dead_rows=False``: ``scripts/probe_dense.py``'s
+    ``_binmax_nomask``, where a pad row of scale 0 scores ±0.0);
   * ``binmax_plain`` — the plain PyTorch version of the same function (what a
     tensor on the CPU runs; the kernel is held to it on the card);
   * ``fused_dense_topk`` — the search: normalize, bin-max, select.
@@ -43,8 +47,10 @@ BIN = 16  # docs per bin; bin lane l of a block covers docs {s·lanes + l}
 # _select_topk so dead rows come back as (-1, -inf)
 _DEAD = -3.0e38
 
-# the kernel's block: 16 strided sub-tiles of 128 docs
+# the serving doc block: 16 strided sub-tiles of 128 docs
 KERNEL_DOC_BLOCK = 2048
+# the doc blocks the kernel takes (template instances of one body)
+KERNEL_DOC_BLOCKS = (2048, 4096, 8192)
 
 
 def _apply_scales(raw: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -117,11 +123,13 @@ def binmax_plain(
     n_docs: int,
     doc_block: int = KERNEL_DOC_BLOCK,
     rows_per_step: int = 65536,
+    dead_rows: bool = True,
 ) -> torch.Tensor:
     """Plain version of the binned scorer: bf16 [Q, H] queries × int8 (or
     bf16) [N_pad, H] rows with f32 [N_pad] scales → f32 [Q, N_pad/16] packed
     bin maxima.  Several blocks share one f32-accumulated matmul, then the
-    bin reduction runs on all of them at once."""
+    bin reduction runs on all of them at once.  ``dead_rows=False`` leaves
+    out the dead-row term (scores are ``raw · scale``)."""
     n_pad = values.shape[0]
     nq = q.shape[0]
     qb = q.to(torch.bfloat16)
@@ -131,7 +139,9 @@ def binmax_plain(
         vals = values[start : start + step]
         nb = vals.shape[0] // doc_block
         raw = matmul_f32(qb, vals.to(torch.bfloat16).T)
-        scores = _apply_scales(raw, scales[start : start + step]).view(nq, nb, doc_block)
+        s = scales[start : start + step]
+        scores = _apply_scales(raw, s) if dead_rows else raw * s[None, :]
+        scores = scores.view(nq, nb, doc_block)
         doc0 = start + doc_block * torch.arange(nb, device=q.device)[:, None]
         packed = _bin_reduce_pack(scores, doc0, n_docs)  # [Q, nb, lanes]
         out[:, start // BIN : (start + vals.shape[0]) // BIN] = packed.reshape(nq, -1)
@@ -143,7 +153,8 @@ def _bind() -> ctypes.CDLL:
     lib = _kernels.load("dense_topk")
     lib.dense_binmax.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p,
     ]
     lib.dense_binmax.restype = ctypes.c_int
     lib.dense_binmax_error_string.argtypes = [ctypes.c_int]
@@ -157,11 +168,13 @@ def binmax_cuda(
     scales: torch.Tensor,
     n_docs: int,
     doc_block: int = KERNEL_DOC_BLOCK,
+    dead_rows: bool = True,
 ) -> torch.Tensor:
     """The Hopper kernel (``csrc/dense_topk.cu``): bf16 [Q, H] × int8
     [N_pad, H] with f32 [N_pad] scales → f32 [Q, N_pad/16] packed bin maxima,
-    on the current stream.  Takes doc_block 2048 only, N_pad a multiple of
-    it, H a multiple of 16 in [16, 1024]."""
+    on the current stream.  Takes doc_block 2048, 4096 or 8192, N_pad a
+    multiple of it, H a multiple of 16 in [16, 1024]; ``dead_rows=False``
+    runs the variant without the dead-row term."""
     tensors = (q, values, scales)
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
         raise ValueError("binmax_cuda needs every tensor on one CUDA device")
@@ -176,9 +189,9 @@ def binmax_cuda(
             f"shapes must be [Q, H], [N, H] and [N], got {tuple(q.shape)}, "
             f"{tuple(values.shape)} and {tuple(scales.shape)}"
         )
-    if doc_block != KERNEL_DOC_BLOCK or n_pad % doc_block:
+    if doc_block not in KERNEL_DOC_BLOCKS or n_pad % doc_block:
         raise ValueError(
-            f"the kernel takes doc_block {KERNEL_DOC_BLOCK} and rows padded to it, "
+            f"the kernel takes doc_block in {KERNEL_DOC_BLOCKS} and rows padded to it, "
             f"got doc_block {doc_block} and {n_pad} rows"
         )
     if h % 16 or not 16 <= h <= 1024:
@@ -191,27 +204,33 @@ def binmax_cuda(
     lib = _bind()
     rc = lib.dense_binmax(
         q.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        q.shape[0], h, n_pad // doc_block, n_docs,
+        q.shape[0], h, n_pad // doc_block, doc_block, int(dead_rows), n_docs,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
             f"dense_topk kernel launch failed: {lib.dense_binmax_error_string(rc).decode()} ({rc})"
         )
-    binmax_cuda.launches += 1
+    if dead_rows:
+        binmax_cuda.launches += 1
+    else:
+        binmax_cuda.nomask_launches += 1
     return out
 
 
 binmax_cuda.launches = 0
+binmax_cuda.nomask_launches = 0
 
 
-def binmax(q, values, scales, n_docs: int, doc_block: int = KERNEL_DOC_BLOCK) -> torch.Tensor:
+def binmax(
+    q, values, scales, n_docs: int, doc_block: int = KERNEL_DOC_BLOCK, dead_rows: bool = True
+) -> torch.Tensor:
     """Packed bin maxima: a tensor on the card goes to the kernel (which
     raises on what it does not take); a tensor on the CPU goes to the plain
     version."""
     if values.is_cuda or q.is_cuda:
-        return binmax_cuda(q, values, scales, n_docs, doc_block)
-    return binmax_plain(q, values, scales, n_docs, doc_block)
+        return binmax_cuda(q, values, scales, n_docs, doc_block, dead_rows)
+    return binmax_plain(q, values, scales, n_docs, doc_block, dead_rows=dead_rows)
 
 
 def fused_dense_topk(
@@ -220,12 +239,14 @@ def fused_dense_topk(
     k: int = 1000,
     doc_block: int = KERNEL_DOC_BLOCK,
     n_docs: int | None = None,
+    dead_rows: bool = True,
 ) -> RankedLists:
     """Corpus-scale dense search through the binned scorer.
 
     Rows should already be padded to a ``doc_block`` multiple (otherwise
     this pads a COPY); pass the real row count as ``n_docs`` so pad rows are
-    masked.  Scores come back with 4 mantissa bits cleared."""
+    masked.  Scores come back with 4 mantissa bits cleared.
+    ``dead_rows=False`` scores with the no-mask variant."""
     values, scales, normalized = tuple(index)
     if n_docs is None:
         n_docs = values.shape[0]
@@ -237,5 +258,5 @@ def fused_dense_topk(
     qf = query_embs.to(torch.float32)
     if normalized:
         qf = l2_normalize(qf)
-    packed = binmax(qf.to(torch.bfloat16), values, scales, n_docs, doc_block)
+    packed = binmax(qf.to(torch.bfloat16), values, scales, n_docs, doc_block, dead_rows)
     return _select_topk(packed, n_docs, k, doc_block)

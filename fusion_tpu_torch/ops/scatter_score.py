@@ -15,7 +15,16 @@ and one stable top-k over all bins picks the result.
   * ``scatter_binmax_plain`` — the plain PyTorch version of the same function
     (gather the postings, scatter-add, bin-reduce), which a tensor on the
     CPU runs and the kernel is held to on the card;
-  * ``scatter_impact_search`` — the search.
+  * ``scatter_impact_search`` — the search;
+  * ``scatter_pregathered_cuda`` / ``scatter_pregathered_plain`` — the same
+    scoring over postings already gathered per query, chunk-major
+    ``[Q, Cp, Kq·capc]`` (``_gather_postings``; the TPU's
+    ``scripts/probe_scatter_kernel.py::_b3d_kernel``) or term-major
+    ``[Q, Kq, Cp, capc]`` (``gather_postings_term_major``;
+    ``scripts/probe_scatter_layout.py::_kernel_nt``), one kernel with a
+    layout parameter (``.launches`` counts chunk-major launches,
+    ``.term_major_launches`` term-major ones); ``pregathered_search`` is the
+    search over them.
 
 Trades, as in the JAX package: postings accumulate bf16 values in f32;
 two true top-k docs sharing a 16-doc bin drop the weaker; packed scores lose
@@ -54,28 +63,42 @@ def _plan(docs_per_chunk: int) -> int:
     return h
 
 
-def _gather_postings(
+def gather_postings_term_major(
     q_terms: torch.Tensor,  # int [Q, Kq] (pad >= vocab_size)
     q_weights: torch.Tensor,  # f32 [Q, Kq]
     post_doc: torch.Tensor,  # int16 [V+1, C, capc] (uint16 bits)
     post_impact: torch.Tensor,  # f16 [V+1, C, capc]
     chunk_block: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Query-term posting rows, chunk-major: (docs int32, vals bf16)
-    [Q, Cp, Kq·capc]; the chunk axis is padded to a ``chunk_block`` multiple
-    with sentinel-only chunks."""
-    q, kq = q_terms.shape
-    vp1, c, capc = post_doc.shape
+    """Query-term posting rows: (docs int32, vals bf16) [Q, Kq, Cp, capc];
+    the chunk axis is padded to a ``chunk_block`` multiple with
+    sentinel-only chunks (``scripts/probe_scatter_layout.py``'s
+    ``gather_nt``)."""
+    vp1, c, _ = post_doc.shape
     terms = q_terms.long().clamp(0, vp1 - 1)
-    docs = post_doc[terms].to(torch.int32) & 0xFFFF  # [Q, Kq, C, capc]
+    docs = post_doc[terms].to(torch.int32) & 0xFFFF
     vals = post_impact[terms].to(torch.bfloat16) * q_weights.to(torch.bfloat16)[..., None, None]
-    docs = docs.transpose(1, 2).reshape(q, c, kq * capc)
-    vals = vals.transpose(1, 2).reshape(q, c, kq * capc)
     c_pad = -(-c // chunk_block) * chunk_block
     if c_pad != c:
         docs = torch.nn.functional.pad(docs, (0, 0, 0, c_pad - c), value=CHUNK_SENTINEL)
         vals = torch.nn.functional.pad(vals, (0, 0, 0, c_pad - c))
     return docs, vals
+
+
+def _gather_postings(
+    q_terms: torch.Tensor,
+    q_weights: torch.Tensor,
+    post_doc: torch.Tensor,
+    post_impact: torch.Tensor,
+    chunk_block: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same rows chunk-major: (docs int32, vals bf16) [Q, Cp, Kq·capc]."""
+    docs, vals = gather_postings_term_major(q_terms, q_weights, post_doc, post_impact, chunk_block)
+    q, kq, c_pad, capc = docs.shape
+    return (
+        docs.transpose(1, 2).reshape(q, c_pad, kq * capc),
+        vals.transpose(1, 2).reshape(q, c_pad, kq * capc),
+    )
 
 
 def _chunk_scores(docs: torch.Tensor, vals: torch.Tensor, h: int) -> torch.Tensor:
@@ -126,6 +149,11 @@ def _bind() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.scatter_binmax.restype = ctypes.c_int
+    lib.scatter_pregathered.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.scatter_pregathered.restype = ctypes.c_int
     lib.scatter_binmax_error_string.argtypes = [ctypes.c_int]
     lib.scatter_binmax_error_string.restype = ctypes.c_char_p
     return lib
@@ -211,3 +239,94 @@ def scatter_impact_search(
         index.post_doc, index.post_impact, index.docs_per_chunk,
     )
     return _select_topk(packed, index.n_docs, min(k, index.n_docs), index.docs_per_chunk)
+
+
+LAYOUTS = ("chunk_major", "term_major")
+
+
+def scatter_pregathered_plain(
+    docs: torch.Tensor,
+    vals: torch.Tensor,
+    docs_per_chunk: int,
+    layout: str = "chunk_major",
+    chunk_block: int = 16,
+) -> torch.Tensor:
+    """Plain version of the pre-gathered scorer: int32 docs and bf16 values,
+    chunk-major [Q, Cp, W] or term-major [Q, Kq, Cp, capc] → f32
+    [Q, Cp·dpc/16] packed bin maxima (pad chunks included, all -inf)."""
+    h = _plan(docs_per_chunk)
+    if layout == "term_major":
+        q, kq, c_pad, capc = docs.shape
+        docs = docs.permute(0, 2, 1, 3).reshape(q, c_pad, kq * capc)
+        vals = vals.permute(0, 2, 1, 3).reshape(q, c_pad, kq * capc)
+    elif layout != "chunk_major":
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    q, c_pad, _ = docs.shape
+    out = torch.empty((q, c_pad, docs_per_chunk // BIN), dtype=torch.float32, device=docs.device)
+    for ci in range(0, c_pad, chunk_block):
+        scores = _chunk_scores(docs[:, ci : ci + chunk_block], vals[:, ci : ci + chunk_block], h)
+        out[:, ci : ci + chunk_block] = _bin_reduce_pack(
+            scores.reshape(q, -1, docs_per_chunk), 0, 2**31 - 1
+        )
+    return out.reshape(q, -1)
+
+
+def scatter_pregathered_cuda(
+    docs: torch.Tensor, vals: torch.Tensor, docs_per_chunk: int, layout: str = "chunk_major"
+) -> torch.Tensor:
+    """The Hopper kernel (``csrc/scatter_score.cu``, ``scatter_pregathered``):
+    int32 docs and bf16 values, chunk-major [Q, Cp, W] or term-major
+    [Q, Kq, Cp, capc] → f32 [Q, Cp·dpc/16] packed bin maxima, on the current
+    stream."""
+    if not (docs.is_cuda and vals.is_cuda) or docs.device != vals.device:
+        raise ValueError("scatter_pregathered_cuda needs both tensors on one CUDA device")
+    if docs.dtype != torch.int32 or vals.dtype != torch.bfloat16:
+        raise TypeError(f"scatter_pregathered_cuda takes int32 docs and bf16 values, got {docs.dtype}, {vals.dtype}")
+    h = _plan(docs_per_chunk)
+    if layout == "chunk_major" and docs.dim() == 3:
+        q, c_pad, w = docs.shape
+        kq, capc = 1, w
+    elif layout == "term_major" and docs.dim() == 4:
+        q, kq, c_pad, capc = docs.shape
+    else:
+        raise ValueError(f"layout {layout!r} (one of {LAYOUTS}) does not fit docs of shape {tuple(docs.shape)}")
+    if vals.shape != docs.shape or not (docs.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("scatter_pregathered_cuda needs contiguous docs and values of one shape")
+    out = torch.empty((q, c_pad * docs_per_chunk // BIN), dtype=torch.float32, device=docs.device)
+    if q == 0 or c_pad == 0 or kq * capc == 0:
+        return out.fill_(-torch.inf)
+    lib = _bind()
+    rc = lib.scatter_pregathered(
+        docs.data_ptr(), vals.data_ptr(), out.data_ptr(), q, c_pad, kq, capc, h * LANES,
+        LAYOUTS.index(layout), torch.cuda.current_stream(docs.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"pre-gathered scatter kernel launch failed: {lib.scatter_binmax_error_string(rc).decode()} ({rc})"
+        )
+    if layout == "chunk_major":
+        scatter_pregathered_cuda.launches += 1
+    else:
+        scatter_pregathered_cuda.term_major_launches += 1
+    return out
+
+
+scatter_pregathered_cuda.launches = 0
+scatter_pregathered_cuda.term_major_launches = 0
+
+
+def pregathered_search(
+    docs: torch.Tensor,
+    vals: torch.Tensor,
+    n_docs: int,
+    docs_per_chunk: int,
+    k: int = 1000,
+    layout: str = "chunk_major",
+) -> RankedLists:
+    """Search over pre-gathered postings: the kernel for tensors on the card,
+    the plain version on the CPU, then the stable top-k of the bins."""
+    if docs.is_cuda:
+        packed = scatter_pregathered_cuda(docs, vals, docs_per_chunk, layout)
+    else:
+        packed = scatter_pregathered_plain(docs, vals, docs_per_chunk, layout)
+    return _select_topk(packed, n_docs, min(k, n_docs), docs_per_chunk)

@@ -23,10 +23,16 @@ the MaxSim kernel, or with ``colbert_plaid`` by PLAID: centroid probe → IVF
 candidates → exact rescore of the candidates' rows, which the gather kernel
 fetches.
 
-The offline ``build()`` encodes the corpus once per system.  The
-cross-encoder rerank, int8 query encoders, percentile normalizations and
-index persistence are later slices of the port (ROADMAP.md Queue 1); asking
-for them raises ``NotImplementedError``.
+With a ``cross_encoder`` the searcher adds the monoBERT final stage: the
+fused head of each query (``rerank_depth`` candidates) is scored pair by
+pair and re-sorted above the untouched tail (``rerank_head_merge``), either
+packed (the default: pairs packed into fixed-width rows, planned on the host
+from the head ids) or flat (every pair padded to the full doc width).
+
+The offline ``build()`` encodes the corpus once per system.  The cascade and
+length-bucketed rerank stages, int8 query encoders, percentile
+normalizations and index persistence are later slices of the port
+(ROADMAP.md Queue 1); asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from fusion_tpu_torch.index.inverted import (
 from fusion_tpu_torch.index.plaid import build_ivf, plaid_search
 from fusion_tpu_torch.index.sparse import build_rescore_store, sparse_rescore
 from fusion_tpu_torch.models.bm25 import BM25Index
+from fusion_tpu_torch.models.crossencoder import CrossEncoder
 from fusion_tpu_torch.models.encoder import token_tensors
 from fusion_tpu_torch.models.heads import l2_normalize
 from fusion_tpu_torch.ops.dense_topk import fused_dense_topk
@@ -69,10 +76,45 @@ from fusion_tpu_torch.ops.scatter_score import MAX_POSTING_WIDTH, scatter_impact
 # build() options of the JAX searcher that this port does not serve yet,
 # with the ROADMAP.md Queue 1 item that brings each
 _NOT_PORTED = {
-    "cross_encoder": "the cross-encoder rerank (Slice A, item 9)",
+    "rerank_buckets": "the length-bucketed rerank stage (Slice A, item 9)",
+    "rerank_cascade": "the two-stage cascade rerank (Slice A, item 9)",
     "encoders_int8": "int8 query encoders (Slice C, item 17)",
 }
 _PERCENTILE_NORMALIZATIONS = ("percentile-rank", "normal-curve-equivalent")
+
+
+def rerank_head_merge(fused: RankedLists, head_ids: torch.Tensor, logits: torch.Tensor) -> RankedLists:
+    """Re-sort the fused head by cross-encoder logits and keep the tail.
+
+    Head scores become sigmoid(logit) (pads -inf), sorted descending with
+    ties in head order, then shifted above the row's best tail score so the
+    whole row stays descending; the tail beyond the rerank depth is
+    unchanged."""
+    kr = head_ids.shape[1]
+    scores = torch.where(head_ids >= 0, torch.sigmoid(logits.float()), -torch.inf)
+    head_scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    re_ids = torch.gather(head_ids, 1, order)
+    tail_ids, tail_scores = fused.ids[:, kr:], fused.scores[:, kr:]
+    if tail_scores.shape[1]:
+        tail0 = tail_scores[:, :1]
+        offset = torch.where(torch.isfinite(tail0), tail0, 0.0) + 1.0
+        head_scores = torch.where(torch.isfinite(head_scores), head_scores + offset, head_scores)
+    return RankedLists(
+        ids=torch.cat([re_ids, tail_ids], dim=1), scores=torch.cat([head_scores, tail_scores], dim=1)
+    )
+
+
+def _check_rerank_options(packed: bool, buckets, cascade) -> None:
+    """The packed stage replaces the JAX package's bucketed and cascade
+    stages, which the port does not serve yet."""
+    if packed and (buckets is not None or cascade is not None):
+        raise ValueError(
+            "rerank_packed is mutually exclusive with rerank_buckets / rerank_cascade "
+            "(the packed stage replaces them as the variable-length strategy): configure one"
+        )
+    for option, value in (("rerank_buckets", buckets), ("rerank_cascade", cascade)):
+        if value is not None:
+            raise NotImplementedError(f"{option}: {_NOT_PORTED[option]} is not ported to fusion_tpu_torch yet")
 
 
 def _quantize_impacts(impacts: torch.Tensor) -> QuantizedDenseIndex:
@@ -108,6 +150,7 @@ class HybridSearcher:
                   exact-rescore store
       'colbert' — ColBERT + TokenIndex, or a CompressedTokenIndex searched
                   exhaustively, or with an IVFIndex by PLAID
+    and, with a cross-encoder, the 'monobert' rerank of the fused head.
     """
 
     corpus_ids: np.ndarray
@@ -143,6 +186,18 @@ class HybridSearcher:
     # 'gather' reconstructs every candidate token; 'factored' reuses the
     # centroid-score table and reconstructs only the residuals
     plaid_rescore_impl: str = "gather"
+    cross_encoder: CrossEncoder | None = None
+    # the corpus's raw cross-encoder tokens on the device, and their host
+    # token counts (the packed stage's plan)
+    ce_doc_tokens: torch.Tensor | None = None
+    ce_doc_mask: torch.Tensor | None = None
+    ce_doc_lens: np.ndarray | None = None
+    rerank_depth: int = 0
+    ce_query_length: int = 32
+    rerank_chunk: int = 512  # pairs per forward of the flat stage
+    # the packed stage (the build default); the flat stage otherwise
+    rerank_packed: bool = True
+    rerank_row_width: int | None = None  # None: ~1.5x the longest pair
     fusion_method: str = "rrf"
     normalization: str | None = None
     linear_weights: Mapping[str, float] | None = None
@@ -182,6 +237,12 @@ class HybridSearcher:
         bm25_preprocess=None,
         device="cuda",
         cross_encoder=None,
+        rerank_depth: int = 100,
+        ce_max_doc_tokens: int | None = None,
+        rerank_packed: bool | None = None,
+        rerank_row_width: int | None = None,
+        rerank_buckets: tuple | None = None,
+        rerank_cascade: tuple | None = None,
         colbert_compressed: bool = False,
         colbert_nbits: int = 2,
         colbert_plaid: bool = False,
@@ -220,13 +281,20 @@ class HybridSearcher:
         candidate-row gather runs the Hopper kernel for an index on the card
         and the plain gather on the CPU.  ``plaid_topk_impl`` ('approx' or
         'exact') is checked and dropped: every PLAID select in the port is
-        exact."""
-        requested = dict(cross_encoder=cross_encoder is not None, encoders_int8=encoders_int8)
-        for option, wanted in requested.items():
-            if wanted:
-                raise NotImplementedError(
-                    f"{option}: {_NOT_PORTED[option]} is not ported to fusion_tpu_torch yet"
-                )
+        exact.
+
+        ``cross_encoder`` adds the monoBERT final stage over each query's
+        fused top ``rerank_depth``: the corpus is tokenized once into a device
+        matrix of raw doc tokens (``ce_max_doc_tokens`` wide).
+        ``rerank_packed`` None resolves to the packed stage (rows of
+        ``rerank_row_width`` tokens); False serves the flat stage."""
+        if rerank_packed is None:
+            rerank_packed = rerank_buckets is None and rerank_cascade is None
+        _check_rerank_options(rerank_packed, rerank_buckets, rerank_cascade)
+        if encoders_int8:
+            raise NotImplementedError(
+                f"encoders_int8: {_NOT_PORTED['encoders_int8']} is not ported to fusion_tpu_torch yet"
+            )
         if fusion_method not in FUSION_METHODS:
             raise ValueError(f"fusion_method must be one of {FUSION_METHODS}")
         if normalization not in (None, *NORMALIZATIONS):
@@ -255,7 +323,7 @@ class HybridSearcher:
         if plaid_rescore_impl not in ("gather", "factored"):
             raise ValueError(f"plaid_rescore_impl must be 'gather' or 'factored', got {plaid_rescore_impl!r}")
         device = resolve_device(device)
-        for model in (dense_model, splade_model, colbert_model):
+        for model in (dense_model, splade_model, colbert_model, cross_encoder):
             if model is not None and model.device != device:
                 raise ValueError(f"model lives on {model.device}, the searcher on {device}")
 
@@ -267,6 +335,10 @@ class HybridSearcher:
             splade_model=splade_model,
             splade_query_terms=splade_query_terms,
             colbert_model=colbert_model,
+            cross_encoder=cross_encoder,
+            rerank_depth=rerank_depth if cross_encoder is not None else 0,
+            rerank_packed=rerank_packed,
+            rerank_row_width=rerank_row_width,
             plaid_nprobe=plaid_nprobe,
             plaid_ncand=plaid_ncand,
             plaid_ncand_rescore=plaid_ncand_rescore,
@@ -309,6 +381,10 @@ class HybridSearcher:
         if colbert_model is not None:
             out._build_colbert(documents, batch_size, colbert_compressed, colbert_nbits,
                                colbert_plaid, ivf_cap)
+        if cross_encoder is not None:
+            out.ce_doc_tokens, out.ce_doc_mask, out.ce_doc_lens = cross_encoder.prepare_corpus_tokens(
+                documents, max_doc_tokens=ce_max_doc_tokens, return_lens=True
+            )
         return out
 
     def _build_colbert(self, documents, batch_size, compressed, nbits, plaid, ivf_cap) -> None:
@@ -394,7 +470,13 @@ class HybridSearcher:
             systems.append("splade")
         if self.colbert_index is not None:
             systems.append("colbert")
+        if self._rerank_active:
+            systems.append("monobert")
         return systems
+
+    @property
+    def _rerank_active(self) -> bool:
+        return self.cross_encoder is not None and self.rerank_depth > 0 and self.ce_doc_tokens is not None
 
     def save_indexes(self, path: str) -> None:
         raise NotImplementedError("index persistence is not ported to fusion_tpu_torch yet")
@@ -481,6 +563,11 @@ class HybridSearcher:
         if self.colbert_index is not None:
             ids, mask = self.colbert_model.text_encoder.encode(chunk, query_mode=True)
             inputs["cb_ids"], inputs["cb_mask"] = token_tensors(ids, mask, self.device)
+        if self._rerank_active:
+            ids, mask = self.cross_encoder.encode_queries_raw(chunk, max_query_tokens=self.ce_query_length)
+            inputs["ce_ids"], inputs["ce_mask"] = token_tensors(ids, mask, self.device)
+            # the packed plan's query lengths, taken while the mask is on the host
+            inputs["ce_qlens"] = np.asarray(mask).sum(axis=1).astype(np.int32)
         return inputs
 
     def _bm25_leg(self, inputs: dict[str, torch.Tensor]) -> RankedLists:
@@ -583,6 +670,36 @@ class HybridSearcher:
             return_topk=self.topk,
         )
 
+    def _rerank(self, inputs: dict, fused: RankedLists) -> RankedLists:
+        """The monoBERT stage over the fused head of one batch."""
+        kr = min(self.rerank_depth, fused.depth)
+        head_ids = fused.ids[:, :kr]
+        if self.rerank_packed:
+            logits = self._packed_rerank_stage(inputs, head_ids)
+        else:
+            logits = self._flat_rerank_stage(inputs, head_ids)
+        return rerank_head_merge(fused, head_ids, logits)
+
+    def _flat_rerank_stage(self, inputs: dict, head_ids: torch.Tensor) -> torch.Tensor:
+        """Every (query, candidate) pair padded to the full doc width, all on
+        the device: gather the head's doc tokens, score in chunks."""
+        safe = head_ids.clamp(0, self.ce_doc_tokens.shape[0] - 1).long()
+        d_ids = CrossEncoder._token_ids(self.ce_doc_tokens[safe])
+        d_mask = self.ce_doc_mask[safe].long() * (head_ids >= 0)[..., None]
+        return self.cross_encoder.rerank_tokens(
+            inputs["ce_ids"], inputs["ce_mask"], d_ids, d_mask, pair_chunk=self.rerank_chunk
+        )
+
+    def _packed_rerank_stage(self, inputs: dict, head_ids: torch.Tensor) -> torch.Tensor:
+        """Pairs packed into fixed-width rows: the plan needs the head ids on
+        the host (one [Q, depth] read-back per batch), the rows are
+        assembled and scored on the device."""
+        return self.cross_encoder.rerank_tokens_packed(
+            inputs["ce_ids"], inputs["ce_mask"], self.ce_doc_tokens, self.ce_doc_mask,
+            head_ids.cpu().numpy(), self.ce_doc_lens, inputs["ce_qlens"],
+            row_width=self.rerank_row_width,
+        )
+
     def _batches(self, queries: Sequence[str], batch_size: int):
         """(inputs, real row count) per batch; the tail batch is padded with
         "" to the batch size whenever there is more than one batch."""
@@ -610,6 +727,8 @@ class HybridSearcher:
         pending = None
         for inputs, real in self._batches(queries, batch_size):
             fused = self._fuse(self._search_batch(inputs))
+            if self._rerank_active:
+                fused = self._rerank(inputs, fused)
             if pending is not None:
                 fetch(pending)
             pending = (fused, real)
@@ -624,7 +743,7 @@ class HybridSearcher:
     def search_systems(
         self, queries: Sequence[str], batch_size: int = 32, external_ids: bool = True
     ) -> dict[str, RankedLists]:
-        """Per-system ranked lists (on the host) with no fusion."""
+        """Per-system ranked lists (on the host) with no fusion or rerank."""
         parts: dict[str, list[RankedLists]] = {}
         for inputs, real in self._batches(queries, batch_size):
             for system, ranked in self._search_batch(inputs).items():

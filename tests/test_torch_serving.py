@@ -72,7 +72,7 @@ def test_search_systems_leg_matches_jax(searchers, system):
 @pytest.mark.parametrize(
     "option",
     [
-        dict(cross_encoder=object()),
+        dict(rerank_buckets=(8, 16)),
         dict(encoders_int8=True),
         dict(fusion_method="nsf", normalization="percentile-rank"),
     ],
