@@ -6,11 +6,17 @@ Phases (each prints its result and wall time; any failed check exits 1):
   1. device   — requires CUDA; prints the card's name and power limit;
   2. build    — compiles the five kernel sources (csrc/maxsim.cu,
                 maxsim_fused.cu, dense_topk.cu with K2 and P3 at three doc
-                blocks, scatter_score.cu with K3, P4 and P5, gather_rows.cu),
-                one nvcc each, all at once; prints their register /
-                shared-memory reports;
-  3. kernel   — K1 (MaxSim) against its plain version at the serving shape
-                (Ld 128, N 28,032, D 128, QL 64x32) and a ragged one;
+                blocks, scatter_score.cu with K3, P4 and P5, gather_rows.cu;
+                maxsim.cu and dense_topk.cu include the shared
+                csrc/hopper.cuh), one nvcc each, all at once; prints their
+                ptxas reports (registers, spills, shared memory, and the
+                wgmma waits ptxas inserted);
+  3. kernel   — K1 (MaxSim, the wgmma/TMA kernel) against its plain version
+                at the serving shape (Ld 128, N 28,032, D 128, QL 64x32),
+                bit-identical over 10 more launches, with its achieved
+                TFLOP/s and share of its bound; then at a ragged shape, on a
+                doc slice [333, 2333) of a 5,000-doc corpus (the view
+                maxsim_search_tm passes), and at D 16 and D 96;
                 |kernel - plain| <= 1e-2 + 1e-3 |plain| (bf16 products
                 accumulated in f32 in another order); median CUDA-event
                 times over 10 alternating runs;
@@ -22,9 +28,12 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 fully masked, the last 3 tokens of every 3rd query masked):
                 within K1's bound, and fully masked docs at -1e9 x the valid
                 query tokens within it; median times as K1;
-     k1v2     — K1-v2 (csrc/maxsim.cu, [QL, N] maxima) at the same two shapes:
-                f32 within K1's bound, bf16 within one bf16 ulp of the plain
-                version's rounded max; median times of the f32 mode;
+     k1v2     — K1-v2 (csrc/maxsim.cu, [QL, N] maxima) at the headline
+                shape (bit-identical over 10 more launches in both modes)
+                and at Ld 131 with tchunk 1, 2, 4 and 8 (the last ring stage
+                reaches past Ld, where TMA's zero tokens must not enter the
+                max): f32 within K1's bound, bf16 within one bf16 ulp of the
+                plain version's rounded max; median times of the f32 mode;
      maxsim_fused_zeromask — the fused kernel without a mask (zeroed
                 tokens) against qm @ maxima from the plain maxima, both shapes;
      maxsim_variants — fusion_tpu_torch.tools.bench_maxsim.run at Q 32 and
@@ -41,7 +50,10 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 1e-5 + 4e-6 |plain| (f32 sums of bf16 products in another
                 order; the packing clears 4 mantissa bits, 2^-19 relative, on
                 each side), and the in-bin offsets equal wherever the plain
-                bin's two best scores differ by more than that; median times
+                bin's two best scores differ by more than that; the ragged
+                shape again at H 32 (the tiny scale-mode searcher's width);
+                at the serving shape bit-identical over 10 more launches,
+                with its achieved TB/s and share of its bound; median times
                 over 10 alternating runs;
   5. k3       — K3 (the scatter scorer) likewise at the mMARCO serving shape
                 (Q 64, Kq 64, docs_per_chunk 16,384, capc 32, C 544, V 32,005)
@@ -213,6 +225,7 @@ RERANK_SMALL_DEPTH = 10
 RERANK_LOGIT_TOL = 0.04
 N_DOCS, BATCH, N_QUERIES, TOPK, LQ, LD, DIM = 27_940, 64, 192, 1000, 32, 128, 128
 RUNS = 10  # alternating kernel / plain timing runs
+REPEATS = 10  # repeated launches that must give bit-identical outputs
 MM_DOCS, MM_H, MM_DPC, MM_CAPC, MM_BM25_CAP, MM_STORE_K, MM_DEPTH = (
     8_912_896, 768, 16_384, 32, 2048, 128, 512,
 )
@@ -297,22 +310,43 @@ def alternating_ms(torch, kernel_fn, plain_fn, runs: int) -> tuple[float, float]
     return statistics.median(k_ms), statistics.median(p_ms)
 
 
-def kernel_vs_plain(torch, maxsim, ld, n, d, ql, seed, runs):
-    """K1: (max |kernel - plain|, kernel ms median, plain ms median)."""
+def repeat_identical(torch, fn, first, repeats: int = REPEATS) -> bool:
+    """Whether ``repeats`` more launches of ``fn`` give outputs bit-identical
+    to ``first`` (a pipeline race shows as outputs that change)."""
+    return all(torch.equal(first, fn()) for _ in range(repeats))
+
+
+def kernel_vs_plain(torch, maxsim, ld, n, d, ql, seed, runs, doc_slice=None):
+    """K1: (max |kernel - plain|, kernel ms median, plain ms median).  With
+    ``doc_slice = (total, start)`` the corpus is the view [:, start:start+n]
+    of a [ld, total, d] corpus (token stride total*d, not n*d), as
+    ``maxsim_search_tm`` passes its doc blocks.  With ``runs`` the kernel is
+    also launched REPEATS more times and must give the same bits."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    corpus = torch.randn(ld, n, d, device="cuda", generator=gen).to(torch.bfloat16)
+    total, start = doc_slice or (n, 0)
+    corpus = torch.randn(ld, total, d, device="cuda", generator=gen).to(torch.bfloat16)[:, start : start + n]
     q = torch.randn(ql, d, device="cuda", generator=gen).to(torch.bfloat16)
+    label = f"K1 {(ld, n, d, ql)}" + (f" on docs [{start}, {start + n}) of {total}" if doc_slice else "")
     got = maxsim.maxsim_maxima_cuda(q, corpus)
     want = maxsim.maxsim_maxima_plain(q, corpus)
     torch.cuda.synchronize()
-    check(got.shape == (n, ql) and bool(torch.isfinite(got).all()), f"kernel output bad at {(ld, n, d, ql)}")
+    check(got.shape == (n, ql) and bool(torch.isfinite(got).all()), f"{label}: kernel output bad")
     err, ok = within(torch, got, want)
-    check(ok, f"kernel disagrees at {(ld, n, d, ql)}: max err {err}")
-    k_ms, p_ms = alternating_ms(
-        torch, lambda: maxsim.maxsim_maxima_cuda(q, corpus),
-        lambda: maxsim.maxsim_maxima_plain(q, corpus), runs,
-    ) if runs else (None, None)
+    check(ok, f"{label}: kernel disagrees, max err {err}")
+    k_ms = p_ms = None
+    if runs:
+        check(repeat_identical(torch, lambda: maxsim.maxsim_maxima_cuda(q, corpus), got),
+              f"{label}: outputs differ between launches")
+        k_ms, p_ms = alternating_ms(
+            torch, lambda: maxsim.maxsim_maxima_cuda(q, corpus),
+            lambda: maxsim.maxsim_maxima_plain(q, corpus), runs,
+        )
     return err, k_ms, p_ms
+
+
+def rates(flops, nbytes, ms, bound_ms) -> dict:
+    """Achieved TFLOP/s and TB/s of a kernel time, and its share of the bound."""
+    return {"tflops": flops / ms / 1e9, "tbps": nbytes / ms / 1e9, "share_of_bound": bound_ms / ms}
 
 
 def maxsim_inputs(torch, q, lq, n, ld, d, seed):
@@ -360,18 +394,20 @@ def k1v1_check(torch, maxsim, q, lq, n, ld, d, seed, runs):
     return max(err, dead_err), k_ms, p_ms, (2.0 * q * lq * n * ld * d, nbytes)
 
 
-def k1v2_check(torch, maxsim, ql, n, ld, d, seed, runs):
-    """K1-v2: f32 within KERNEL_TOL of the plain maxima, bf16 within one bf16
-    ulp of the plain version's rounded max (the f32 maxima differ in their
-    last bits and may round to neighbours); (max f32 error, max bf16 error,
-    f32 kernel ms, plain ms, bound inputs)."""
+def k1v2_check(torch, maxsim, ql, n, ld, d, seed, runs, tchunk=1):
+    """K1-v2 with ``tchunk`` doc tokens per ring stage: f32 within KERNEL_TOL
+    of the plain maxima, bf16 within one bf16 ulp of the plain version's
+    rounded max (the f32 maxima differ in their last bits and may round to
+    neighbours); with ``runs``, both modes bit-identical over REPEATS more
+    launches; (max f32 error, max bf16 error, f32 kernel ms, plain ms, bound
+    inputs)."""
     from fusion_tpu_torch.tools.bench_maxsim import bf16_ulp
 
     q_flat, _, corpus_tm, _ = maxsim_inputs(torch, 1, ql, n, ld, d, seed)
-    label = f"K1-v2 QL{ql} N{n} Ld{ld}"
+    label = f"K1-v2 QL{ql} N{n} Ld{ld} tchunk {tchunk}"
     errs = []
     for reduce in ("f32", "bf16"):
-        got = maxsim.maxsim_maxima_v2_cuda(q_flat, corpus_tm, reduce=reduce)
+        got = maxsim.maxsim_maxima_v2_cuda(q_flat, corpus_tm, reduce=reduce, tchunk=tchunk)
         want = maxsim.maxsim_maxima_v2_plain(q_flat, corpus_tm, reduce=reduce)
         torch.cuda.synchronize()
         check(got.shape == (ql, n) and bool(torch.isfinite(got).all()), f"{label} {reduce}: output bad")
@@ -384,6 +420,9 @@ def k1v2_check(torch, maxsim, ql, n, ld, d, seed, runs):
             err, ok = within(torch, got, want)
             errs.append(err)
             check(ok, f"{label} f32: kernel disagrees with plain, max err {err}")
+        if runs:
+            again = lambda r=reduce: maxsim.maxsim_maxima_v2_cuda(q_flat, corpus_tm, reduce=r, tchunk=tchunk)  # noqa: E731
+            check(repeat_identical(torch, again, got), f"{label} {reduce}: outputs differ between launches")
     k_ms = p_ms = None
     if runs:
         k_ms, p_ms = alternating_ms(
@@ -471,8 +510,9 @@ def k2_inputs(torch, q_n, n_real, n_pad, h, seed, dead_every=97, device="cuda"):
 def k2_check(torch, dense_topk, q_n, n_real, n_pad, h, seed, runs, dead_every=97, device="cuda",
              doc_block=2048, dead_rows=True, inputs=None):
     """K2 (or, with ``dead_rows=False``, the no-mask variant P3) at one
-    shape and doc block: (max error, checked bins, kernel ms, plain ms).
-    ``inputs`` reuses (q, values, scales) from ``k2_inputs``."""
+    shape and doc block: (max error, checked bins, kernel ms, plain ms); with
+    ``runs`` the kernel is also launched REPEATS more times and must give the
+    same bits.  ``inputs`` reuses (q, values, scales) from ``k2_inputs``."""
     q, values, scales = inputs or k2_inputs(torch, q_n, n_real, n_pad, h, seed, dead_every, device)
     kernel = lambda: dense_topk.binmax_cuda(q, values, scales, n_real, doc_block, dead_rows)  # noqa: E731
     plain = lambda: dense_topk.binmax_plain(q, values, scales, n_real, doc_block, dead_rows=dead_rows)  # noqa: E731
@@ -484,6 +524,7 @@ def k2_check(torch, dense_topk, q_n, n_real, n_pad, h, seed, runs, dead_every=97
     del gap
     k_ms = p_ms = None
     if runs:
+        check(repeat_identical(torch, kernel, got), f"{label}: outputs differ between launches")
         k_ms, p_ms = alternating_ms(torch, kernel, plain, runs)
     return err, checked, k_ms, p_ms
 
@@ -1300,15 +1341,23 @@ def main() -> int:
         print(lib.build_log.strip(), flush=True)
 
     t0 = time.perf_counter()
-    k1_err, k1_ms, k1_plain = kernel_vs_plain(torch, maxsim, LD, 28_032, DIM, BATCH * LQ, seed=0, runs=RUNS)
-    phase("kernel", t0, shape="Ld128xN28032xD128xQL2048", max_abs_err=k1_err, kernel_ms=k1_ms, plain_ms=k1_plain)
-    t0 = time.perf_counter()
-    err, _, _ = kernel_vs_plain(torch, maxsim, 37, 1000, DIM, 3 * 29, seed=1, runs=0)
-    phase("kernel", t0, shape="Ld37xN1000xD128xQL87", max_abs_err=err)
-    k1_err = max(k1_err, err)
     ql = BATCH * LQ
-    k1_bound = bench_maxsim.bound(2.0 * ql * 28_032 * LD * DIM,
-                                  2 * (LD * 28_032 * DIM + ql * DIM) + 4 * 28_032 * ql)
+    k1_work = (2.0 * ql * 28_032 * LD * DIM, 2 * (LD * 28_032 * DIM + ql * DIM) + 4 * 28_032 * ql)
+    k1_bound = bench_maxsim.bound(*k1_work)
+    k1_err, k1_ms, k1_plain = kernel_vs_plain(torch, maxsim, LD, 28_032, DIM, ql, seed=0, runs=RUNS)
+    phase("kernel", t0, shape="Ld128xN28032xD128xQL2048", max_abs_err=k1_err, kernel_ms=k1_ms, plain_ms=k1_plain,
+          bit_identical_launches=REPEATS + 1, bound_ms=k1_bound[0], **rates(*k1_work, k1_ms, k1_bound[0]))
+    # a ragged shape; a doc slice of a larger corpus (start not a multiple
+    # of the 64-doc tile, token stride 5,000 x D), as maxsim_search_tm
+    # passes its doc blocks; and the other widths a card path runs (the
+    # tiny searchers' D 16) or the kernel takes (D 96: not a multiple of 64)
+    for ld, n, d, q_n, seed, doc_slice in ((37, 1000, DIM, 3 * 29, 1, None), (LD, 2000, DIM, 3 * 29, 2, (5000, 333)),
+                                            (37, 1000, 16, 3 * 29, 3, None), (37, 1000, 96, 3 * 29, 4, None)):
+        t0 = time.perf_counter()
+        err, _, _ = kernel_vs_plain(torch, maxsim, ld, n, d, q_n, seed=seed, runs=0, doc_slice=doc_slice)
+        phase("kernel", t0, shape=f"Ld{ld}xN{n}xD{d}xQL{q_n}" + (f" docs [{doc_slice[1]}, {doc_slice[1] + n}) of "
+              f"{doc_slice[0]}" if doc_slice else ""), max_abs_err=err)
+        k1_err = max(k1_err, err)
 
     # the rest of the MaxSim family at the headline bench shape (Q 32, Lq 32)
     # and a ragged one (Lq 13: no whole number of queries fills a 64-row tile;
@@ -1329,11 +1378,16 @@ def main() -> int:
     )
     k1v2_bound = bench_maxsim.bound(flops, nbytes)
     phase("k1v2", t0, shape=f"QL{hq * LQ}xN{hn}xLd{LD}xD{DIM}", max_abs_err_f32=k1v2_err,
-          max_abs_err_bf16=k1v2_bf16_err, kernel_ms=k1v2_ms, plain_ms=k1v2_plain, bound_ms=k1v2_bound)
-    t0 = time.perf_counter()
-    err, bf16_err, _, _, _ = k1v2_check(torch, maxsim, 65, 1000, 131, DIM, 23, 0)
-    phase("k1v2", t0, shape="QL65xN1000xLd131xD128", max_abs_err_f32=err, max_abs_err_bf16=bf16_err)
-    k1v2_err = max(k1v2_err, err)
+          max_abs_err_bf16=k1v2_bf16_err, kernel_ms=k1v2_ms, plain_ms=k1v2_plain, bound_ms=k1v2_bound[0],
+          bit_identical_launches=REPEATS + 1, **rates(flops, nbytes, k1v2_ms, k1v2_bound[0]))
+    # Ld 131 with tchunk 2, 4, 8: the last ring stage reaches past Ld, where
+    # TMA fills zero tokens that must not enter the max
+    for tchunk in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        err, bf16_err, _, _, _ = k1v2_check(torch, maxsim, 65, 1000, 131, DIM, 23, 0, tchunk=tchunk)
+        phase("k1v2", t0, shape=f"QL65xN1000xLd131xD128 tchunk {tchunk}", max_abs_err_f32=err,
+              max_abs_err_bf16=bf16_err)
+        k1v2_err = max(k1v2_err, err)
     t0 = time.perf_counter()
     err = max(fused_zeromask_check(torch, maxsim, hq, LQ, hn, LD, DIM, 24),
               fused_zeromask_check(torch, maxsim, 5, 13, 1000, 131, DIM, 25))
@@ -1367,14 +1421,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     k2_err, checked, k2_ms, k2_plain = k2_check(torch, dense_topk, BATCH, MM_DOCS, MM_DOCS, MM_H, 3, RUNS)
-    k2_bound = bench_maxsim.bound(2.0 * BATCH * MM_H * MM_DOCS,
-                                  MM_DOCS * (MM_H + 4) + 2 * BATCH * MM_H + 4 * BATCH * MM_DOCS // 16)
+    k2_work = (2.0 * BATCH * MM_H * MM_DOCS, MM_DOCS * (MM_H + 4) + 2 * BATCH * MM_H + 4 * BATCH * MM_DOCS // 16)
+    k2_bound = bench_maxsim.bound(*k2_work)
     phase("k2", t0, shape=f"Q64xH768xN{MM_DOCS}", max_abs_err=k2_err, offsets_checked=checked,
-          kernel_ms=k2_ms, plain_ms=k2_plain)
-    t0 = time.perf_counter()
-    err, checked, _, _ = k2_check(torch, dense_topk, 37, 100_003, -(-100_003 // 2048) * 2048, MM_H, 4, 0)
-    phase("k2", t0, shape="Q37xH768xN100003(pad 100352)", max_abs_err=err, offsets_checked=checked)
-    k2_err = max(k2_err, err)
+          kernel_ms=k2_ms, plain_ms=k2_plain, bit_identical_launches=REPEATS + 1, bound_ms=k2_bound[0],
+          **rates(*k2_work, k2_ms, k2_bound[0]))
+    # a ragged shape at the serving width, and the tiny scale-mode
+    # searcher's H 32 (columns past H zero-filled by TMA)
+    for h in (MM_H, 32):
+        t0 = time.perf_counter()
+        err, checked, _, _ = k2_check(torch, dense_topk, 37, 100_003, -(-100_003 // 2048) * 2048, h, 4, 0)
+        phase("k2", t0, shape=f"Q37xH{h}xN100003(pad 100352)", max_abs_err=err, offsets_checked=checked)
+        k2_err = max(k2_err, err)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists, stable_topk
 from fusion_tpu_torch.index.compression import CompressedTokenIndex, _rows, _unpack_codes
 from fusion_tpu_torch.ops.gather_rows import gather_rows
@@ -62,9 +63,11 @@ def build_ivf(
 ) -> IVFIndex:
     """Host-side IVF build: for each centroid, the deduped ids of the docs
     whose real tokens assign to it, the first ``cap`` of them in doc order.
-    The lists land on ``device`` (default: where ``centroid_ids`` lives)."""
+    The lists land on ``device``; by default where a tensor ``centroid_ids``
+    lives, and on the card for numpy input (which raises without one)."""
     if device is None:
-        device = centroid_ids.device if isinstance(centroid_ids, torch.Tensor) else "cpu"
+        device = centroid_ids.device if isinstance(centroid_ids, torch.Tensor) else "cuda"
+    device = resolve_device(device)
     cid = _host(centroid_ids).astype(np.int64)
     n, ld = cid.shape
     doc = np.repeat(np.arange(n, dtype=np.int64), ld)

@@ -3,7 +3,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  ``load(name)``
 compiles it for Hopper (``sm_90a``) at first use into ``_build/`` (listed in
-``.gitignore``), keyed by a hash of the source and flags, and returns the
+``.gitignore``), keyed by ``source_digest`` (the source, every shared
+``csrc/*.cuh`` header and the flags), and returns the
 loaded library; ``load_all(names)`` runs the compilers in parallel.  Nothing here runs at import, so the package imports on a
 machine without ``nvcc`` or a card; a build failure raises with the
 compiler's output.
@@ -40,14 +41,24 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(name: str, csrc_dir: Path = CSRC_DIR, flags=NVCC_FLAGS) -> str:
+    """The build key of ``csrc/<name>.cu``: a hash of the source, of every
+    header in ``csrc_dir`` (a header edit alone must rebuild its includers)
+    and of the compiler flags."""
+    h = hashlib.sha256((csrc_dir / f"{name}.cu").read_bytes())
+    for header in sorted(csrc_dir.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The compiled ``csrc/<name>.cu``.  The library carries ``build_log``
     (the compiler's register/shared-memory report, empty when it was already
     built) and ``build_seconds``."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+    lib_path = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
     log, seconds = "", 0.0
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

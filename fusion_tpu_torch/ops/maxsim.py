@@ -157,10 +157,31 @@ def _bind_maxsim() -> ctypes.CDLL:
     return lib
 
 
-def maxima_smem_bytes(d: int, tchunk: int) -> int:
+def maxima_smem_bytes(d: int, tchunk: int, stages: int = 1) -> int:
     """Shared memory of one block of the maxima kernel (``csrc/maxsim.cu``)
-    at width ``d`` with ``tchunk`` doc tokens staged per step."""
-    return (64 + tchunk * 64) * (d + 8) * 2 + 64 * 68 * 4
+    at width ``d`` with ``stages`` ring stages of ``tchunk`` doc tokens: the
+    256-token query tile and the ring, both in 64-column swizzle atoms (D
+    rounded up to 64), plus the barriers and 1,024 bytes of alignment."""
+    atoms = -(-d // 64)
+    return 1024 + atoms * 256 * 64 * 2 + stages * atoms * tchunk * 64 * 64 * 2 + 256
+
+
+def maxima_stages(d: int, tchunk: int) -> int:
+    """Ring stages the maxima kernel runs with at width ``d`` and ``tchunk``
+    doc tokens per stage: as many as fit beside the query tile, at most 8
+    (0: not even one fits, and the kernel refuses the call)."""
+    if not 1 <= tchunk <= 256:
+        return 0
+    room = MAX_SMEM - maxima_smem_bytes(d, tchunk, 0)
+    return max(0, min(8, room // (maxima_smem_bytes(d, tchunk, 1) - maxima_smem_bytes(d, tchunk, 0))))
+
+
+def k1_tokens_per_stage(d: int) -> int:
+    """Doc tokens per ring stage of K1: 4 where two such stages fit beside
+    the query tile, else 2, else 1.  Fewer, deeper stages mean fewer barrier
+    waits per token (K1-v2's bench modes at the serving shape: ``tchunk`` 4
+    is the fastest, see PERF.md); the maxima do not depend on it."""
+    return next((t for t in (4, 2) if maxima_stages(d, t) >= 2), 1)
 
 
 def _check_maxima_args(name: str, q_flat: torch.Tensor, corpus_tm: torch.Tensor) -> None:
@@ -178,6 +199,19 @@ def _check_maxima_args(name: str, q_flat: torch.Tensor, corpus_tm: torch.Tensor)
         raise ValueError(f"need D a multiple of 16 in [16, 256] and Ld >= 1, got D {d}, Ld {ld}")
     if not q_flat.is_contiguous() or corpus_tm.stride(2) != 1 or corpus_tm.stride(1) != d:
         raise ValueError("q_flat must be contiguous and corpus_tm rows of D contiguous")
+    # the kernel's tensor maps: 16-byte aligned bases and token strides
+    if (q_flat.data_ptr() | corpus_tm.data_ptr()) % 16 or _token_stride(corpus_tm) % 8:
+        raise ValueError(
+            f"{name} needs 16-byte aligned tensors and a token stride that is a multiple of 8 "
+            f"elements, got stride {corpus_tm.stride(0)}"
+        )
+
+
+def _token_stride(corpus_tm: torch.Tensor) -> int:
+    """Elements between doc tokens (a lone token's stride is arbitrary in
+    torch: any value past its N x D rows will do)."""
+    ld, n, d = corpus_tm.shape
+    return corpus_tm.stride(0) if ld > 1 else n * d
 
 
 def _launch_maxima(q_flat, corpus_tm, query_major: bool, round_bf16: bool, tchunk: int):
@@ -193,7 +227,7 @@ def _launch_maxima(q_flat, corpus_tm, query_major: bool, round_bf16: bool, tchun
     stream = torch.cuda.current_stream(q_flat.device).cuda_stream
     rc = lib.maxsim_maxima(
         corpus_tm.data_ptr(), q_flat.data_ptr(), out.data_ptr(),
-        ld, n, d, corpus_tm.stride(0), ql, tchunk, int(query_major), int(round_bf16), stream,
+        ld, n, d, _token_stride(corpus_tm), ql, tchunk, int(query_major), int(round_bf16), stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -208,7 +242,8 @@ def maxsim_maxima_cuda(q_flat: torch.Tensor, corpus_tm: torch.Tensor) -> torch.T
     ``corpus_tm`` may be a doc slice of a larger corpus (its rows of D must be
     contiguous).  ``maxsim_maxima_cuda.launches`` counts launches."""
     _check_maxima_args("maxsim_maxima_cuda", q_flat, corpus_tm)
-    out = _launch_maxima(q_flat, corpus_tm, query_major=False, round_bf16=False, tchunk=1)
+    out = _launch_maxima(q_flat, corpus_tm, query_major=False, round_bf16=False,
+                         tchunk=k1_tokens_per_stage(corpus_tm.shape[2]))
     maxsim_maxima_cuda.launches += 1
     return out
 
@@ -227,10 +262,10 @@ def maxsim_maxima_v2_cuda(
     _check_reduce(reduce)
     _check_maxima_args("maxsim_maxima_v2_cuda", q_flat, corpus_tm)
     d = corpus_tm.shape[2]
-    if tchunk < 1 or maxima_smem_bytes(d, tchunk) > MAX_SMEM:
+    if maxima_stages(d, tchunk) < 1:
         raise ValueError(
-            f"tchunk {tchunk} at D {d} needs {maxima_smem_bytes(d, tchunk)} bytes of shared "
-            f"memory per block; at most {MAX_SMEM}"
+            f"tchunk {tchunk} at D {d}: one ring stage does not fit beside the query tile "
+            f"({maxima_smem_bytes(d, tchunk)} bytes of shared memory per block; at most {MAX_SMEM})"
         )
     out = _launch_maxima(q_flat, corpus_tm, query_major=True, round_bf16=reduce == "bf16",
                          tchunk=tchunk)

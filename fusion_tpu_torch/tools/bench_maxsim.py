@@ -13,7 +13,7 @@ whose TPU variants map onto the port's two kernels:
     ``_kernel_dotgen`` (and the TPU kernel in interpret mode);
   * K1-v2 bf16 — ``_maxsim_v2_kernel_3d`` compiled, ``_kernel_bf16max`` (both
     benches) and ``_kernel_dotgen_bf16``;
-  * K1-v2 f32 with ``tchunk`` doc tokens staged per step — ``_kernel_chunked``.
+  * K1-v2 f32 with ``tchunk`` doc tokens per ring stage — ``_kernel_chunked``.
 
 For reference it also times cuBLAS's bf16 matmul of the same multiply-adds
 (``[Ld·N, D] × [D, QL]``, f32 out, in row blocks, no max): a library product
@@ -150,7 +150,7 @@ def run(q: int = 32, lq: int = 32, n: int = 28_032, ld: int = 128, d: int = 128,
     ] + [
         (f"K1-v2 f32 tchunk {t}", "scripts/bench_maxsim.py:37 _kernel_chunked", v2,
          lambda t=t: v2(q_flat, corpus_tm, "f32", t), ref_maxima, 0, 4 * ql * n, False)
-        for t in tchunks if maxsim.maxima_smem_bytes(d, t) <= maxsim.MAX_SMEM
+        for t in tchunks if maxsim.maxima_stages(d, t) >= 1
     ]
     atol, rtol = TOL
     out = []

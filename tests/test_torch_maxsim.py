@@ -133,3 +133,21 @@ def test_import_needs_no_nvcc_triton_or_jax():
         [sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=repo
     )
     assert out.stdout.strip() == "[]"
+
+
+def test_build_key_covers_shared_headers_and_flags(tmp_path):
+    """The build key of a source changes when only a shared ``csrc/*.cuh``
+    header changes (its includers must rebuild), or only the flags."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC_DIR, csrc)
+    assert sorted(csrc.glob("*.cuh")), "the kernels share a header"
+    base = {name: _kernels.source_digest(name, csrc) for name in ("maxsim", "dense_topk")}
+    assert base["maxsim"] == _kernels.source_digest("maxsim")  # the copy keys like the tree
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name, digest in base.items():
+        assert _kernels.source_digest(name, csrc) != digest
+    flags = (*_kernels.NVCC_FLAGS, "-lineinfo")
+    assert _kernels.source_digest("maxsim", csrc, flags) != _kernels.source_digest("maxsim", csrc)

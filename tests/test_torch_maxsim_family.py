@@ -120,6 +120,27 @@ def test_chunked_mode_equals_f32_mode(data, tchunk):
     )
 
 
+@pytest.mark.parametrize(
+    "d, tchunk, stages",
+    [(128, 1, 8), (128, 2, 5), (128, 4, 2), (128, 8, 1), (16, 1, 8), (96, 4, 2), (256, 1, 3),
+     (256, 4, 0), (128, 300, 0)],
+)
+def test_ring_stages_are_what_fits_beside_the_query_tile(d, tchunk, stages):
+    """``maxima_stages`` mirrors csrc/maxsim.cu's count: as many stages of
+    ``tchunk`` tokens as fit in one block's shared memory beside the
+    256-token query tile, at most 8 (0: the wrapper refuses the call)."""
+    assert tm.maxima_stages(d, tchunk) == stages
+    if stages:
+        assert tm.maxima_smem_bytes(d, tchunk, stages) <= tm.MAX_SMEM
+        assert stages == 8 or tm.maxima_smem_bytes(d, tchunk, stages + 1) > tm.MAX_SMEM
+
+
+@pytest.mark.parametrize("d, tokens", [(16, 4), (128, 4), (160, 2), (256, 1)])
+def test_k1_loads_the_deepest_stages_of_which_two_fit(d, tokens):
+    assert tm.k1_tokens_per_stage(d) == tokens
+    assert tm.maxima_stages(d, tokens) >= (2 if tokens > 1 else 1)
+
+
 @pytest.mark.parametrize("bad", [dict(reduce="f16"), dict(tchunk=0)])
 def test_k1v2_rejects_bad_modes(data, bad):
     qt, qm, dt, dm = data

@@ -70,6 +70,22 @@ def test_build_ivf_matches_jax(small, cap):
     np.testing.assert_array_equal(got.ivf_doc.numpy(), np.asarray(want.ivf_doc))
 
 
+def test_build_ivf_from_numpy_defaults_to_the_card(small):
+    """numpy input goes to the card unless the caller names a device: without
+    a card that raises; ``device="cpu"`` gives the lists of a tensor input."""
+    (j_index, _), (t_index, _), _, _ = small
+    cid, mask = np.asarray(j_index.centroid_ids), np.asarray(j_index.mask)
+    if torch.cuda.is_available():
+        assert tp.build_ivf(cid, mask, C, cap=5).ivf_doc.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tp.build_ivf(cid, mask, C, cap=5)
+    got = tp.build_ivf(cid, mask, C, cap=5, device="cpu")
+    want = tp.build_ivf(t_index.centroid_ids, t_index.mask, C, cap=5)
+    assert got.ivf_doc.device.type == "cpu"
+    torch.testing.assert_close(got.ivf_doc, want.ivf_doc, rtol=0, atol=0)
+
+
 def test_dedup_ivf_rows_matches_jax():
     rng = np.random.default_rng(3)
     rows = rng.integers(0, 20, size=(7, 12)).astype(np.int32)
