@@ -4,8 +4,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 
 Phases (each prints its result and wall time; any failed check exits 1):
   1. device   — requires CUDA; prints the card's name and power limit;
-  2. build    — compiles the five kernel sources (csrc/maxsim.cu,
-                maxsim_fused.cu, dense_topk.cu with K2 and P3 at three doc
+  2. build    — compiles the four kernel sources (csrc/maxsim.cu with K1,
+                K1-v2 and K1-v1, dense_topk.cu with K2 and P3 at three doc
                 blocks, scatter_score.cu with K3, P4 and P5, gather_rows.cu;
                 maxsim.cu and dense_topk.cu include the shared
                 csrc/hopper.cuh), one nvcc each, all at once; prints their
@@ -20,22 +20,27 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 |kernel - plain| <= 1e-2 + 1e-3 |plain| (bf16 products
                 accumulated in f32 in another order); median CUDA-event
                 times over 10 alternating runs;
-     k1v1     — K1-v1 (csrc/maxsim_fused.cu, strict mask: the Ld max and the
-                query-mask sum fused) against its plain version at the MaxSim
-                bench's headline shape (Q 32, Lq 32, N 28,032, Ld 128, D 128)
-                and a ragged one (Q 5, Lq 13, N 1,000, Ld 131), over a
-                realistic mask (40-128 valid tokens per doc, every 997th doc
-                fully masked, the last 3 tokens of every 3rd query masked):
-                within K1's bound, and fully masked docs at -1e9 x the valid
-                query tokens within it; median times as K1;
+     k1v1     — K1-v1 (the fused strict mode of csrc/maxsim.cu: the Ld max
+                and the query-mask sum in one kernel) against its plain
+                version at the MaxSim bench's headline shape (Q 32, Lq 32,
+                N 28,032, Ld 128, D 128; bit-identical over 10 more launches,
+                median times as K1 and the median device time) and at ragged
+                ones (Lq 13 with Ld 131, Lq 48, Lq 128, Q 9, D 96, and N 1,001
+                with its first and last docs fully masked), over a realistic
+                mask (40-128 valid tokens per doc, every 997th doc fully
+                masked, the last 3 tokens of every 3rd query masked): within
+                K1's bound, and fully masked docs at -1e9 x the valid query
+                tokens within it;
      k1v2     — K1-v2 (csrc/maxsim.cu, [QL, N] maxima) at the headline
                 shape (bit-identical over 10 more launches in both modes)
                 and at Ld 131 with tchunk 1, 2, 4 and 8 (the last ring stage
                 reaches past Ld, where TMA's zero tokens must not enter the
                 max): f32 within K1's bound, bf16 within one bf16 ulp of the
                 plain version's rounded max; median times of the f32 mode;
-     maxsim_fused_zeromask — the fused kernel without a mask (zeroed
-                tokens) against qm @ maxima from the plain maxima, both shapes;
+     maxsim_fused_zeromask — the fused mode without a mask (zeroed
+                tokens) against its plain version (qm @ the plain maxima) at
+                the headline shape (bit-identical over 10 more launches, times
+                as K1-v1) and at Lq 13 and 48;
      maxsim_variants — fusion_tpu_torch.tools.bench_maxsim.run at Q 32 and
                 Q 64 (QL 1,024 and 2,048): every variant of the family (K1,
                 K1-v1, the zeroed fused sum, K1-v2 f32 / bf16 / tchunk 2, 4,
@@ -56,12 +61,16 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 with its achieved TB/s and share of its bound; median times
                 over 10 alternating runs;
   5. k3       — K3 (the scatter scorer) likewise at the mMARCO serving shape
-                (Q 64, Kq 64, docs_per_chunk 16,384, capc 32, C 544, V 32,005)
-                and a ragged one (Q 5, Kq 7, docs_per_chunk 2048, 3 chunks,
-                sentinel-padded rows, an empty last chunk, pad query terms):
-                scores within 1e-6 + 1e-5 |plain| (a doc's score is an f32
-                sum of at most Kq bf16 values; the kernel's shared-memory
-                atomics add them in another order on every run);
+                (Q 64, Kq 64, docs_per_chunk 16,384, capc 32, C 544, V 32,005;
+                10 more launches each within the tolerance of the first, with
+                the median device time), a ragged one (Q 5, Kq 7,
+                docs_per_chunk 2048, 3 chunks, sentinel-padded rows, an empty
+                last chunk, pad query terms), the widest layout (Kq x capc
+                = 8,192, dpc 2048) and the scale_build searcher's capc 74,
+                whose rows are not 16-byte aligned: scores within 1e-6 + 1e-5
+                |plain| (a doc's score is an f32 sum of at most Kq bf16
+                values; the kernel's shared-memory atomics add them in
+                another order on every run);
      p3       — P3 (K2 without the dead-row term, doc_block 4096) against its
                 plain version on a synthesized mMARCO-size corpus (as K2's),
                 and K2 at doc_block 4096 and 8192 on the same rows; P3 and K2
@@ -367,31 +376,43 @@ def within(torch, got, want):
     return err.max().item(), bool((err <= atol + rtol * want.abs()).all())
 
 
-def k1v1_check(torch, maxsim, q, lq, n, ld, d, seed, runs):
-    """K1-v1 (strict mask): (max |kernel - plain|, kernel ms, plain ms,
-    bound inputs).  Fully masked docs must score -1e9 x the valid query
-    tokens within the same bound."""
+def k1v1_check(torch, maxsim, q, lq, n, ld, d, seed, runs, strict=True, dead_ends=False):
+    """K1-v1 (strict mask) or, with ``strict=False``, the zeroed fused sum:
+    (max |kernel - plain|, kernel ms, plain ms, device ms, bound inputs).
+    Under the strict mask fully masked docs must score -1e9 x the valid
+    query tokens within the same bound; ``dead_ends`` masks the corpus's
+    first and last docs wholly.  With ``runs`` the kernel is also launched
+    REPEATS more times and must give the same bits (no atomics)."""
+    from fusion_tpu_torch.tools import bench_maxsim
+
     q_flat, q_mask, corpus_tm, mask_tm = maxsim_inputs(torch, q, lq, n, ld, d, seed)
-    got = maxsim.maxsim_fused_cuda(q_flat, q_mask, corpus_tm, mask_tm)
-    want = maxsim.maxsim_fused_plain(q_flat, q_mask, corpus_tm, mask_tm)
+    if dead_ends:
+        mask_tm[:, [0, n - 1]] = 0.0
+        corpus_tm[:, [0, n - 1]] = 0
+    dm = mask_tm if strict else None
+    kernel = lambda: maxsim.maxsim_fused_cuda(q_flat, q_mask, corpus_tm, dm)  # noqa: E731
+    plain = lambda: maxsim.maxsim_fused_plain(q_flat, q_mask, corpus_tm, dm)  # noqa: E731
+    got, want = kernel(), plain()
     torch.cuda.synchronize()
-    label = f"K1-v1 Q{q} Lq{lq} N{n} Ld{ld}"
+    label = f"K1-v1 {'strict' if strict else 'zeroed'} Q{q} Lq{lq} N{n} Ld{ld} D{d}"
     check(got.shape == (q, n) and bool(torch.isfinite(got).all()), f"{label}: output bad")
     err, ok = within(torch, got, want)
     check(ok, f"{label}: kernel disagrees with plain, max err {err}")
-    dead = mask_tm.amax(dim=0) <= 0
-    check(bool(dead.any()), f"{label}: no fully masked doc in the inputs")
-    expect = (-1e9 * q_mask.sum(dim=1, keepdim=True)).expand(-1, int(dead.sum()))
-    dead_err, ok = within(torch, got[:, dead], expect)
-    check(ok, f"{label}: fully masked docs score {got[:, dead].min().item()}, want -1e9 x valid tokens")
-    k_ms = p_ms = None
+    if strict:
+        dead = mask_tm.amax(dim=0) <= 0
+        check(bool(dead.any()) and (not dead_ends or bool(dead[0] and dead[-1])),
+              f"{label}: the inputs lack their fully masked docs")
+        expect = (-1e9 * q_mask.sum(dim=1, keepdim=True)).expand(-1, int(dead.sum()))
+        dead_err, ok = within(torch, got[:, dead], expect)
+        check(ok, f"{label}: fully masked docs score {got[:, dead].min().item()}, want -1e9 x valid tokens")
+        err = max(err, dead_err)
+    k_ms = p_ms = dev_ms = None
     if runs:
-        k_ms, p_ms = alternating_ms(
-            torch, lambda: maxsim.maxsim_fused_cuda(q_flat, q_mask, corpus_tm, mask_tm),
-            lambda: maxsim.maxsim_fused_plain(q_flat, q_mask, corpus_tm, mask_tm), runs,
-        )
-    nbytes = corpus_tm.nbytes + q_flat.nbytes + mask_tm.nbytes + q_mask.nbytes + 4 * q * n
-    return max(err, dead_err), k_ms, p_ms, (2.0 * q * lq * n * ld * d, nbytes)
+        check(repeat_identical(torch, kernel, got), f"{label}: outputs differ between launches")
+        k_ms, p_ms = alternating_ms(torch, kernel, plain, runs)
+        dev_ms = bench_maxsim.device_ms(kernel, runs)
+    nbytes = corpus_tm.nbytes + q_flat.nbytes + q_mask.nbytes + 4 * q * n + (mask_tm.nbytes if strict else 0)
+    return err, k_ms, p_ms, dev_ms, (2.0 * q * lq * n * ld * d, nbytes)
 
 
 def k1v2_check(torch, maxsim, ql, n, ld, d, seed, runs, tchunk=1):
@@ -431,19 +452,6 @@ def k1v2_check(torch, maxsim, ql, n, ld, d, seed, runs, tchunk=1):
         )
     nbytes = corpus_tm.nbytes + q_flat.nbytes + 4 * ql * n
     return errs[0], errs[1], k_ms, p_ms, (2.0 * ql * n * ld * d, nbytes)
-
-
-def fused_zeromask_check(torch, maxsim, q, lq, n, ld, d, seed) -> float:
-    """The zeroed-mask fused sum against ``qm @ maxima`` from the plain
-    maxima: max |kernel - plain|."""
-    q_flat, q_mask, corpus_tm, _ = maxsim_inputs(torch, q, lq, n, ld, d, seed)
-    got = maxsim.maxsim_fused_cuda(q_flat, q_mask, corpus_tm)
-    maxima = maxsim.maxsim_maxima_plain(q_flat, corpus_tm)  # [N, QL]
-    want = (maxima.view(n, q, lq) * q_mask[None]).sum(dim=-1).T
-    torch.cuda.synchronize()
-    err, ok = within(torch, got, want)
-    check(got.shape == (q, n) and ok, f"fused zeroed Q{q} Lq{lq} N{n}: max err {err}")
-    return err
 
 
 def unpack_bins(torch, packed):
@@ -573,21 +581,28 @@ def k3_inputs(torch, seed, q_n, kq, vocab, n_chunks, capc, dpc, pad_rows=False, 
 
 def k3_check(torch, scatter_score, seed, q_n, kq, vocab, n_chunks, capc, dpc, runs,
              pad_rows=False, device="cuda"):
-    """K3 at one shape: (max error, checked bins, kernel ms, plain ms)."""
+    """K3 at one shape: (max error, checked bins, kernel ms, plain ms, device
+    ms).  With ``runs`` the kernel is also launched REPEATS more times, each
+    output within K3_TOL of the first (the atomics' order varies; a staging
+    race shows as a repeat far off)."""
+    from fusion_tpu_torch.tools import bench_maxsim
+
     args = k3_inputs(torch, seed, q_n, kq, vocab, n_chunks, capc, dpc, pad_rows, device)
-    got = scatter_score.scatter_binmax_cuda(*args, dpc)
-    want = scatter_score.scatter_binmax_plain(*args, dpc)
+    kernel = lambda: scatter_score.scatter_binmax_cuda(*args, dpc)  # noqa: E731
+    plain = lambda: scatter_score.scatter_binmax_plain(*args, dpc)  # noqa: E731
+    got, want = kernel(), plain()
     torch.cuda.synchronize()
     gap = k3_gap(torch, scatter_score, *args, dpc)
-    err, checked = compare_bins(torch, got, want, gap, K3_TOL, f"K3 Q{q_n} C{n_chunks} dpc{dpc}")
-    del gap
-    k_ms = p_ms = None
+    label = f"K3 Q{q_n} Kq{kq} C{n_chunks} capc{capc} dpc{dpc}"
+    err, checked = compare_bins(torch, got, want, gap, K3_TOL, label)
+    k_ms = p_ms = dev_ms = None
     if runs:
-        k_ms, p_ms = alternating_ms(
-            torch, lambda: scatter_score.scatter_binmax_cuda(*args, dpc),
-            lambda: scatter_score.scatter_binmax_plain(*args, dpc), runs,
-        )
-    return err, checked, k_ms, p_ms
+        for i in range(REPEATS):
+            compare_bins(torch, kernel(), got, gap, K3_TOL, f"{label} repeat {i + 1} vs the first launch")
+        k_ms, p_ms = alternating_ms(torch, kernel, plain, runs)
+        dev_ms = bench_maxsim.device_ms(kernel, runs)
+    del gap
+    return err, checked, k_ms, p_ms, dev_ms
 
 
 def pregathered_check(torch, scatter_score, seed, q_n, kq, vocab, n_chunks, capc, dpc, runs,
@@ -1335,7 +1350,7 @@ def main() -> int:
 
     kernels = (maxsim, dense_topk, scatter_score, gather_rows)
     t0 = time.perf_counter()
-    libs = _kernels.load_all(["maxsim", "maxsim_fused", "dense_topk", "scatter_score", "gather_rows"])
+    libs = _kernels.load_all(["maxsim", "dense_topk", "scatter_score", "gather_rows"])
     phase("build", t0, nvcc_s=[f"{lib.build_seconds:.3f}" for lib in libs])
     for lib in libs:
         print(lib.build_log.strip(), flush=True)
@@ -1360,18 +1375,45 @@ def main() -> int:
         k1_err = max(k1_err, err)
 
     # the rest of the MaxSim family at the headline bench shape (Q 32, Lq 32)
-    # and a ragged one (Lq 13: no whole number of queries fills a 64-row tile;
-    # N 1000 and Ld 131 match no tile either)
+    # and ragged ones: Lq 13 and 48 (no whole number of queries fills a
+    # consumer's 128 rows), Lq 128 (one query per consumer), Q 9 (a last
+    # block with one query), D 96, N 1,001 with its first and last docs fully
+    # masked (the mask's rows padded to 1,004 words); N 1000 and Ld 131 / 37
+    # match no tile either
     hq, hn = 32, 28_032
     t0 = time.perf_counter()
-    k1v1_err, k1v1_ms, k1v1_plain, (flops, nbytes) = k1v1_check(torch, maxsim, hq, LQ, hn, LD, DIM, 20, RUNS)
+    k1v1_err, k1v1_ms, k1v1_plain, k1v1_dev, (flops, nbytes) = k1v1_check(
+        torch, maxsim, hq, LQ, hn, LD, DIM, 20, RUNS
+    )
     k1v1_bound = bench_maxsim.bound(flops, nbytes)
     phase("k1v1", t0, shape=f"Q{hq}xLq{LQ}xN{hn}xLd{LD}xD{DIM} strict mask", max_abs_err=k1v1_err,
-          kernel_ms=k1v1_ms, plain_ms=k1v1_plain, bound_ms=k1v1_bound)
+          kernel_ms=k1v1_ms, plain_ms=k1v1_plain, device_ms=k1v1_dev, bound_ms=k1v1_bound,
+          bit_identical_launches=REPEATS + 1, device_share_of_bound=k1v1_bound[0] / k1v1_dev,
+          **rates(flops, nbytes, k1v1_ms, k1v1_bound[0]))
+    for q_n, lq, n, ld, d, seed, dead_ends in ((5, 13, 1000, 131, DIM, 21, False), (7, 48, 1000, 37, DIM, 27, False),
+                                                (3, 128, 1000, 37, DIM, 28, False), (9, LQ, 1000, 37, DIM, 29, False),
+                                                (5, LQ, 1000, 37, 96, 30, False), (5, LQ, 1001, 37, DIM, 31, True)):
+        t0 = time.perf_counter()
+        err, _, _, _, _ = k1v1_check(torch, maxsim, q_n, lq, n, ld, d, seed, 0, dead_ends=dead_ends)
+        phase("k1v1", t0, shape=f"Q{q_n}xLq{lq}xN{n}xLd{ld}xD{d} strict mask"
+              + (" (docs 0 and N-1 fully masked)" if dead_ends else ""), max_abs_err=err)
+        k1v1_err = max(k1v1_err, err)
+    # the zeroed fused sum (P1's _kernel_fusedsum) at the headline shape,
+    # bit-identical over REPEATS more launches, and at Lq 13 and 48
     t0 = time.perf_counter()
-    err, _, _, _ = k1v1_check(torch, maxsim, 5, 13, 1000, 131, DIM, 21, 0)
-    phase("k1v1", t0, shape="Q5xLq13xN1000xLd131xD128 strict mask", max_abs_err=err)
+    err, zero_ms, zero_plain, zero_dev, (flops, nbytes) = k1v1_check(
+        torch, maxsim, hq, LQ, hn, LD, DIM, 24, RUNS, strict=False
+    )
+    zero_bound = bench_maxsim.bound(flops, nbytes)
+    phase("maxsim_fused_zeromask", t0, shape=f"Q{hq}xLq{LQ}xN{hn}xLd{LD}xD{DIM}", max_abs_err=err,
+          kernel_ms=zero_ms, plain_ms=zero_plain, device_ms=zero_dev, bound_ms=zero_bound,
+          bit_identical_launches=REPEATS + 1, device_share_of_bound=zero_bound[0] / zero_dev)
     k1v1_err = max(k1v1_err, err)
+    for q_n, lq, n, ld, seed in ((5, 13, 1000, 131, 25), (7, 48, 1000, 37, 32)):
+        t0 = time.perf_counter()
+        err, _, _, _, _ = k1v1_check(torch, maxsim, q_n, lq, n, ld, DIM, seed, 0, strict=False)
+        phase("maxsim_fused_zeromask", t0, shape=f"Q{q_n}xLq{lq}xN{n}xLd{ld}xD{DIM}", max_abs_err=err)
+        k1v1_err = max(k1v1_err, err)
     t0 = time.perf_counter()
     k1v2_err, k1v2_bf16_err, k1v2_ms, k1v2_plain, (flops, nbytes) = k1v2_check(
         torch, maxsim, hq * LQ, hn, LD, DIM, 22, RUNS
@@ -1388,12 +1430,6 @@ def main() -> int:
         phase("k1v2", t0, shape=f"QL65xN1000xLd131xD128 tchunk {tchunk}", max_abs_err_f32=err,
               max_abs_err_bf16=bf16_err)
         k1v2_err = max(k1v2_err, err)
-    t0 = time.perf_counter()
-    err = max(fused_zeromask_check(torch, maxsim, hq, LQ, hn, LD, DIM, 24),
-              fused_zeromask_check(torch, maxsim, 5, 13, 1000, 131, DIM, 25))
-    phase("maxsim_fused_zeromask", t0, shapes=["Q32xLq32xN28032xLd128", "Q5xLq13xN1000xLd131"],
-          max_abs_err=err)
-    k1v1_err = max(k1v1_err, err)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1437,7 +1473,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    k3_err, checked, k3_ms, k3_plain = k3_check(
+    k3_err, checked, k3_ms, k3_plain, k3_dev = k3_check(
         torch, scatter_score, 5, BATCH, 64, SPLADE_VOCAB, MM_DOCS // MM_DPC, MM_CAPC, MM_DPC, RUNS
     )
     # the postings this run reads: every real (non-pad) query term's row in
@@ -1447,12 +1483,23 @@ def main() -> int:
     k3_bound = bench_maxsim.bound(postings, 4 * postings + 8 * BATCH * kq + 4 * BATCH * n_chunks * MM_DPC // 16,
                                   bench_maxsim.PEAK_F32_FLOPS)
     phase("k3", t0, shape="Q64xKq64xC544xcapc32xdpc16384", max_abs_err=k3_err,
-          offsets_checked=checked, kernel_ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound)
-    t0 = time.perf_counter()
-    err, checked, _, _ = k3_check(torch, scatter_score, 6, 5, 7, 50, 3, 16, 2048, 0, pad_rows=True)
-    phase("k3", t0, shape="Q5xKq7xC3xcapc16xdpc2048 (padded rows, empty chunk)", max_abs_err=err,
-          offsets_checked=checked)
-    k3_err = max(k3_err, err)
+          offsets_checked=checked, kernel_ms=k3_ms, plain_ms=k3_plain, device_ms=k3_dev, bound_ms=k3_bound,
+          repeats_within_tol=REPEATS + 1, share_of_bound=k3_bound[0] / k3_ms,
+          device_share_of_bound=k3_bound[0] / k3_dev)
+    # ragged rows (sentinel pads, an empty last chunk, pad query terms); the
+    # widest layout (Kq*capc = MAX_POSTING_WIDTH); and the scale_build
+    # searcher's layout, capc 74, whose rows are not 16-byte aligned
+    for seed, q_n, kq, vocab, n_chunks, capc, dpc, pad_rows, note in (
+        (6, 5, 7, 50, 3, 16, 2048, True, " (padded rows, empty chunk)"),
+        (7, 9, 64, 500, 6, scatter_score.MAX_POSTING_WIDTH // 64, 2048, False, " (Kq*capc = 8192)"),
+        (8, 9, 64, 500, 14, 74, 2048, True, " (rows not 16-byte aligned)"),
+    ):
+        t0 = time.perf_counter()
+        err, checked, _, _, _ = k3_check(torch, scatter_score, seed, q_n, kq, vocab, n_chunks, capc, dpc, 0,
+                                         pad_rows=pad_rows)
+        phase("k3", t0, shape=f"Q{q_n}xKq{kq}xC{n_chunks}xcapc{capc}xdpc{dpc}{note}", max_abs_err=err,
+              offsets_checked=checked)
+        k3_err = max(k3_err, err)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1750,7 +1797,7 @@ def main() -> int:
         # the library call of K4's function is index_select, its plain version
         entry("gather_rows", "gather_rows.cu", "fusion_tpu/ops/gather_rows.py:41", mm4_counts["K4"],
               k4_err, k4_ms, k4_plain, k4_bound, library_ms=k4_plain),
-        entry("maxsim_fused", "maxsim_fused.cu",
+        entry("maxsim_fused", "maxsim.cu",
               "fusion_tpu/ops/maxsim.py:67; scripts/bench_maxsim.py:55", variant_counts["K1-v1"],
               k1v1_err, k1v1_ms, k1v1_plain, k1v1_bound),
         entry("maxsim_maxima_v2", "maxsim.cu",

@@ -11,7 +11,8 @@
 //     swizzle, wgmma fence / commit / wait, and the two product shapes the
 //     kernels issue (m64n128k16 from shared memory, m64n64k16 with A from
 //     registers);
-//   * setmaxnreg, to hand the producer's registers to the consumers.
+//   * setmaxnreg, to hand the producer's registers to the consumers;
+//   * on the host, the shared-memory limit raised once per kernel and device.
 //
 // Tile layout every descriptor here assumes: a TMA box whose inner extent is
 // 128 bytes (64 bf16 or 128 int8), written by TMA under
@@ -28,6 +29,10 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace hopper {
 
@@ -103,14 +108,21 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// 16 bytes from shared memory (an explicit ld.shared: a generic load of a
-// shared address costs an address-space check)
+// 16 bytes, or one f32, from shared memory (an explicit ld.shared: a generic
+// load of a shared address costs an address-space check, and the compiler
+// keeps it in order with the wgmma instructions around it)
 __device__ __forceinline__ uint4 lds128(const void* p) {
   uint4 v;
   asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "r"(smem_u32(p))
                : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float lds_f32(const void* p) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(smem_u32(p)) : "memory");
   return v;
 }
 
@@ -238,18 +250,38 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tiled tensor map under the 128-byte swizzle: `rank` dims (innermost
-// first, in elements), the byte strides of dims 1.. and the box extents.
-// Elements past a dim are read as zeros.  Returns cudaSuccess, or
-// cudaErrorInvalidValue where the driver refuses the map.
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, smem), unless
+// this process has already raised the kernel's limit that far on the
+// current device: the call costs host time on every launch otherwise.
+template <typename Kernel>
+inline cudaError_t raise_smem_limit(Kernel kernel, size_t smem) {
+  static std::mutex lock;
+  static std::map<std::pair<const void*, int>, size_t> raised;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(lock);
+  size_t& done = raised[{reinterpret_cast<const void*>(kernel), dev}];
+  if (done >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) done = smem;
+  return err;
+}
+
+// A tiled tensor map, under the 128-byte swizzle unless `swizzle` says
+// otherwise: `rank` dims (innermost first, in elements), the byte strides of
+// dims 1.. and the box extents.  Elements past a dim are read as zeros.
+// Returns cudaSuccess, or cudaErrorInvalidValue where cuTensorMapEncodeTiled
+// refuses the map.
 inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                               const void* base, const cuuint64_t* dims, const cuuint64_t* strides,
-                              const cuuint32_t* box) {
+                              const cuuint32_t* box,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
-                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

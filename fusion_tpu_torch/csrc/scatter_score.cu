@@ -23,15 +23,58 @@
 // doc >= dpc) is dropped, as the TPU kernel's one-hot drops hi >= H.
 //
 // The TPU kernel routes postings to docs through a factorized one-hot matmul
-// only because the TPU has no scatter.  Here each block owns one
-// (query, chunk) pair and scatters for real: an f32 accumulator of dpc floats
-// in shared memory (64 KB at dpc 16,384), zeroed, then one shared-memory
-// atomicAdd per posting read straight from the index rows (no gathered
-// [Q, C, Kq*capc] copy in device memory), then the bin pass over the
-// accumulator.  What bounds it: per (query, chunk) only Kq*capc postings
-// (2,048 at the serving layout, 8 KB) are read from device memory; the
-// shared-memory passes over the accumulator (zeroing and the bin pass,
-// 2 x dpc words) dominate, and three 64 KB blocks fit an SM.
+// only because the TPU has no scatter.  Here the scatter is real: per
+// (query, chunk) item an f32 accumulator of dpc floats in shared memory
+// (64 KB at dpc 16,384), one shared-memory atomicAdd per posting read from
+// the index rows (no gathered [Q, C, Kq*capc] copy in device memory), then
+// the bin pass over the accumulator.
+//
+// What bounds it: device memory is the floor -- the real query terms' rows,
+// 4 bytes a posting, and the bins written (0.123 ms at the mMARCO serving
+// shape) -- but the shared-memory work of every item costs more on this
+// card: the shared f32 atomicAdd has no native instruction on sm_90a (the
+// SASS is an ATOMS.CAST.SPIN compare-and-swap loop: a load, an add and a CAS
+// per posting, retried on a collision), and the bin pass reads all dpc words
+// of every item, ~16 instructions per bin.  With 64 KB accumulators only two
+// blocks fit an SM, so the per-item phases (stage, scatter, bin) are bound
+// by instructions and latency: every instruction and barrier per item
+// counts.
+// The first port (one 512-thread block per item, 34,816 blocks at the
+// serving shape) also zeroed all dpc words per item, and each thread's
+// posting loop was a chain of dependent global loads (term, then doc and
+// impact, then the atomic) with nothing in flight across items.
+//
+// Design (scatter_binmax_kernel):
+//   * Persistent CTAs, as many as fit the card (2 per SM at the serving
+//     layout), each walking a contiguous range of items in (query, chunk)
+//     order: a CTA's consecutive items share a query, so the query's terms
+//     stay in L1 and its bf16 weights are staged once.  Positions advance by
+//     additions: no division in the item loop.  (An order that keeps
+//     neighbouring chunks of one query in flight across CTAs measured no
+//     faster.)
+//   * The posting rows of the item kDepth - 1 ahead are prefetched while the
+//     current item is scattered and binned: 16-byte cp.async copies into a
+//     ring of kDepth item slots (3 where three fit beside the accumulator
+//     with two CTAs per SM, else 2), one commit group per item.  A
+//     (term, chunk) row is 2*capc bytes of doc ids plus as many of impacts,
+//     contiguous in [V+1, C, capc]: 64 + 64 bytes at capc 32 -- too small
+//     for TMA tensor boxes (one request per term, plus a tensor map per
+//     call), while cp.async moves them with one 16-byte copy per thread, no
+//     registers and no barrier object.  Where 2*capc is not a multiple of 16
+//     a row is copied as the 16-byte-aligned span around it (one more copy
+//     at most) and read at its offset in the span, kept per slot.
+//   * No zero pass per item: the CTA zeroes its accumulator once, and the
+//     bin pass clears each word as it reads it, so an item costs two
+//     barriers (staged rows ready, scatter done).
+//   * A posting lands by a native shared exchange (scatter_add below): the
+//     CAS loop runs only for the ~6 % of postings whose word already holds
+//     a value (2,048 postings over 16,384 docs per item).
+//   * The bin pass gives each thread 4 neighbouring bins: 16 float4 reads
+//     (and zero stores) of the accumulator and one float4 store of packed
+//     bins.
+// The bins of untouched words are computed like the rest: a touched-bin
+// bitmap would cost a second shared atomic per posting to skip ~13 % of the
+// bins at the serving shape.
 //
 // The atomics make the order of the f32 additions vary from run to run: a
 // doc's score is a sum of at most Kq values, so two runs differ by a few
@@ -43,13 +86,45 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <mutex>
+
 namespace {
 
 constexpr int kBin = 16;
 constexpr int kThreads = 512;
+constexpr size_t kMaxSmem = 232448;   // shared memory one block may use on Hopper
+constexpr size_t kSmPerTwo = 115712;  // per block with two blocks on an SM (228 KB, 1 KB each reserved)
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// acc += v in shared memory.  The f32 atomicAdd is a compare-and-swap loop
+// on sm_90a; the exchange is native.  Most postings are the first to reach
+// their word (it is 0: the accumulator starts cleared), so each exchanges
+// its value in and is done; a posting that takes out a value already there
+// adds that value back (a CAS loop, on collisions only).  Every value taken
+// out is put back by its taker, so the word ends as the sum of all values.
+__device__ __forceinline__ void scatter_add(float* acc, float v) {
+  const int old = atomicExch(reinterpret_cast<int*>(acc), __float_as_int(v));
+  if (old != 0) atomicAdd(acc, __int_as_float(old));
 }
 
 // Zero the block's dpc-float shared-memory accumulator (dpc % 4 == 0).
@@ -58,58 +133,169 @@ __device__ __forceinline__ void zero_acc(float* acc, int dpc) {
     *reinterpret_cast<float4*>(acc + i) = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// a bin's packed maximum: its best score with the offset in the 4 low
+// mantissa bits; -inf where no word was > 0 (or the maximum is not finite)
+__device__ __forceinline__ float pack(float best, unsigned off) {
+  return best > 0.0f && isfinite(best) ? __uint_as_float((__float_as_uint(best) & 0xFFFFFFF0u) | off)
+                                       : -INFINITY;
+}
+
 // The bin pass over a finished accumulator: score = acc > 0 ? acc : -inf,
 // dst[b] = max_{s < 16} score[s * dpc/16 + b] with the lowest s of a tie
-// packed into the 4 low mantissa bits; a -inf maximum stays -inf.
-__device__ __forceinline__ void bin_pack_store(const float* acc, float* dst, int dpc) {
+// packed into the 4 low mantissa bits; a -inf maximum stays -inf.  Each
+// thread takes 4 neighbouring bins (dst 16-byte aligned); with `clear` it
+// zeroes each word after reading it.
+__device__ __forceinline__ void bin_pack_store(float* acc, float* dst, int dpc, bool clear) {
   const int lanes = dpc / kBin;
-  for (int b = threadIdx.x; b < lanes; b += kThreads) {
-    float best = -INFINITY;
-    unsigned off = 0;
+  for (int b = threadIdx.x * 4; b < lanes; b += kThreads * 4) {
+    float best[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // only a word > 0 counts
+    unsigned off[4] = {0, 0, 0, 0};
 #pragma unroll
     for (int s = 0; s < kBin; ++s) {
-      const float x = acc[s * lanes + b];
-      const float score = x > 0.0f ? x : -INFINITY;
-      if (score > best) {
-        best = score;
-        off = s;
+      float4* p = reinterpret_cast<float4*>(acc + s * lanes + b);
+      const float4 x4 = *p;
+      if (clear) *p = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (x[k] > best[k]) {  // strict: a tie keeps the lowest s
+          best[k] = x[k];
+          off[k] = s;
+        }
       }
     }
-    dst[b] = isfinite(best) ? __uint_as_float((__float_as_uint(best) & 0xFFFFFFF0u) | off)
-                            : -INFINITY;
+    *reinterpret_cast<float4*>(dst + b) =
+        make_float4(pack(best[0], off[0]), pack(best[1], off[1]), pack(best[2], off[2]),
+                    pack(best[3], off[3]));
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// bytes of one staged posting row: 2*capc rounded up to 16, plus 16 where
+// rows do not start on 16-byte boundaries (capc % 8 != 0)
+__host__ __device__ inline int row_slot(int capc) {
+  return ((2 * capc + 15) & ~15) + (capc % 8 ? 16 : 0);
+}
+// one item's staged rows: Kq doc-id rows, then Kq impact rows
+__host__ __device__ inline size_t item_bytes(int kq, int capc) {
+  return (size_t)2 * kq * row_slot(capc);
+}
+// accumulator, ring, the query's weights and each slot's row offsets
+size_t k3_smem(int kq, int capc, int dpc, int depth) {
+  return (size_t)dpc * 4 + depth * item_bytes(kq, capc) + (size_t)kq * 4 + (size_t)depth * kq;
+}
+// ring slots: 3 where two blocks still fit an SM, else 2 (0: not even that fits)
+int ring_depth(int kq, int capc, int dpc) {
+  if (k3_smem(kq, capc, dpc, 3) <= kSmPerTwo) return 3;
+  return k3_smem(kq, capc, dpc, 2) <= kMaxSmem ? 2 : 0;
+}
+
+template <int kDepth>
+__global__ void __launch_bounds__(kThreads, 2)
 scatter_binmax_kernel(const int* __restrict__ q_terms,       // [nq, kq]
                       const float* __restrict__ q_weights,   // [nq, kq]
                       const uint16_t* __restrict__ post_doc, // [vp1, c, capc]
                       const __half* __restrict__ post_imp,   // [vp1, c, capc]
                       float* __restrict__ out,               // [nq, c * dpc / 16]
-                      int kq, int vp1, int c, int capc, int dpc) {
-  extern __shared__ __align__(16) float acc[];  // [dpc]
-  const int chunk = blockIdx.x;
-  const int q = blockIdx.y;
+                      int nq, int kq, int vp1, int c, int capc, int dpc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* acc = reinterpret_cast<float*>(smem);                      // [dpc]
+  unsigned char* ring = smem + (size_t)dpc * 4;                      // kDepth x item slots
+  const int slot = row_slot(capc);
+  const int ibytes = (int)item_bytes(kq, capc);
+  float* s_w = reinterpret_cast<float*>(ring + kDepth * ibytes);    // [kq] the query's bf16 weights
+  unsigned char* s_off = reinterpret_cast<unsigned char*>(s_w + kq);  // [kDepth][kq] row offsets
   const int tid = threadIdx.x;
+  const int width = kq * capc;
+  const int per_row = slot / 16;  // 16-byte copies per staged row
+  const int span = 2 * per_row;
+  const bool unaligned = capc % 8 != 0;
+  // this thread's first posting (t, j) and first copy (t, r) of an item, and
+  // how they advance per kThreads (no division inside the loops)
+  const int pt0 = tid / capc, pj0 = tid % capc, pdt = kThreads / capc, pdj = kThreads % capc;
+  const int ct0 = tid / span, cr0 = tid % span, cdt = kThreads / span, cdr = kThreads % span;
+
+  // this CTA's items: a contiguous range in (query, chunk) order, so its
+  // consecutive items share a query (its terms stay in L1, its weights are
+  // staged once); positions advance by additions, not divisions
+  const long long items = (long long)nq * c;
+  const long long first = items * blockIdx.x / gridDim.x;
+  const int steps = (int)(items * (blockIdx.x + 1) / gridDim.x - first);
+  auto advance = [&](int& q, int& chunk) {
+    if (++chunk == c) {
+      chunk = 0;
+      ++q;
+    }
+  };
+
+  // the 16-byte copies of the next unstaged step's rows into its ring slot,
+  // one commit group (empty past the last step)
+  int pr = 0, pq = (int)(first / c), pc = (int)(first % c);
+  auto stage_rows = [&]() {
+    if (pr < steps) {
+      unsigned char* dst = ring + (pr % kDepth) * ibytes;
+      int t = ct0, r = cr0;
+      for (int i = tid; i < kq * span; i += kThreads) {
+        const int arr = r >= per_row, k = r - arr * per_row;  // arr 0: doc ids, 1: impacts
+        const int term = min(max(__ldg(q_terms + (size_t)pq * kq + t), 0), vp1 - 1);
+        const size_t start = ((size_t)term * c + pc) * capc * 2;  // byte offset of the row
+        const size_t s16 = start & ~(size_t)15;
+        if (r == 0) s_off[(pr % kDepth) * kq + t] = (unsigned char)(start - s16);
+        if ((size_t)16 * k < start + 2 * capc - s16) {
+          const unsigned char* src =
+              (arr ? reinterpret_cast<const unsigned char*>(post_imp)
+                   : reinterpret_cast<const unsigned char*>(post_doc)) + s16 + 16 * k;
+          cp_async16(dst + (size_t)(arr * kq + t) * slot + 16 * k, src);
+        }
+        t += cdt;
+        r += cdr;
+        if (r >= span) {
+          r -= span;
+          ++t;
+        }
+      }
+      advance(pq, pc);
+    }
+    ++pr;
+    cp_async_commit();
+  };
 
   zero_acc(acc, dpc);
-  __syncthreads();
-
-  const int width = kq * capc;
-  for (int e = tid; e < width; e += kThreads) {
-    const int t = e / capc, j = e - t * capc;
-    const int term = min(max(q_terms[(size_t)q * kq + t], 0), vp1 - 1);
-    const size_t p = ((size_t)term * c + chunk) * capc + j;
-    const int d = post_doc[p];
-    if (d < dpc) {
-      const float imp = round_bf16(__half2float(post_imp[p]));
-      const float w = round_bf16(q_weights[(size_t)q * kq + t]);
-      atomicAdd(acc + d, round_bf16(__fmul_rn(imp, w)));
+  for (int k = 0; k < kDepth - 1; ++k) stage_rows();
+  int q = (int)(first / c), chunk = (int)(first % c), wq = -1;  // wq: the query s_w holds
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kDepth - 2>();  // this thread's copies of this step have landed
+    if (q != wq) {
+      wq = q;
+      for (int t = tid; t < kq; t += kThreads) s_w[t] = round_bf16(q_weights[(size_t)q * kq + t]);
     }
-  }
-  __syncthreads();
+    // every thread's copies and weights visible; the previous step's bin
+    // pass has cleared the accumulator and its scatter left its slot, which
+    // takes the copies of the step kDepth - 1 ahead
+    __syncthreads();
+    stage_rows();
 
-  bin_pack_store(acc, out + ((size_t)q * c + chunk) * (dpc / kBin), dpc);
+    const unsigned char* st = ring + (step % kDepth) * ibytes;
+    const unsigned char* offs = s_off + (step % kDepth) * kq;
+    int t = pt0, j = pj0;
+    for (int e = tid; e < width; e += kThreads) {
+      const unsigned char* row = st + t * slot + 2 * j + (unaligned ? offs[t] : 0);
+      const int d = *reinterpret_cast<const uint16_t*>(row);
+      if (d < dpc) {
+        const float imp = round_bf16(__half2float(*reinterpret_cast<const __half*>(row + kq * slot)));
+        scatter_add(acc + d, round_bf16(__fmul_rn(imp, s_w[t])));
+      }
+      t += pdt;
+      j += pdj;
+      if (j >= capc) {
+        j -= capc;
+        ++t;
+      }
+    }
+    __syncthreads();
+    bin_pack_store(acc, out + ((size_t)q * c + chunk) * (dpc / kBin), dpc, true);
+    advance(q, chunk);
+  }
+  cp_async_wait<0>();
 }
 
 // The same function over postings already gathered per query: int32 docs
@@ -121,8 +307,8 @@ scatter_binmax_kernel(const int* __restrict__ q_terms,       // [nq, kq]
 //   chunk-major [Q, Cp, W]:        one run of W (q_stride Cp*W, c_stride W);
 //   term-major  [Q, Kq, Cp, capc]: Kq runs of capc at a stride of Cp*capc
 //                                  (q_stride Kq*Cp*capc, c_stride capc).
-// One block per (query, chunk), the same 64 KB accumulator and bin pass as
-// scatter_binmax_kernel.  What bounds it: the operands themselves, 6 bytes
+// One block per (query, chunk): the accumulator zeroed, one atomicAdd per
+// posting, the bin pass.  What bounds it: the operands themselves, 6 bytes
 // per posting read once from device memory (0.43 GB at the mMARCO probe
 // shape), against K3's 4 bytes per posting of the index rows; docs >= dpc
 // (the sentinel of pad chunks and short lists) drop out.
@@ -132,11 +318,11 @@ scatter_pregathered_kernel(const int* __restrict__ docs,             // see abov
                            float* __restrict__ out,                  // [nq, cp * dpc / 16]
                            int cp, int n_runs, int run_len, long long q_stride,
                            long long c_stride, long long t_stride, int dpc) {
-  extern __shared__ __align__(16) float acc[];  // [dpc]
+  extern __shared__ __align__(16) float pg_acc[];  // [dpc]
   const int chunk = blockIdx.x;
   const int q = blockIdx.y;
 
-  zero_acc(acc, dpc);
+  zero_acc(pg_acc, dpc);
   __syncthreads();
 
   const long long base = q * q_stride + chunk * c_stride;
@@ -145,11 +331,49 @@ scatter_pregathered_kernel(const int* __restrict__ docs,             // see abov
     const int t = e / run_len, j = e - t * run_len;
     const long long p = base + t * t_stride + j;
     const unsigned d = (unsigned)docs[p];
-    if (d < (unsigned)dpc) atomicAdd(acc + d, __bfloat162float(vals[p]));
+    if (d < (unsigned)dpc) atomicAdd(pg_acc + d, __bfloat162float(vals[p]));
   }
   __syncthreads();
 
-  bin_pack_store(acc, out + ((size_t)q * cp + chunk) * (dpc / kBin), dpc);
+  bin_pack_store(pg_acc, out + ((size_t)q * cp + chunk) * (dpc / kBin), dpc, false);
+}
+
+template <int kDepth>
+int launch_binmax(const void* q_terms, const void* q_weights, const void* post_doc,
+                  const void* post_imp, void* out, int nq, int kq, int vp1, int c, int capc,
+                  int dpc, cudaStream_t stream) {
+  auto kernel = scatter_binmax_kernel<kDepth>;
+  const size_t smem = k3_smem(kq, capc, dpc, kDepth);
+  // the shared-memory attribute and the resident blocks, set and read once
+  // per device and size: the queries cost as much host time as the launch
+  static std::mutex lock;
+  static int known_dev = -1;
+  static size_t known_smem = 0;
+  static long long known_blocks = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks;
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    if (dev != known_dev || smem != known_smem) {
+      int sms = 0, per_sm = 0;
+      if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess ||
+          (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) != cudaSuccess)
+        return (int)err;
+      known_dev = dev;
+      known_smem = smem;
+      known_blocks = (long long)sms * std::max(per_sm, 1);
+    }
+    blocks = known_blocks;
+  }
+  const int grid = (int)std::min((long long)nq * c, blocks);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const int*>(q_terms), static_cast<const float*>(q_weights),
+      static_cast<const uint16_t*>(post_doc), static_cast<const __half*>(post_imp),
+      static_cast<float*>(out), nq, kq, vp1, c, capc, dpc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -157,23 +381,26 @@ scatter_pregathered_kernel(const int* __restrict__ docs,             // see abov
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // q_terms: [nq, kq] int32; q_weights: [nq, kq] f32; post_doc: [vp1, c, capc]
 // uint16; post_imp: [vp1, c, capc] f16; out: [nq, c * dpc / 16] f32; all
-// contiguous.  Requires dpc = 128 * H with H a multiple of 16 in [16, 128].
+// contiguous, post_doc and post_imp 16-byte aligned (a row's 16-byte span
+// is read whole).  Requires dpc = 128 * H with H a multiple of 16 in
+// [16, 128], and two ring slots of kq * capc postings beside the
+// accumulator (ops/scatter_score.py::scatter_smem_bytes mirrors the sizes).
 extern "C" int scatter_binmax(const void* q_terms, const void* q_weights, const void* post_doc,
                               const void* post_imp, void* out, int nq, int kq, int vp1, int c,
                               int capc, int dpc, void* stream) {
-  if (dpc % 2048 != 0 || dpc < 2048 || dpc > 16384 || nq < 1 || nq > 65535 || c < 1 ||
-      kq < 1 || capc < 1 || vp1 < 1)
+  if (dpc % 2048 != 0 || dpc < 2048 || dpc > 16384 || nq < 1 || c < 1 || kq < 1 || capc < 1 ||
+      vp1 < 1 ||
+      (reinterpret_cast<uintptr_t>(post_doc) | reinterpret_cast<uintptr_t>(post_imp)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)dpc * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scatter_binmax_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(c, nq);
-  scatter_binmax_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(q_terms), static_cast<const float*>(q_weights),
-      static_cast<const uint16_t*>(post_doc), static_cast<const __half*>(post_imp),
-      static_cast<float*>(out), kq, vp1, c, capc, dpc);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (ring_depth(kq, capc, dpc)) {
+    case 3:
+      return launch_binmax<3>(q_terms, q_weights, post_doc, post_imp, out, nq, kq, vp1, c, capc, dpc, s);
+    case 2:
+      return launch_binmax<2>(q_terms, q_weights, post_doc, post_imp, out, nq, kq, vp1, c, capc, dpc, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).

@@ -23,7 +23,7 @@ Query pads multiply by 0 in the sum (augmentation tokens count).
     ``maxsim_token_maxima_pallas``) — the same maxima [QL, N], reduced in f32
     or rounded to bf16 (``maxsim_maxima_v2_cuda`` / ``maxsim_maxima_v2_plain``);
   * ``maxsim_fused`` (K1-v1) — the Ld max and the query-mask sum in one
-    kernel, ``csrc/maxsim_fused.cu``, strict or zeroed
+    kernel, the fused mode of ``csrc/maxsim.cu``, strict or zeroed
     (``maxsim_fused_cuda`` / ``maxsim_fused_plain``); ``maxsim_scores_v1`` is
     the doc-major entry, the counterpart of ``maxsim_scores_pallas``;
   * ``maxsim_scores_tm`` — [Q, N] scores: K1 maxima, then the query-mask sum;
@@ -152,36 +152,78 @@ def _bind_maxsim() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.maxsim_maxima.restype = ctypes.c_int
+    lib.maxsim_fused.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.maxsim_fused.restype = ctypes.c_int
     lib.maxsim_error_string.argtypes = [ctypes.c_int]
     lib.maxsim_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def maxima_smem_bytes(d: int, tchunk: int, stages: int = 1) -> int:
-    """Shared memory of one block of the maxima kernel (``csrc/maxsim.cu``)
+CONSUMER_ROWS = 128  # query rows per consumer warpgroup; two consumers per block
+# the fused epilogue's staged maxima: both consumers' 128 query rows x 64
+# docs, rows padded to 68 words, in the ring
+FUSED_STAGING_BYTES = 2 * CONSUMER_ROWS * 68 * 4
+
+
+def maxima_smem_bytes(d: int, tchunk: int, stages: int = 1, mask: bool = False) -> int:
+    """Shared memory of one block of the MaxSim kernel (``csrc/maxsim.cu``)
     at width ``d`` with ``stages`` ring stages of ``tchunk`` doc tokens: the
-    256-token query tile and the ring, both in 64-column swizzle atoms (D
-    rounded up to 64), plus the barriers and 1,024 bytes of alignment."""
+    256-row query tile and the ring, both in 64-column swizzle atoms (D
+    rounded up to 64), with ``mask`` (the fused strict mode) each stage's
+    ``tchunk`` x 64 f32 doc-mask words, plus the barriers and 1,024 bytes of
+    alignment."""
     atoms = -(-d // 64)
-    return 1024 + atoms * 256 * 64 * 2 + stages * atoms * tchunk * 64 * 64 * 2 + 256
+    stage = atoms * tchunk * 64 * 64 * 2 + (tchunk * 64 * 4 if mask else 0)
+    return 1024 + atoms * 256 * 64 * 2 + stages * stage + 256
 
 
-def maxima_stages(d: int, tchunk: int) -> int:
-    """Ring stages the maxima kernel runs with at width ``d`` and ``tchunk``
+def maxima_stages(d: int, tchunk: int, mask: bool = False) -> int:
+    """Ring stages the MaxSim kernel runs with at width ``d`` and ``tchunk``
     doc tokens per stage: as many as fit beside the query tile, at most 8
     (0: not even one fits, and the kernel refuses the call)."""
     if not 1 <= tchunk <= 256:
         return 0
-    room = MAX_SMEM - maxima_smem_bytes(d, tchunk, 0)
-    return max(0, min(8, room // (maxima_smem_bytes(d, tchunk, 1) - maxima_smem_bytes(d, tchunk, 0))))
+    room = MAX_SMEM - maxima_smem_bytes(d, tchunk, 0, mask)
+    per_stage = maxima_smem_bytes(d, tchunk, 1, mask) - maxima_smem_bytes(d, tchunk, 0, mask)
+    return max(0, min(8, room // per_stage))
 
 
-def k1_tokens_per_stage(d: int) -> int:
-    """Doc tokens per ring stage of K1: 4 where two such stages fit beside
-    the query tile, else 2, else 1.  Fewer, deeper stages mean fewer barrier
-    waits per token (K1-v2's bench modes at the serving shape: ``tchunk`` 4
-    is the fastest, see PERF.md); the maxima do not depend on it."""
-    return next((t for t in (4, 2) if maxima_stages(d, t) >= 2), 1)
+@functools.cache
+def k1_tokens_per_stage(d: int, mask: bool = False) -> int:
+    """Doc tokens per ring stage of K1 (and, with ``mask`` for the strict
+    mode, of the fused modes): 4 where two such stages fit beside the query
+    tile, else 2, else 1.  Fewer, deeper stages mean fewer barrier waits per
+    token (K1-v2's bench modes at the serving shape: ``tchunk`` 4 is the
+    fastest, see PERF.md); the results do not depend on it."""
+    return next((t for t in (4, 2) if maxima_stages(d, t, mask) >= 2), 1)
+
+
+def fused_stages(d: int, mask: bool) -> int:
+    """Ring stages of the fused modes at width ``d``: those of
+    ``k1_tokens_per_stage(d, mask)`` tokens each, or 0 where their corpus
+    bytes cannot hold the epilogue's staged maxima (the kernel then refuses
+    the call)."""
+    tchunk = k1_tokens_per_stage(d, mask)
+    stages = maxima_stages(d, tchunk, mask)
+    corpus_bytes = stages * -(-d // 64) * tchunk * 64 * 64 * 2
+    return stages if corpus_bytes >= FUSED_STAGING_BYTES else 0
+
+
+def fused_queries_per_consumer(lq: int) -> int:
+    """Whole queries of ``lq`` tokens in one consumer's 128 query rows in the
+    fused modes; a block holds twice as many."""
+    return CONSUMER_ROWS // lq
+
+
+def fused_first_rows(block: int, lq: int) -> tuple[int, int]:
+    """The first query row (of ``q_flat``) of each of block ``block``'s two
+    consumers in the fused modes: each starts at a whole query."""
+    qpw = fused_queries_per_consumer(lq)
+    return tuple((2 * block + w) * qpw * lq for w in (0, 1))
 
 
 def _check_maxima_args(name: str, q_flat: torch.Tensor, corpus_tm: torch.Tensor) -> None:
@@ -276,29 +318,16 @@ def maxsim_maxima_v2_cuda(
 maxsim_maxima_v2_cuda.launches = 0
 
 
-@functools.cache
-def _bind_fused() -> ctypes.CDLL:
-    lib = _kernels.load("maxsim_fused")
-    lib.maxsim_fused.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.maxsim_fused.restype = ctypes.c_int
-    lib.maxsim_fused_error_string.argtypes = [ctypes.c_int]
-    lib.maxsim_fused_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def maxsim_fused_cuda(
     q_flat: torch.Tensor,
     q_mask: torch.Tensor,
     corpus_tm: torch.Tensor,
     mask_tm: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """K1-v1 (``csrc/maxsim_fused.cu``): bf16 [Q·Lq, D] query tokens, f32
-    [Q, Lq] query mask, bf16 [Ld, N, D] token-major docs and, for the strict
-    mask, f32 [Ld, N] doc mask → f32 [Q, N] scores, on the current stream.
-    Without ``mask_tm`` the docs' masked tokens are zero vectors.
+    """K1-v1 (the fused mode of ``csrc/maxsim.cu``): bf16 [Q·Lq, D] query
+    tokens, f32 [Q, Lq] query mask, bf16 [Ld, N, D] token-major docs and, for
+    the strict mask, f32 [Ld, N] doc mask → f32 [Q, N] scores, on the current
+    stream.  Without ``mask_tm`` the docs' masked tokens are zero vectors.
     ``maxsim_fused_cuda.launches`` counts launches."""
     tensors = [q_flat, q_mask, corpus_tm] + ([] if mask_tm is None else [mask_tm])
     if not all(t.is_cuda and t.device == q_flat.device for t in tensors):
@@ -324,19 +353,27 @@ def maxsim_fused_cuda(
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("maxsim_fused_cuda takes contiguous tensors")
+    if (q_flat.data_ptr() | corpus_tm.data_ptr()) % 16:
+        raise ValueError("maxsim_fused_cuda needs 16-byte aligned tokens")
     out = torch.empty((q, n), dtype=torch.float32, device=q_flat.device)
     if n == 0 or q == 0:
         return out
-    lib = _bind_fused()
+    n4 = -(-n // 4) * 4
+    if mask_tm is not None and (n4 != n or mask_tm.data_ptr() % 16):
+        # the kernel's tensor map reads rows of a multiple of 4 words, 16-byte aligned
+        padded = torch.zeros((ld, n4), dtype=torch.float32, device=mask_tm.device)
+        padded[:, :n] = mask_tm
+        mask_tm = padded
+    lib = _bind_maxsim()
     stream = torch.cuda.current_stream(q_flat.device).cuda_stream
     rc = lib.maxsim_fused(
         corpus_tm.data_ptr(), q_flat.data_ptr(), q_mask.data_ptr(),
         None if mask_tm is None else mask_tm.data_ptr(), out.data_ptr(),
-        ld, n, d, q, lq, stream,
+        ld, n, d, q, lq, k1_tokens_per_stage(d, mask_tm is not None), stream,
     )
     if rc != 0:
         raise RuntimeError(
-            f"fused maxsim kernel launch failed: {lib.maxsim_fused_error_string(rc).decode()} ({rc})"
+            f"fused maxsim kernel launch failed: {lib.maxsim_error_string(rc).decode()} ({rc})"
         )
     maxsim_fused_cuda.launches += 1
     return out

@@ -9,9 +9,11 @@ in-bin argmax packed into the 4 low mantissa bits (``ops/dense_topk.py``),
 and one stable top-k over all bins picks the result.
 
   * ``scatter_binmax_cuda`` — the hand-written Hopper kernel
-    (``csrc/scatter_score.cu``): a real scatter-add into a shared-memory
-    accumulator per (query, chunk), reading the posting rows straight from
-    the index; ``scatter_binmax_cuda.launches`` counts its launches;
+    (``csrc/scatter_score.cu``): persistent blocks walk the (query, chunk)
+    items, prefetch each item's posting rows from the index into a staging
+    ring and scatter-add them into a shared-memory accumulator
+    (``scatter_smem_bytes`` mirrors its shared-memory sizes);
+    ``scatter_binmax_cuda.launches`` counts its launches;
   * ``scatter_binmax_plain`` — the plain PyTorch version of the same function
     (gather the postings, scatter-add, bin-reduce), which a tensor on the
     CPU runs and the kernel is held to on the card;
@@ -49,6 +51,8 @@ LANES = 128  # a chunk's docs d = hi·LANES + lo, hi < H
 # Kq·capc ceiling of the serving layout: build() shrinks the chunk width
 # until the equal-mass per-chunk cap fits it, so it decides the index layout
 MAX_POSTING_WIDTH = 8192
+MAX_SMEM = 232_448  # shared memory one block may use on Hopper
+SMEM_PER_TWO_BLOCKS = 115_712  # a block's share of an SM's 228 KB with two on it (1 KB each reserved)
 
 
 def _plan(docs_per_chunk: int) -> int:
@@ -140,6 +144,31 @@ def scatter_binmax_plain(
     return out[:, :c].reshape(q, -1)
 
 
+def scatter_row_slot(capc: int) -> int:
+    """Bytes of one staged posting row of the scatter kernel: ``2·capc``
+    rounded up to 16, plus 16 where rows do not start on 16-byte boundaries
+    (``capc % 8``), since a row is copied as the 16-byte span around it."""
+    return -(-2 * capc // 16) * 16 + (16 if capc % 8 else 0)
+
+
+def scatter_smem_bytes(kq: int, capc: int, docs_per_chunk: int) -> tuple[int, int]:
+    """(ring slots, shared-memory bytes) of one block of the scatter kernel
+    (``csrc/scatter_score.cu``, mirrored): the ``docs_per_chunk``-float
+    accumulator, ring slots of one (query, chunk) item's staged rows (``Kq``
+    doc-id rows and ``Kq`` impact rows, and a byte per row: its offset in its
+    16-byte span) and the query's f32 weights.  3 slots where two blocks
+    still fit an SM, else 2; 0 slots (with the bytes of 2) where not even
+    one block fits."""
+    item = 2 * kq * scatter_row_slot(capc)
+
+    def size(depth: int) -> int:
+        return 4 * docs_per_chunk + depth * (item + kq) + 4 * kq
+
+    if size(3) <= SMEM_PER_TWO_BLOCKS:
+        return 3, size(3)
+    return (2 if size(2) <= MAX_SMEM else 0), size(2)
+
+
 @functools.cache
 def _bind() -> ctypes.CDLL:
     lib = _kernels.load("scatter_score")
@@ -187,6 +216,14 @@ def scatter_binmax_cuda(
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("scatter_binmax_cuda needs contiguous tensors")
+    if (post_doc.data_ptr() | post_impact.data_ptr()) % 16:
+        raise ValueError("scatter_binmax_cuda needs 16-byte aligned index rows")
+    depth, smem = scatter_smem_bytes(kq, capc, docs_per_chunk)
+    if depth == 0:
+        raise ValueError(
+            f"Kq·capc = {kq * capc} postings per item: two staging slots beside the "
+            f"{docs_per_chunk}-doc accumulator need {smem} bytes of shared memory (at most {MAX_SMEM})"
+        )
     out = torch.empty((q, c * docs_per_chunk // BIN), dtype=torch.float32, device=q_terms.device)
     if q == 0 or c == 0:
         return out

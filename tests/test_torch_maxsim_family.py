@@ -236,3 +236,71 @@ def test_bench_fails_without_a_card():
         text=True, cwd=repo, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
     )
     assert out.returncode != 0 and out.stdout == "" and "CUDA" in out.stderr
+
+
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("d", list(range(16, 257, 16)))
+def test_fused_modes_fit_and_stage_their_epilogue_in_the_ring(d, mask):
+    """The fused modes of csrc/maxsim.cu at every width the kernel takes: as
+    many stages of ``k1_tokens_per_stage(d, mask)`` tokens as fit (the strict
+    mode's stages also hold their tokens' doc-mask words), and a ring whose
+    corpus bytes hold both consumers' staged maxima, so the kernel never
+    refuses a valid call."""
+    tchunk = tm.k1_tokens_per_stage(d, mask)
+    stages = tm.fused_stages(d, mask)
+    assert stages == tm.maxima_stages(d, tchunk, mask) >= 1
+    assert tm.maxima_smem_bytes(d, tchunk, stages, mask) <= tm.MAX_SMEM
+    assert stages == 8 or tm.maxima_smem_bytes(d, tchunk, stages + 1, mask) > tm.MAX_SMEM
+    corpus = tm.maxima_smem_bytes(d, tchunk, stages) - tm.maxima_smem_bytes(d, tchunk, 0)
+    assert corpus >= tm.FUSED_STAGING_BYTES
+
+
+@pytest.mark.parametrize(
+    "d, mask, tchunk, stages",
+    [(128, True, 4, 2), (128, False, 4, 2), (64, True, 4, 5), (64, False, 4, 6), (192, True, 2, 2),
+     (256, True, 1, 3), (256, False, 1, 3)],
+)
+def test_fused_stage_counts(d, mask, tchunk, stages):
+    """The strict mode's 256 mask bytes per token can cost a stage (D 64)."""
+    assert (tm.k1_tokens_per_stage(d, mask), tm.fused_stages(d, mask)) == (tchunk, stages)
+
+
+@pytest.mark.parametrize("lq, qpw", [(1, 128), (13, 9), (32, 4), (48, 2), (64, 2), (65, 1), (128, 1)])
+def test_fused_consumers_start_at_whole_queries(lq, qpw):
+    """qpw = floor(128 / Lq) queries per consumer, 2·qpw per block; consumer
+    w of block b starts at query (2b + w)·qpw, and every query's Lq rows lie
+    inside its consumer's 128."""
+    assert tm.fused_queries_per_consumer(lq) == qpw
+    for q in range(5 * qpw):
+        consumer = q // qpw
+        first = tm.fused_first_rows(consumer // 2, lq)[consumer % 2]
+        assert first == consumer * qpw * lq
+        assert first <= q * lq and (q + 1) * lq <= first + tm.CONSUMER_ROWS
+
+
+@pytest.mark.parametrize(
+    "call",
+    ["maxsim_maxima_cuda", "maxsim_maxima_v2_cuda", "maxsim_fused_cuda strict", "maxsim_fused_cuda zeroed",
+     "scatter_binmax_cuda", "scatter_pregathered_cuda"],
+)
+def test_cuda_wrappers_raise_on_cpu_tensors(call):
+    """Each kernel wrapper refuses CPU tensors (the dispatchers send those to
+    the plain versions) and builds nothing."""
+    from fusion_tpu_torch.ops import scatter_score as ts
+
+    q_flat, corpus = torch.zeros(8, 16, dtype=torch.bfloat16), torch.zeros(3, 5, 16, dtype=torch.bfloat16)
+    q_mask, d_mask = torch.ones(2, 4), torch.ones(3, 5)
+    terms, weights = torch.zeros(2, 4, dtype=torch.int32), torch.ones(2, 4)
+    post_doc, post_imp = torch.zeros(9, 2, 8, dtype=torch.int16), torch.ones(9, 2, 8, dtype=torch.float16)
+    calls = {
+        "maxsim_maxima_cuda": lambda: tm.maxsim_maxima_cuda(q_flat, corpus),
+        "maxsim_maxima_v2_cuda": lambda: tm.maxsim_maxima_v2_cuda(q_flat, corpus),
+        "maxsim_fused_cuda strict": lambda: tm.maxsim_fused_cuda(q_flat, q_mask, corpus, d_mask),
+        "maxsim_fused_cuda zeroed": lambda: tm.maxsim_fused_cuda(q_flat, q_mask, corpus),
+        "scatter_binmax_cuda": lambda: ts.scatter_binmax_cuda(terms, weights, post_doc, post_imp, 2048),
+        "scatter_pregathered_cuda": lambda: ts.scatter_pregathered_cuda(
+            torch.zeros(2, 2, 8, dtype=torch.int32), torch.zeros(2, 2, 8, dtype=torch.bfloat16), 2048),
+    }
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[call]()
+    assert _kernels.load.cache_info().currsize == 0

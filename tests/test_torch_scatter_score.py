@@ -214,3 +214,36 @@ def test_cpu_tensors_never_reach_the_kernel(rng):
         scatter_score.scatter_binmax_cuda(
             torch.from_numpy(qt), torch.from_numpy(qw), got.post_doc, got.post_impact, 2048
         )
+
+
+@pytest.mark.parametrize("capc, slot", [(1, 32), (4, 32), (8, 16), (13, 48), (32, 64), (74, 176), (128, 256)])
+def test_scatter_row_slot_holds_any_rows_16_byte_span(capc, slot):
+    """K3 stages a (term, chunk) row of 2·capc bytes as the 16-byte-aligned
+    span around it: the slot holds the span of a row at any offset the
+    [V+1, C, capc] layout gives it, and no more than one extra copy."""
+    assert scatter_score.scatter_row_slot(capc) == slot
+    for row in range(64):  # row = term·C + chunk
+        start = row * capc * 2
+        s16 = start - start % 16
+        copies = -(-(start + 2 * capc - s16) // 16)
+        assert start - s16 + 2 * capc <= 16 * copies <= slot
+        assert copies <= -(-2 * capc // 16) + 1
+
+
+@pytest.mark.parametrize(
+    "kq, capc, dpc, depth, nbytes",
+    [(64, 32, 16384, 3, 90_560), (64, 128, 2048, 3, 106_944), (64, 128, 16384, 2, 131_456),
+     (64, 74, 2048, 3, 76_224), (7, 16, 2048, 3, 9_585), (64, 512, 16384, 0, 328_064)],
+)
+def test_scatter_staging_fits_two_blocks_at_the_serving_layout(kq, capc, dpc, depth, nbytes):
+    """``scatter_smem_bytes`` mirrors csrc/scatter_score.cu: three ring slots
+    where two blocks still fit an SM (the serving layout, Kq 64 x capc 32 at
+    dpc 16,384, and the widest, Kq·capc 8,192, at dpc 2,048), two where only
+    one block fits, none (the wrapper refuses) past one block's 227 KB."""
+    assert scatter_score.scatter_smem_bytes(kq, capc, dpc) == (depth, nbytes)
+    if depth == 3:
+        assert nbytes <= scatter_score.SMEM_PER_TWO_BLOCKS
+    elif depth == 2:
+        assert nbytes <= scatter_score.MAX_SMEM
+    else:
+        assert nbytes > scatter_score.MAX_SMEM
