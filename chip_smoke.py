@@ -7,7 +7,7 @@ Phases (each prints its result and wall time; any failed check exits 1):
   2. build    — compiles the four kernel sources (csrc/maxsim.cu with K1,
                 K1-v2 and K1-v1, dense_topk.cu with K2 and P3 at three doc
                 blocks, scatter_score.cu with K3, P4 and P5, gather_rows.cu;
-                maxsim.cu and dense_topk.cu include the shared
+                all three but gather_rows.cu include the shared
                 csrc/hopper.cuh), one nvcc each, all at once; prints their
                 ptxas reports (registers, spills, shared memory, and the
                 wgmma waits ptxas inserted);
@@ -77,10 +77,12 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 at a ragged shape (Q 37, N 100,003 padded to 106,496, every
                 13th row scale 0); K2's tolerance;
      p4, p5   — the pre-gathered scatter kernel, term-major (P4) and
-                chunk-major (P5), against its plain version at the probe
-                shape (Q 64, Kq 64, V 32,768, C 544, capc 32, dpc 16,384) and
-                at K3's ragged shape, and against K3 on the same index; K3's
-                tolerance;
+                chunk-major (P5), against its plain version and against K3
+                on the same index at the probe shape (Q 64, Kq 64, V 32,768,
+                C 544, capc 32, dpc 16,384; 10 more launches each within the
+                tolerance of the first, median times and device time, share
+                of bound) and at K3's ragged, widest (Kq x capc = 8,192) and
+                capc 74 shapes; K3's tolerance;
      probe_dense, probe_scatter_layout, probe_scatter_kernel — the three
                 probe tools of fusion_tpu_torch/tools/ at the scripts'
                 default mMARCO shapes, each with every launch count set to 0
@@ -609,7 +611,12 @@ def pregathered_check(torch, scatter_score, seed, q_n, kq, vocab, n_chunks, capc
                       pad_rows=False, device="cuda") -> dict:
     """P5 (chunk-major) and P4 (term-major): the pre-gathered kernel in each
     layout against its plain version, and against K3 on the same index;
-    {layout: (max error, checked bins, kernel ms, plain ms, bound inputs)}."""
+    {layout: (max error, checked bins, kernel ms, plain ms, bound inputs,
+    device ms)}.  With ``runs`` each layout's kernel is also launched
+    REPEATS more times, each output within K3_TOL of the first (a staging
+    race shows as a repeat far off), and timed."""
+    from fusion_tpu_torch.tools import bench_maxsim
+
     args = k3_inputs(torch, seed, q_n, kq, vocab, n_chunks, capc, dpc, pad_rows, device)
     k3 = scatter_score.scatter_binmax_cuda(*args, dpc)
     cm = scatter_score._gather_postings(*args, 16)
@@ -625,13 +632,16 @@ def pregathered_check(torch, scatter_score, seed, q_n, kq, vocab, n_chunks, capc
         err, checked = compare_bins(torch, got, want, gap, K3_TOL, label)
         # against K3 over the same index: the real chunks of the padded output
         k3_err, _ = compare_bins(torch, got[:, : k3.shape[1]], k3, gap[:, : k3.shape[1]], K3_TOL, f"{label} vs K3")
-        k_ms = p_ms = None
+        k_ms = p_ms = dev_ms = None
         if runs:
+            for i in range(REPEATS):
+                compare_bins(torch, kernel(), got, gap, K3_TOL, f"{label} repeat {i + 1} vs the first launch")
             k_ms, p_ms = alternating_ms(torch, kernel, plain, runs)
+            dev_ms = bench_maxsim.device_ms(kernel, runs)
         # operands read once (4-byte docs, 2-byte values), packed bins written
         # once; one f32 add per posting
         out[layout] = (max(err, k3_err), checked, k_ms, p_ms,
-                       (float(docs.numel()), docs.nbytes + vals.nbytes + got.nbytes))
+                       (float(docs.numel()), docs.nbytes + vals.nbytes + got.nbytes), dev_ms)
     return out
 
 
@@ -1535,22 +1545,35 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # P4 and P5: the pre-gathered scatter kernel in each layout at the probe
-    # shape (V 32,768 as the probe scripts) and a ragged one
+    # shape (V 32,768 as the probe scripts; REPEATS more launches each within
+    # K3_TOL of the first), and at K3's three other shapes: ragged rows, the
+    # widest layout (one chunk-major item of 8,192 postings, 49,152 bytes:
+    # two ring slots) and capc 74 (term-major rows not 16-byte aligned)
     t0 = time.perf_counter()
     pg = pregathered_check(torch, scatter_score, 33, BATCH, 64, 32_768, MM_DOCS // MM_DPC, MM_CAPC, MM_DPC, RUNS)
     pg_bound = {lay: bench_maxsim.bound(*v[4], bench_maxsim.PEAK_F32_FLOPS) for lay, v in pg.items()}
     for lay, v in pg.items():
         phase("p5" if lay == "chunk_major" else "p4", t0, shape=f"Q64xKq64xC544xcapc32xdpc16384 {lay}",
-              max_abs_err=v[0], offsets_checked=v[1], kernel_ms=v[2], plain_ms=v[3], bound_ms=pg_bound[lay])
-    t0 = time.perf_counter()
-    ragged = pregathered_check(torch, scatter_score, 34, 5, 7, 50, 3, 16, 2048, 0, pad_rows=True)
-    for lay, v in ragged.items():
-        phase("p5" if lay == "chunk_major" else "p4", t0,
-              shape=f"Q5xKq7xC3xcapc16xdpc2048 {lay} (padded rows, empty chunk)", max_abs_err=v[0],
-              offsets_checked=v[1])
-    pg_err = {lay: max(pg[lay][0], ragged[lay][0]) for lay in pg}
-    pg_times = {lay: (pg[lay][2], pg[lay][3]) for lay in pg}
-    del pg, ragged
+              max_abs_err=v[0], offsets_checked=v[1], kernel_ms=v[2], plain_ms=v[3], device_ms=v[5],
+              bound_ms=pg_bound[lay], repeats_within_tol=REPEATS + 1, share_of_bound=pg_bound[lay][0] / v[2],
+              device_share_of_bound=pg_bound[lay][0] / v[5])
+    pg_err = {lay: v[0] for lay, v in pg.items()}
+    pg_times = {lay: (v[2], v[3]) for lay, v in pg.items()}
+    del pg
+    for seed, q_n, kq, vocab, n_chunks, capc, dpc, pad_rows, note in (
+        (34, 5, 7, 50, 3, 16, 2048, True, " (padded rows, empty chunk)"),
+        (35, 9, 64, 500, 6, scatter_score.MAX_POSTING_WIDTH // 64, 2048, False, " (Kq*capc = 8192)"),
+        (36, 9, 64, 500, 14, 74, 2048, True, " (rows not 16-byte aligned)"),
+    ):
+        t0 = time.perf_counter()
+        shape = pregathered_check(torch, scatter_score, seed, q_n, kq, vocab, n_chunks, capc, dpc, 0,
+                                  pad_rows=pad_rows)
+        for lay, v in shape.items():
+            phase("p5" if lay == "chunk_major" else "p4", t0,
+                  shape=f"Q{q_n}xKq{kq}xC{n_chunks}xcapc{capc}xdpc{dpc} {lay}{note}", max_abs_err=v[0],
+                  offsets_checked=v[1])
+            pg_err[lay] = max(pg_err[lay], v[0])
+        del shape
     gc.collect()
     torch.cuda.empty_cache()
 

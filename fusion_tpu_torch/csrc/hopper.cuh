@@ -1,12 +1,13 @@
-// Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels of this
-// package (maxsim.cu, dense_topk.cu), as raw PTX: no CUTLASS/CuTe, so each
-// source builds in seconds.
+// Hopper (sm_90a) building blocks shared by the kernels of this package
+// (maxsim.cu, dense_topk.cu, scatter_score.cu), as raw PTX: no CUTLASS/CuTe,
+// so each source builds in seconds.
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a parity wait;
 //   * TMA tile loads (cp.async.bulk.tensor, 2-D and 3-D) completing on an
 //     mbarrier, and the host-side encoding of their CUtensorMap, reached
 //     through cudaGetDriverEntryPoint so a library links the runtime only;
+//     and 1-D bulk copies (cp.async.bulk), which need no tensor map;
 //   * wgmma shared-memory descriptors for K-major tiles under the 128-byte
 //     swizzle, wgmma fence / commit / wait, and the two product shapes the
 //     kernels issue (m64n128k16 from shared memory, m64n64k16 with A from
@@ -105,6 +106,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, as one 1-D bulk copy completing on `bar`: no tensor map
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

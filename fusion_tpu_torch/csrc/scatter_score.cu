@@ -4,10 +4,11 @@
 // scatter_binmax replaces the TPU kernel
 // fusion_tpu/ops/scatter_score.py::_scatter_kernel (driven there by
 // _fused_scatter_search and scatter_impact_search).  scatter_pregathered
-// (below) replaces scripts/probe_scatter_kernel.py::_b3d_kernel (chunk-major
-// operands, the rank-3 form of the same function) and
+// (scatter_runs_kernel, below: P5 and P4) replaces
+// scripts/probe_scatter_kernel.py::_b3d_kernel (chunk-major operands, the
+// rank-3 form of the same function) and
 // scripts/probe_scatter_layout.py::_kernel_nt (term-major operands read
-// without a transpose).
+// without a transpose), on the same design.
 //
 // For query q with terms t[q, :Kq] (pad >= V, clamped to the sentinel row V)
 // and f32 weights w[q, :Kq], and chunk c of docs_per_chunk (dpc) docs:
@@ -25,9 +26,9 @@
 // The TPU kernel routes postings to docs through a factorized one-hot matmul
 // only because the TPU has no scatter.  Here the scatter is real: per
 // (query, chunk) item an f32 accumulator of dpc floats in shared memory
-// (64 KB at dpc 16,384), one shared-memory atomicAdd per posting read from
-// the index rows (no gathered [Q, C, Kq*capc] copy in device memory), then
-// the bin pass over the accumulator.
+// (64 KB at dpc 16,384), one shared-memory add per posting read from the
+// index rows (no gathered [Q, C, Kq*capc] copy in device memory), then the
+// bin pass over the accumulator.
 //
 // What bounds it: device memory is the floor -- the real query terms' rows,
 // 4 bytes a posting, and the bins written (0.123 ms at the mMARCO serving
@@ -39,7 +40,7 @@
 // blocks fit an SM, so the per-item phases (stage, scatter, bin) are bound
 // by instructions and latency: every instruction and barrier per item
 // counts.
-// The first port (one 512-thread block per item, 34,816 blocks at the
+// The first ports (one 512-thread block per item, 34,816 blocks at the
 // serving shape) also zeroed all dpc words per item, and each thread's
 // posting loop was a chain of dependent global loads (term, then doc and
 // impact, then the atomic) with nothing in flight across items.
@@ -87,7 +88,11 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <map>
 #include <mutex>
+#include <tuple>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -127,7 +132,8 @@ __device__ __forceinline__ void scatter_add(float* acc, float v) {
   if (old != 0) atomicAdd(acc, __int_as_float(old));
 }
 
-// Zero the block's dpc-float shared-memory accumulator (dpc % 4 == 0).
+// Zero the block's dpc-float shared-memory accumulator (dpc % 4 == 0): once
+// per CTA, as the bin pass clears what it reads.
 __device__ __forceinline__ void zero_acc(float* acc, int dpc) {
   for (int i = threadIdx.x * 4; i < dpc; i += kThreads * 4)
     *reinterpret_cast<float4*>(acc + i) = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -143,9 +149,9 @@ __device__ __forceinline__ float pack(float best, unsigned off) {
 // The bin pass over a finished accumulator: score = acc > 0 ? acc : -inf,
 // dst[b] = max_{s < 16} score[s * dpc/16 + b] with the lowest s of a tie
 // packed into the 4 low mantissa bits; a -inf maximum stays -inf.  Each
-// thread takes 4 neighbouring bins (dst 16-byte aligned); with `clear` it
-// zeroes each word after reading it.
-__device__ __forceinline__ void bin_pack_store(float* acc, float* dst, int dpc, bool clear) {
+// thread takes 4 neighbouring bins (dst 16-byte aligned) and zeroes each
+// word after reading it, so the accumulator is clear for the next item.
+__device__ __forceinline__ void bin_pack_store(float* acc, float* dst, int dpc) {
   const int lanes = dpc / kBin;
   for (int b = threadIdx.x * 4; b < lanes; b += kThreads * 4) {
     float best[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // only a word > 0 counts
@@ -154,7 +160,7 @@ __device__ __forceinline__ void bin_pack_store(float* acc, float* dst, int dpc, 
     for (int s = 0; s < kBin; ++s) {
       float4* p = reinterpret_cast<float4*>(acc + s * lanes + b);
       const float4 x4 = *p;
-      if (clear) *p = make_float4(0.f, 0.f, 0.f, 0.f);
+      *p = make_float4(0.f, 0.f, 0.f, 0.f);
       const float x[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -292,7 +298,7 @@ scatter_binmax_kernel(const int* __restrict__ q_terms,       // [nq, kq]
       }
     }
     __syncthreads();
-    bin_pack_store(acc, out + ((size_t)q * c + chunk) * (dpc / kBin), dpc, true);
+    bin_pack_store(acc, out + ((size_t)q * c + chunk) * (dpc / kBin), dpc);
     advance(q, chunk);
   }
   cp_async_wait<0>();
@@ -307,72 +313,231 @@ scatter_binmax_kernel(const int* __restrict__ q_terms,       // [nq, kq]
 //   chunk-major [Q, Cp, W]:        one run of W (q_stride Cp*W, c_stride W);
 //   term-major  [Q, Kq, Cp, capc]: Kq runs of capc at a stride of Cp*capc
 //                                  (q_stride Kq*Cp*capc, c_stride capc).
-// One block per (query, chunk): the accumulator zeroed, one atomicAdd per
-// posting, the bin pass.  What bounds it: the operands themselves, 6 bytes
-// per posting read once from device memory (0.43 GB at the mMARCO probe
-// shape), against K3's 4 bytes per posting of the index rows; docs >= dpc
-// (the sentinel of pad chunks and short lists) drop out.
-__global__ void __launch_bounds__(kThreads)
-scatter_pregathered_kernel(const int* __restrict__ docs,             // see above
-                           const __nv_bfloat16* __restrict__ vals,   // same layout
-                           float* __restrict__ out,                  // [nq, cp * dpc / 16]
-                           int cp, int n_runs, int run_len, long long q_stride,
-                           long long c_stride, long long t_stride, int dpc) {
-  extern __shared__ __align__(16) float pg_acc[];  // [dpc]
-  const int chunk = blockIdx.x;
-  const int q = blockIdx.y;
+struct RunArgs {
+  const int* docs;
+  const __nv_bfloat16* vals;
+  long long q_stride, c_stride, t_stride;
+  int n_runs, run_len;
+};
 
-  zero_acc(pg_acc, dpc);
-  __syncthreads();
-
-  const long long base = q * q_stride + chunk * c_stride;
-  const int width = n_runs * run_len;
-  for (int e = threadIdx.x; e < width; e += kThreads) {
-    const int t = e / run_len, j = e - t * run_len;
-    const long long p = base + t * t_stride + j;
-    const unsigned d = (unsigned)docs[p];
-    if (d < (unsigned)dpc) atomicAdd(pg_acc + d, __bfloat162float(vals[p]));
-  }
-  __syncthreads();
-
-  bin_pack_store(pg_acc, out + ((size_t)q * cp + chunk) * (dpc / kBin), dpc, false);
+// A run is staged as the 16-byte-aligned span around it (bulk copies move
+// whole aligned 16-byte words): its docs where run_len % 4 != 0 and its
+// values where run_len % 8 != 0 may start inside a word, and then take one
+// word more.  Slot bytes of one run's docs and of its values:
+__host__ __device__ inline int doc_slot(int len) { return ((4 * len + 15) & ~15) + (len % 4 ? 16 : 0); }
+__host__ __device__ inline int val_slot(int len) { return ((2 * len + 15) & ~15) + (len % 8 ? 16 : 0); }
+// accumulator, then per ring slot: the item's doc spans and value spans,
+// its mbarrier, and its runs' (doc, value) offsets in their spans
+size_t runs_smem(const RunArgs& a, int dpc, int depth) {
+  const int item = a.n_runs * (doc_slot(a.run_len) + val_slot(a.run_len));
+  return (size_t)dpc * 4 + (size_t)depth * (item + 8 + 2 * a.n_runs);
 }
 
-template <int kDepth>
-int launch_binmax(const void* q_terms, const void* q_weights, const void* post_doc,
-                  const void* post_imp, void* out, int nq, int kq, int vp1, int c, int capc,
-                  int dpc, cudaStream_t stream) {
-  auto kernel = scatter_binmax_kernel<kDepth>;
-  const size_t smem = k3_smem(kq, capc, dpc, kDepth);
-  // the shared-memory attribute and the resident blocks, set and read once
-  // per device and size: the queries cost as much host time as the launch
+// P4 and P5 on K3's design (scatter_binmax_kernel above): persistent CTAs
+// over contiguous (query, chunk) ranges, a ring of kDepth item slots filled
+// kDepth - 1 items ahead, the accumulator zeroed once and cleared by the
+// bin pass (two barriers per item), postings landed by scatter_add, no
+// division in any loop.  What differs is the staging and the posting loop:
+//   * Staging by what the item is.  An item that is one run (chunk-major:
+//     W docs, then W values, each contiguous) goes as two 1-D bulk copies
+//     (cp.async.bulk, kBulk) of the runs' aligned spans, issued by two lanes
+//     of warp 0 and completing on the slot's mbarrier: the copy engine
+//     walks the 12 KB, where 768 16-byte cp.async copies an item cost every
+//     thread instructions.  An item of many short runs (term-major: Kq runs
+//     of capc, 128 + 64 bytes at capc 32) goes as K3's rows do, 16-byte
+//     cp.async copies of each run's span by all threads, one commit group
+//     per item: one bulk copy per run measured twice as slow there.  Both
+//     measured with tools/scatter_ab.py (PERF.md).
+//   * Each thread lands a group of 4 postings per step: one 16-byte read of
+//     docs and one 8-byte read of values from the slot.  A group is a
+//     16-byte word of the doc span, so a run that starts or ends inside a
+//     word leaves lanes outside it, which drop out; the group's values sit
+//     at an 8-byte boundary of the value span whatever the run's offset
+//     (both spans start at a multiple of 4 postings).
+// What bounds it: device memory is the floor -- 6 bytes a posting read once
+// and the packed bins written, 0.170 ms at the probe shape, against K3's 4
+// bytes a posting -- but as for K3 the per-item shared-memory work (the
+// scatter and the bin pass) costs more.
+template <int kDepth, bool kBulk>
+__global__ void __launch_bounds__(kThreads, 2)
+scatter_runs_kernel(const RunArgs a,
+                    float* __restrict__ out,  // [nq, c * dpc / 16]
+                    int nq, int c, int dpc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* acc = reinterpret_cast<float*>(smem);  // [dpc]
+  unsigned char* ring = smem + (size_t)dpc * 4;  // kDepth x item slots
+  const int dslot = doc_slot(a.run_len), vslot = val_slot(a.run_len);
+  const int ibytes = a.n_runs * (dslot + vslot);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kDepth * ibytes);  // [kDepth] (kBulk)
+  unsigned char* s_off = reinterpret_cast<unsigned char*>(bars + kDepth);  // [kDepth][n_runs][2]
+  const int tid = threadIdx.x, lane = tid % 32;
+  const bool aligned = a.run_len % 8 == 0;  // every span offset is 0
+  // 4-posting groups per run (16-byte words of a doc slot); this thread's
+  // first group (t, g) and its advance per kThreads
+  const int groups = dslot / 16;
+  const int gt0 = tid / groups, gg0 = tid % groups, gdt = kThreads / groups, gdg = kThreads % groups;
+  // without kBulk: this thread's first 16-byte copy (t, r) of an item (r
+  // counts the run's doc words, then its value words) and its advance
+  const int dwords = dslot / 16, rwords = dwords + vslot / 16;
+  const int ct0 = tid / rwords, cr0 = tid % rwords, cdt = kThreads / rwords, cdr = kThreads % rwords;
+
+  // this CTA's items: a contiguous range in (query, chunk) order; positions
+  // advance by additions, not divisions
+  const long long items = (long long)nq * c;
+  const long long first = items * blockIdx.x / gridDim.x;
+  const int steps = (int)(items * (blockIdx.x + 1) / gridDim.x - first);
+  auto advance = [&](int& q, int& chunk) {
+    if (++chunk == c) {
+      chunk = 0;
+      ++q;
+    }
+  };
+
+  // copy i of an item's 2 * n_runs: run i / 2's docs (i even) or values
+  // (i odd) from `base`, the item's first posting.  Returns the bytes of its
+  // aligned span, whose start and the run's offset in it go to s16 and off.
+  auto span = [&](int i, long long base, uintptr_t& s16, uint32_t& off) -> uint32_t {
+    const long long p = base + (i >> 1) * a.t_stride;
+    const uintptr_t start = i & 1 ? reinterpret_cast<uintptr_t>(a.vals + p)
+                                  : reinterpret_cast<uintptr_t>(a.docs + p);
+    s16 = start & ~(uintptr_t)15;
+    off = (uint32_t)(start - s16);
+    return (off + (i & 1 ? 2u : 4u) * a.run_len + 15) & ~15u;
+  };
+  // the next unstaged step's item into its slot.  kBulk: warp 0 issues the
+  // copies; its lanes sum their spans' bytes first, so the slot's barrier
+  // expects all of them before any copy can complete on it.  Else every
+  // thread issues its 16-byte copies, one commit group per call (empty past
+  // the last step).
+  int pr = 0, pq = (int)(first / c), pc = (int)(first % c);
+  auto stage = [&]() {
+    if (pr < steps) {
+      const int si = pr % kDepth;
+      unsigned char* dst = ring + si * ibytes;
+      unsigned char* offs = s_off + si * a.n_runs * 2;
+      const long long base = pq * a.q_stride + pc * a.c_stride;
+      uintptr_t s16;
+      uint32_t off;
+      if (!kBulk) {
+        int t = ct0, r = cr0;
+        for (int i = tid; i < a.n_runs * rwords; i += kThreads) {
+          const int arr = r >= dwords, k = r - arr * dwords;  // arr 0: docs, 1: values
+          const uint32_t n = span(2 * t + arr, base, s16, off);
+          if (k == 0) offs[2 * t + arr] = (unsigned char)off;
+          if (16u * k < n)
+            cp_async16(dst + (arr ? a.n_runs * dslot + t * vslot : t * dslot) + 16 * k,
+                       reinterpret_cast<const void*>(s16 + 16 * k));
+          t += cdt;
+          r += cdr;
+          if (r >= rwords) {
+            r -= rwords;
+            ++t;
+          }
+        }
+      } else if (tid < 32) {
+        uint32_t bytes = 0;
+        for (int i = lane; i < 2 * a.n_runs; i += 32) {
+          bytes += span(i, base, s16, off);
+          offs[i] = (unsigned char)off;
+        }
+        bytes = __reduce_add_sync(0xffffffffu, bytes);
+        if (lane == 0) hopper::mbar_arrive_expect_tx(&bars[si], bytes);
+        __syncwarp();
+        hopper::fence_proxy_async();  // the slot's earlier reads before the copies' writes
+        for (int i = lane; i < 2 * a.n_runs; i += 32) {
+          const uint32_t n = span(i, base, s16, off);
+          const int t = i >> 1;
+          hopper::bulk_load_1d(dst + (i & 1 ? a.n_runs * dslot + t * vslot : t * dslot),
+                               reinterpret_cast<const void*>(s16), n, &bars[si]);
+        }
+      }
+      advance(pq, pc);
+    }
+    ++pr;
+    if (!kBulk) cp_async_commit();
+  };
+
+  if (kBulk && tid == 0) {
+    for (int k = 0; k < kDepth; ++k) hopper::mbar_init(&bars[k], 1);
+    hopper::fence_barrier_init();
+  }
+  zero_acc(acc, dpc);
+  __syncthreads();
+  for (int k = 0; k < kDepth - 1; ++k) stage();
+  int q = (int)(first / c), chunk = (int)(first % c);
+  for (int step = 0; step < steps; ++step) {
+    const int si = step % kDepth;
+    // this step's spans have landed (kBulk), or this thread's copies of them
+    if (kBulk)
+      hopper::mbar_wait(&bars[si], (step / kDepth) & 1);
+    else
+      cp_async_wait<kDepth - 2>();
+    // the previous step's bin pass has cleared the accumulator and its
+    // scatter left its slot, which takes the item kDepth - 1 ahead
+    __syncthreads();
+    stage();
+
+    const unsigned char* st = ring + si * ibytes;
+    const unsigned char* vst = st + a.n_runs * dslot;
+    const unsigned char* offs = s_off + si * a.n_runs * 2;
+    int t = gt0, g = gg0;
+    for (int e = tid; e < a.n_runs * groups; e += kThreads) {
+      const int od = aligned ? 0 : offs[2 * t], ov = aligned ? 0 : offs[2 * t + 1];
+      const int i0 = 4 * g - od / 4;  // the run's posting in the group's first lane
+      if (i0 < a.run_len) {
+        const int4 d4 = *reinterpret_cast<const int4*>(st + t * dslot + 16 * g);
+        const uint2 v2 = *reinterpret_cast<const uint2*>(vst + t * vslot + ov - od / 2 + 8 * g);
+        const unsigned d[4] = {(unsigned)d4.x, (unsigned)d4.y, (unsigned)d4.z, (unsigned)d4.w};
+        const float v[4] = {__uint_as_float(v2.x << 16), __uint_as_float(v2.x & 0xFFFF0000u),
+                            __uint_as_float(v2.y << 16), __uint_as_float(v2.y & 0xFFFF0000u)};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (d[k] < (unsigned)dpc && i0 + k >= 0 && i0 + k < a.run_len) scatter_add(acc + d[k], v[k]);
+      }
+      t += gdt;
+      g += gdg;
+      if (g >= groups) {
+        g -= groups;
+        ++t;
+      }
+    }
+    __syncthreads();
+    bin_pack_store(acc, out + ((size_t)q * c + chunk) * (dpc / kBin), dpc);
+    advance(q, chunk);
+  }
+  if (!kBulk) cp_async_wait<0>();
+}
+
+// Launches `kernel` persistently: as many CTAs as fit the card at `smem`
+// bytes, at most one per item.  The shared-memory limit is raised once per
+// kernel and device to the largest size asked for (never lowered: another
+// size's launch may follow), and the resident-block count is read once per
+// kernel, device and size: the queries cost as much host time as the launch.
+template <typename... P, typename... A>
+int launch_persistent(void (*kernel)(P...), size_t smem, long long items, cudaStream_t stream,
+                      A... args) {
   static std::mutex lock;
-  static int known_dev = -1;
-  static size_t known_smem = 0;
-  static long long known_blocks = 0;
+  static std::map<std::tuple<const void*, int, size_t>, long long> resident;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = hopper::raise_smem_limit(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   long long blocks;
   {
     std::lock_guard<std::mutex> guard(lock);
-    if (dev != known_dev || smem != known_smem) {
+    const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), dev, smem);
+    auto it = resident.find(key);
+    if (it == resident.end()) {
       int sms = 0, per_sm = 0;
-      if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess ||
-          (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
           (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) != cudaSuccess)
         return (int)err;
-      known_dev = dev;
-      known_smem = smem;
-      known_blocks = (long long)sms * std::max(per_sm, 1);
+      it = resident.emplace(key, (long long)sms * std::max(per_sm, 1)).first;
     }
-    blocks = known_blocks;
+    blocks = it->second;
   }
-  const int grid = (int)std::min((long long)nq * c, blocks);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const int*>(q_terms), static_cast<const float*>(q_weights),
-      static_cast<const uint16_t*>(post_doc), static_cast<const __half*>(post_imp),
-      static_cast<float*>(out), nq, kq, vp1, c, capc, dpc);
+  const int grid = (int)std::min(items, blocks);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -392,40 +557,44 @@ extern "C" int scatter_binmax(const void* q_terms, const void* q_weights, const 
       vp1 < 1 ||
       (reinterpret_cast<uintptr_t>(post_doc) | reinterpret_cast<uintptr_t>(post_imp)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ring_depth(kq, capc, dpc)) {
-    case 3:
-      return launch_binmax<3>(q_terms, q_weights, post_doc, post_imp, out, nq, kq, vp1, c, capc, dpc, s);
-    case 2:
-      return launch_binmax<2>(q_terms, q_weights, post_doc, post_imp, out, nq, kq, vp1, c, capc, dpc, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int depth = ring_depth(kq, capc, dpc);
+  if (depth == 0) return (int)cudaErrorInvalidValue;
+  auto kernel = depth == 3 ? scatter_binmax_kernel<3> : scatter_binmax_kernel<2>;
+  return launch_persistent(kernel, k3_smem(kq, capc, dpc, depth), (long long)nq * c,
+                           static_cast<cudaStream_t>(stream), static_cast<const int*>(q_terms),
+                           static_cast<const float*>(q_weights), static_cast<const uint16_t*>(post_doc),
+                           static_cast<const __half*>(post_imp), static_cast<float*>(out), nq, kq, vp1,
+                           c, capc, dpc);
 }
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// docs: int32, vals: bf16, both contiguous [nq, cp, kq * capc] (layout 0,
-// chunk-major) or [nq, kq, cp, capc] (layout 1, term-major); out:
-// [nq, cp * dpc / 16] f32.  Requires dpc = 128 * H with H a multiple of 16
-// in [16, 128].
+// docs: int32, vals: bf16, both contiguous and 16-byte aligned,
+// [nq, cp, kq * capc] (layout 0, chunk-major) or [nq, kq, cp, capc]
+// (layout 1, term-major); out: [nq, cp * dpc / 16] f32.  Requires
+// dpc = 128 * H with H a multiple of 16 in [16, 128], and two ring slots of
+// one item beside the accumulator
+// (ops/scatter_score.py::pregathered_smem_bytes mirrors the sizes).
 extern "C" int scatter_pregathered(const void* docs, const void* vals, void* out, int nq, int cp,
                                    int kq, int capc, int dpc, int layout, void* stream) {
-  if (dpc % 2048 != 0 || dpc < 2048 || dpc > 16384 || nq < 1 || nq > 65535 || cp < 1 ||
-      kq < 1 || capc < 1 || (layout != 0 && layout != 1))
-    return (int)cudaErrorInvalidValue;
   const long long w = (long long)kq * capc;
-  const long long q_stride = (long long)cp * w;
-  const long long c_stride = layout == 0 ? w : capc;
-  const long long t_stride = layout == 0 ? capc : (long long)cp * capc;
-  const size_t smem = (size_t)dpc * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scatter_pregathered_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(cp, nq);
-  scatter_pregathered_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(docs), static_cast<const __nv_bfloat16*>(vals),
-      static_cast<float*>(out), cp, kq, capc, q_stride, c_stride, t_stride, dpc);
-  return (int)cudaGetLastError();
+  if (dpc % 2048 != 0 || dpc < 2048 || dpc > 16384 || nq < 1 || cp < 1 || kq < 1 || capc < 1 ||
+      w > (1 << 20) || (layout != 0 && layout != 1) ||
+      (reinterpret_cast<uintptr_t>(docs) | reinterpret_cast<uintptr_t>(vals)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const RunArgs a{static_cast<const int*>(docs), static_cast<const __nv_bfloat16*>(vals),
+                  (long long)cp * w,                       // q_stride
+                  layout == 0 ? w : capc,                  // c_stride
+                  layout == 0 ? w : (long long)cp * capc,  // t_stride
+                  layout == 0 ? 1 : kq,                    // n_runs
+                  layout == 0 ? (int)w : capc};            // run_len
+  // ring slots: 3 where two blocks still fit an SM, else 2; an item of one
+  // run is staged by bulk copies
+  const int depth = runs_smem(a, dpc, 3) <= kSmPerTwo ? 3 : runs_smem(a, dpc, 2) <= kMaxSmem ? 2 : 0;
+  if (depth == 0) return (int)cudaErrorInvalidValue;
+  auto kernel = a.n_runs == 1 ? (depth == 3 ? scatter_runs_kernel<3, true> : scatter_runs_kernel<2, true>)
+                              : (depth == 3 ? scatter_runs_kernel<3, false> : scatter_runs_kernel<2, false>);
+  return launch_persistent(kernel, runs_smem(a, dpc, depth), (long long)nq * cp,
+                           static_cast<cudaStream_t>(stream), a, static_cast<float*>(out), nq, cp, dpc);
 }
 
 extern "C" const char* scatter_binmax_error_string(int err) {

@@ -23,10 +23,12 @@ and one stable top-k over all bins picks the result.
     ``[Q, Cp, Kq·capc]`` (``_gather_postings``; the TPU's
     ``scripts/probe_scatter_kernel.py::_b3d_kernel``) or term-major
     ``[Q, Kq, Cp, capc]`` (``gather_postings_term_major``;
-    ``scripts/probe_scatter_layout.py::_kernel_nt``), one kernel with a
-    layout parameter (``.launches`` counts chunk-major launches,
-    ``.term_major_launches`` term-major ones); ``pregathered_search`` is the
-    search over them.
+    ``scripts/probe_scatter_layout.py::_kernel_nt``), one kernel on K3's
+    persistent design with a layout parameter, staging a chunk-major item by
+    bulk copies and a term-major one by 16-byte copies
+    (``pregathered_smem_bytes`` mirrors its shared-memory sizes;
+    ``.launches`` counts chunk-major launches, ``.term_major_launches``
+    term-major ones); ``pregathered_search`` is the search over them.
 
 Trades, as in the JAX package: postings accumulate bf16 values in f32;
 two true top-k docs sharing a 16-doc bin drop the weaker; packed scores lose
@@ -160,13 +162,40 @@ def scatter_smem_bytes(kq: int, capc: int, docs_per_chunk: int) -> tuple[int, in
     still fit an SM, else 2; 0 slots (with the bytes of 2) where not even
     one block fits."""
     item = 2 * kq * scatter_row_slot(capc)
+    return _ring(lambda depth: 4 * docs_per_chunk + depth * (item + kq) + 4 * kq)
 
-    def size(depth: int) -> int:
-        return 4 * docs_per_chunk + depth * (item + kq) + 4 * kq
 
+def _ring(size) -> tuple[int, int]:
+    """(ring slots, bytes) by the kernels' rule: 3 slots where two blocks
+    still fit an SM, else 2; 0 slots (with the bytes of 2) where not even
+    one block fits."""
     if size(3) <= SMEM_PER_TWO_BLOCKS:
         return 3, size(3)
     return (2 if size(2) <= MAX_SMEM else 0), size(2)
+
+
+def pregathered_smem_bytes(kq: int, capc: int, docs_per_chunk: int, layout: str) -> tuple[int, int]:
+    """(ring slots, shared-memory bytes) of one block of the pre-gathered
+    kernel (``csrc/scatter_score.cu``, ``scatter_runs_kernel``, mirrored):
+    the ``docs_per_chunk``-float accumulator and ring slots of one
+    (query, chunk) item — the spans of its runs' int32 docs, then of their
+    bf16 values (one run of ``Kq·capc`` chunk-major, ``Kq`` runs of ``capc``
+    term-major; ``pregathered_run_slots``), the slot's 8-byte mbarrier and
+    two offset bytes per run.  Slots as ``scatter_smem_bytes``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    runs, length = (1, kq * capc) if layout == "chunk_major" else (kq, capc)
+    doc, val = pregathered_run_slots(length)
+    return _ring(lambda depth: 4 * docs_per_chunk + depth * (runs * (doc + val) + 8 + 2 * runs))
+
+
+def pregathered_run_slots(length: int) -> tuple[int, int]:
+    """Slot bytes of one run's int32 docs and of its bf16 values: each is
+    staged as the 16-byte-aligned span around it, rounded up to 16 bytes,
+    plus 16 where the run may start inside a 16-byte word (docs where
+    ``length % 4``, values where ``length % 8``)."""
+    return (-(-4 * length // 16) * 16 + (16 if length % 4 else 0),
+            -(-2 * length // 16) * 16 + (16 if length % 8 else 0))
 
 
 @functools.cache
@@ -314,11 +343,9 @@ def scatter_pregathered_cuda(
     """The Hopper kernel (``csrc/scatter_score.cu``, ``scatter_pregathered``):
     int32 docs and bf16 values, chunk-major [Q, Cp, W] or term-major
     [Q, Kq, Cp, capc] → f32 [Q, Cp·dpc/16] packed bin maxima, on the current
-    stream."""
-    if not (docs.is_cuda and vals.is_cuda) or docs.device != vals.device:
-        raise ValueError("scatter_pregathered_cuda needs both tensors on one CUDA device")
-    if docs.dtype != torch.int32 or vals.dtype != torch.bfloat16:
-        raise TypeError(f"scatter_pregathered_cuda takes int32 docs and bf16 values, got {docs.dtype}, {vals.dtype}")
+    stream.  A layout whose item does not fit one block's shared memory
+    twice over (``pregathered_smem_bytes``) is refused before anything is
+    built or launched."""
     h = _plan(docs_per_chunk)
     if layout == "chunk_major" and docs.dim() == 3:
         q, c_pad, w = docs.shape
@@ -327,8 +354,20 @@ def scatter_pregathered_cuda(
         q, kq, c_pad, capc = docs.shape
     else:
         raise ValueError(f"layout {layout!r} (one of {LAYOUTS}) does not fit docs of shape {tuple(docs.shape)}")
+    depth, smem = pregathered_smem_bytes(kq, capc, docs_per_chunk, layout)
+    if depth == 0:
+        raise ValueError(
+            f"{kq * capc} postings per item ({layout}): two staging slots beside the "
+            f"{docs_per_chunk}-doc accumulator need {smem} bytes of shared memory (at most {MAX_SMEM})"
+        )
+    if not (docs.is_cuda and vals.is_cuda) or docs.device != vals.device:
+        raise ValueError("scatter_pregathered_cuda needs both tensors on one CUDA device")
+    if docs.dtype != torch.int32 or vals.dtype != torch.bfloat16:
+        raise TypeError(f"scatter_pregathered_cuda takes int32 docs and bf16 values, got {docs.dtype}, {vals.dtype}")
     if vals.shape != docs.shape or not (docs.is_contiguous() and vals.is_contiguous()):
         raise ValueError("scatter_pregathered_cuda needs contiguous docs and values of one shape")
+    if (docs.data_ptr() | vals.data_ptr()) % 16:
+        raise ValueError("scatter_pregathered_cuda needs 16-byte aligned docs and values")
     out = torch.empty((q, c_pad * docs_per_chunk // BIN), dtype=torch.float32, device=docs.device)
     if q == 0 or c_pad == 0 or kq * capc == 0:
         return out.fill_(-torch.inf)

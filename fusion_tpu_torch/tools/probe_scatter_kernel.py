@@ -15,9 +15,9 @@ the probe times
   * ``select_topk``: the stable top-1000 over the packed bins.
 
 The script's chunk-block sweeps (``cb`` 2–32) are grid sizes of the TPU
-kernels, which carry the chunk axis through VMEM in blocks; on Hopper one
-thread block owns one (query, chunk), so there is no such parameter and no
-sweep is reported.  Times are device times (``bench_maxsim.device_ms``).
+kernels, which carry the chunk axis through VMEM in blocks; on Hopper
+persistent thread blocks walk the (query, chunk) items, so there is no such
+parameter and no sweep is reported.  Times are device times (``bench_maxsim.device_ms``).
 
 Run on the card (one JSON line, under the script's metric name):
     python -m fusion_tpu_torch.tools.probe_scatter_kernel
@@ -49,7 +49,7 @@ def run(n_docs: int = 8_912_896, batch: int = 64, vocab: int = 32_768, kq: int =
     q, c_pad, w = docs.shape
     report = {"n_docs": n_docs, "batch": batch, "vocab": vocab, "kq": kq, "docs_per_chunk": docs_per_chunk,
               "capc": capc, "chunks": index.post_doc.shape[1], "pregathered": [q, c_pad, w], "runs": runs,
-              "chunk_block": "none on Hopper: one thread block per (query, chunk)",
+              "chunk_block": "none on Hopper: persistent thread blocks walk the (query, chunk) items",
               "device": torch.cuda.get_device_name(0)}
     got = scatter_score.scatter_pregathered_cuda(docs, vals, docs_per_chunk)
     want = scatter_score.scatter_pregathered_plain(docs, vals, docs_per_chunk)

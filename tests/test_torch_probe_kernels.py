@@ -18,7 +18,12 @@ package and the probe scripts' own TPU kernels.
     order), within rtol 1e-6 with equal offsets on random postings.
   * P4 (term-major, ``_kernel_nt``'s function): bit-equal to P5 on the
     transposed operands, and its search equal to JAX's reference scatter
-    search on the same index (scores bit-exact, ids up to exact ties)."""
+    search on the same index (scores bit-exact, ids up to exact ties).
+  * The Hopper kernel's arithmetic that the CPU can reach: its
+    shared-memory sizes (``pregathered_smem_bytes``) and the refusal of a
+    layout that does not fit, its staging and posting loop emulated in
+    numpy on every item of small operands, and the persistent CTAs' item
+    partition; and the variant specs of ``tools/scatter_ab.py``."""
 
 import importlib.util
 import os
@@ -36,6 +41,7 @@ from fusion_tpu.ops import dense_topk as jax_topk
 from fusion_tpu.ops import scatter_score as jax_scatter
 from fusion_tpu_torch.index import dense_quant, inverted
 from fusion_tpu_torch.ops import _kernels, dense_topk, scatter_score
+from fusion_tpu_torch.tools import scatter_ab
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -249,3 +255,159 @@ def test_cpu_tensors_never_reach_the_probe_kernels(rng):
         scatter_score.scatter_pregathered_cuda(docs, vals, 2048, "term_major")
     with pytest.raises(ValueError, match="layout"):
         scatter_score.scatter_pregathered_plain(docs, vals, 2048, "diagonal")
+
+
+@pytest.mark.parametrize(
+    "kq, capc, dpc, layout, depth, nbytes",
+    [(64, 32, 16384, "chunk_major", 3, 102_430), (64, 32, 16384, "term_major", 3, 102_808),
+     (64, 128, 2048, "chunk_major", 2, 106_516), (64, 128, 2048, "term_major", 2, 106_768),
+     (64, 74, 2048, "term_major", 3, 103_832), (7, 13, 2048, "term_major", 3, 10_946),
+     (64, 512, 16384, "chunk_major", 0, 458_772), (64, 512, 16384, "term_major", 0, 459_024)],
+)
+def test_pregathered_staging_fits_two_blocks_at_the_probe_layout(kq, capc, dpc, layout, depth, nbytes):
+    """``pregathered_smem_bytes`` mirrors csrc/scatter_score.cu's
+    ``runs_smem``: three ring slots at the probe layout (Kq 64 x capc 32 at
+    dpc 16,384, 12 KB an item) and at unaligned rows (capc 74, 13), two at
+    the widest (Kq·capc 8,192, 48 KB an item: two blocks still fit an SM),
+    none past one block's 227 KB, where the wrapper refuses the layout
+    before anything is built."""
+    assert scatter_score.pregathered_smem_bytes(kq, capc, dpc, layout) == (depth, nbytes)
+    if depth == 3:
+        assert nbytes <= scatter_score.SMEM_PER_TWO_BLOCKS
+    elif depth == 2:  # a third slot would not leave room for a second block
+        assert nbytes <= scatter_score.SMEM_PER_TWO_BLOCKS < nbytes + (nbytes - 4 * dpc) // 2
+    else:
+        assert nbytes > scatter_score.MAX_SMEM
+        shape = (1, 1, kq * capc) if layout == "chunk_major" else (1, kq, 1, capc)
+        docs = torch.zeros(shape, dtype=torch.int32)
+        with pytest.raises(ValueError, match="shared memory"):
+            scatter_score.scatter_pregathered_cuda(docs, docs.to(torch.bfloat16), dpc, layout)
+        assert _kernels.load.cache_info().currsize == 0  # nothing was built
+
+
+def _item_geometry(shape, layout):
+    """(runs, run length, q_stride, c_stride, t_stride) of an item, as
+    ``scatter_pregathered`` passes them to the kernel."""
+    if layout == "chunk_major":
+        _, cp, w = shape
+        return 1, w, cp * w, w, w
+    _, kq, cp, capc = shape
+    return kq, capc, kq * cp * capc, capc, cp * capc
+
+
+def _stage_and_read(docs, vals, layout, q, c, bulk):
+    """numpy emulation of ``scatter_runs_kernel`` on item (q, c): its copies
+    into a ring slot (bulk: one copy of each run's 16-byte-aligned span;
+    else the span's 16-byte words), then its posting loop's reads (a
+    16-byte word of docs and the 8 bytes of values beside it per group of 4
+    postings).  Addresses count bytes from the arrays' 16-byte-aligned
+    starts.  Returns the (doc, value-bits) postings read, [runs, length]."""
+    mem = (docs.numpy().tobytes(), vals.view(torch.int16).numpy().tobytes())
+    runs, length, q_stride, c_stride, t_stride = _item_geometry(docs.shape, layout)
+    dslot, vslot = scatter_score.pregathered_run_slots(length)
+    slot = np.zeros(runs * (dslot + vslot), np.uint8)
+    copied = np.zeros(slot.size, bool)
+    offs = np.zeros((runs, 2), np.int64)
+    base = q * q_stride + c * c_stride
+    for i in range(2 * runs):
+        t, arr = i >> 1, i & 1
+        eb, room = (2, vslot) if arr else (4, dslot)
+        start = eb * (base + t * t_stride)
+        s16 = start - start % 16
+        offs[t, arr] = start - s16
+        n = -(-(offs[t, arr] + eb * length) // 16) * 16  # the span's bytes
+        dst = runs * dslot + t * vslot if arr else t * dslot
+        words = [(s16, dst, n)] if bulk else [(s16 + 16 * k, dst + 16 * k, 16) for k in range(room // 16) if 16 * k < n]
+        for src, at, nb in words:
+            assert src % 16 == at % 16 == nb % 16 == 0 and dst <= at and at + nb <= dst + room
+            # the last word may run past the array's end, never past its 16-byte word
+            assert src + nb <= -(-len(mem[arr]) // 16) * 16
+            got = np.frombuffer(mem[arr][src : src + nb], np.uint8)
+            slot[at : at + got.size] = got
+            copied[at : at + nb] = True
+    if length % 8 == 0:
+        assert not offs.any()  # the kernel reads no offsets then
+    got_d = np.zeros((runs, length), np.int32)
+    got_v = np.zeros((runs, length), np.uint16)
+    seen = np.zeros((runs, length), np.int64)
+    for t in range(runs):
+        od, ov = offs[t]
+        for g in range(dslot // 16):
+            i0 = 4 * g - od // 4  # the run's posting in the group's first lane
+            if i0 >= length:
+                continue
+            dpos = t * dslot + 16 * g
+            vpos = runs * dslot + t * vslot + ov - od // 2 + 8 * g
+            assert vpos % 8 == 0 and vpos + 8 <= runs * dslot + (t + 1) * vslot
+            d4, v4 = slot[dpos : dpos + 16].view(np.int32), slot[vpos : vpos + 8].view(np.uint16)
+            for k in range(4):
+                if 0 <= i0 + k < length:
+                    assert copied[dpos + 4 * k : dpos + 4 * k + 4].all()
+                    assert copied[vpos + 2 * k : vpos + 2 * k + 2].all()
+                    got_d[t, i0 + k], got_v[t, i0 + k] = d4[k], v4[k]
+                    seen[t, i0 + k] += 1
+    assert (seen == 1).all()
+    return got_d, got_v
+
+
+@pytest.mark.parametrize("layout", ["chunk_major", "term_major"])
+@pytest.mark.parametrize("capc", [13, 16, 32, 74])
+def test_pregathered_staging_reads_each_items_postings(rng, layout, capc):
+    """The kernel's staging and posting loop, emulated in numpy for every
+    item of small gathered operands, reproduce ``docs[q, c]`` (chunk-major)
+    or ``docs[q, :, c]`` (term-major) and the value bits byte for byte,
+    whether the runs go as bulk copies or as 16-byte copies: capc 13 and 74
+    start runs inside 16-byte words, capc 16 and 32 on their boundaries."""
+    vocab, c, kq = 40, 3, 3
+    post_doc = rng.integers(0, 2048, size=(vocab + 1, c, capc))
+    _, (td, ti) = _chunk_index(post_doc, vocab, 2048, seed=2)
+    terms, weights = _queries(rng, vocab, 2, kq)
+    gather = scatter_score._gather_postings if layout == "chunk_major" else scatter_score.gather_postings_term_major
+    docs, vals = gather(torch.from_numpy(terms), torch.from_numpy(weights), td, ti, 1)
+    vbits = vals.view(torch.int16).numpy().view(np.uint16)
+    for q in range(2):
+        for ci in range(c):
+            want_d = docs.numpy()[q, ci] if layout == "chunk_major" else docs.numpy()[q, :, ci]
+            want_v = vbits[q, ci] if layout == "chunk_major" else vbits[q, :, ci]
+            for bulk in (True, False):
+                got_d, got_v = _stage_and_read(docs, vals, layout, q, ci, bulk)
+                np.testing.assert_array_equal(got_d.reshape(want_d.shape), want_d)
+                np.testing.assert_array_equal(got_v.reshape(want_v.shape), want_v)
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 264])
+@pytest.mark.parametrize("nq, c", [(3, 100), (64, 545)])
+def test_persistent_ctas_cover_each_item_once(blocks, nq, c):
+    """The persistent kernels' item partition (grid = min(items, resident
+    blocks); CTA b takes items [items·b/grid, items·(b+1)/grid) and walks
+    them by (query, chunk) additions) covers every (query, chunk) exactly
+    once, at item counts no grid size here divides."""
+    items = nq * c
+    grid = min(items, blocks)
+    assert grid == 1 or items % grid
+    seen = np.zeros((nq, c), np.int64)
+    for b in range(grid):
+        first = items * b // grid
+        steps = items * (b + 1) // grid - first
+        assert steps >= 1
+        q, chunk = first // c, first % c
+        for _ in range(steps):
+            seen[q, chunk] += 1
+            chunk += 1
+            if chunk == c:
+                chunk, q = 0, q + 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize(
+    "spec, want",
+    [("old=_scratch/old.cu", ("old", "_scratch/old.cu", [])),
+     ("split=a.cu:NO_POST,FORCE_BULK", ("split", "a.cu", ["-DNO_POST", "-DFORCE_BULK"]))],
+)
+def test_scatter_ab_variant_specs(spec, want):
+    """``tools/scatter_ab.py``'s variants: NAME=PATH[:MACRO,...]; a spec
+    without a name or a path is refused before anything is built."""
+    assert scatter_ab.parse_variant(spec) == want
+    for bad in ("old.cu", "=old.cu", "old="):
+        with pytest.raises(ValueError, match="NAME=PATH"):
+            scatter_ab.parse_variant(bad)
