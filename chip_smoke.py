@@ -145,13 +145,52 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 f32 forward of the same weights, each
                 stage's time, the packed plan's row fill, analytic FLOPs
                 and the rate reached; warm timing and peak memory of each;
+     checkpoint — the four full-width models (DPR, SPLADE, ColBERT, the
+                cross-encoder) saved in the JAX package's checkpoint format
+                and loaded back in bf16: query encodings (192 queries) and
+                logits bit-equal to the originals'; seconds and bytes each;
+     persist  — the slice with the cross-encoder's doc tokens saved with
+                save_indexes to a temporary directory and reloaded into a
+                fresh HybridSearcher: every reloaded array equals the
+                in-memory one after the format's own f16 rounding (the bf16
+                corpus matrices and token index are stored as f16); the
+                reloaded searcher's per-leg and fused (reranked) lists over
+                the 192 queries are bit-equal to those of the in-memory
+                searcher with that rounding applied, and against the
+                in-memory searcher itself bit-equal for a leg whose arrays
+                all round-trip exactly, else a top-100 overlap >= 0.99; the
+                reloaded searcher launches each kernel as often as the
+                in-memory one (K1); save and load seconds and bytes on disk
+                per component;
+     server   — a SearchServer (127.0.0.1, port 0, max_batch 64) over the
+                reloaded slice without the rerank stage: 192 single-query
+                POSTs from 32 client threads (in a process of their own), 3
+                POSTs of 64 queries, one
+                malformed body (HTTP 400); every answer equals the direct
+                search's top-10 ids with scores within 1e-5; fewer batches
+                than requests; requests/s, p50 / p99 request ms, batches and
+                mean batch ms;
+     cli      — fusion_tpu_torch.cli.main in process on a fixture JSON of the
+                slice's 27,940 docs and 192 dev questions (the zipf words
+                spelled in consonants, which the CLI's BM25 preprocessing
+                keeps as they are), the [checkpoint] models as --*_path:
+                serve --task build and serve --task search with all four
+                retrievers and the rerank (K1 once per batch; the ranking
+                TSV has 192 rows of in-range unique ids, top-100 overlap
+                >= 0.99 with the in-memory searcher that the build made),
+                hybrid with percentile-rank NSF over BM25, DPR and ColBERT
+                (K1 launches) and hybrid with BM25 and the rerank; each
+                performance_hybrid.json holds every metric of
+                run_evaluation;
  11. scale_build — HybridSearcher.build(scale_mode=True, int8_corpus=True,
                 dense_impl="fused", splade_impl="scatter") over the same
                 corpus and models, all four legs (impact_cap 1024: at 14
                 chunks of 2048 docs, 64 query terms x the equal-mass
                 per-chunk cap must fit the 8,192-posting layout); search 192
                 queries at batch 64: K1, K2 and K3 each launch; fused output
-                checked; warm timing and peak memory;
+                checked; warm timing and peak memory; then [persist] of it
+                (its int8 corpora, impact indexes and rescore store
+                round-trip exactly; K1, K2 and K3 launch as in memory);
  12. plaid_build — the same build with colbert_compressed=True and
                 colbert_plaid=True (serving defaults: nbits 2, IVF cap 1,024,
                 nprobe 4, ncand 1,024, no prune tier, gather rescore); search
@@ -161,7 +200,12 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 against the same search with the plain maxima (top-100
                 overlap >= 0.99 each) and PLAID against it (overlap
                 reported, not a gate); build time by part (encode, k-means,
-                compression, IVF), warm timing and peak memory;
+                compression, IVF), warm timing and peak memory; then
+                [persist] of it (codes and IVF exact, centroids stored as
+                f16: PLAID's centroid probe is a discrete choice that the
+                rounding moves, so its leg's and the fused lists' overlap
+                with the unrounded searcher is reported, not gated; K2, K3
+                and K4 launch as in memory);
  13. scale_mmarco — the three-leg scale-mode searcher (BM25 impact index, int8
                 DPR, SPLADE scatter + exact rescore) at mMARCO's 8,912,896 docs:
                 the query side is real (tokenizers, the zipf BM25Index, the
@@ -220,6 +264,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1328,6 +1373,369 @@ def synth_mmarco(torch, np, bm25, gen_seed=21, device="cuda", n=MM_DOCS, ch=131_
     return bm25_ii, dense, scatter, store, gb
 
 
+# --- the serving surface: persistence, checkpoints, the CLI, the server ---
+# consonants without s, x or y: words of them pass the BM25 preprocessing
+# unchanged (no vowel for a stemmer or a suffix rule, no stopword)
+_LETTERS = "bcdfghjklmnpqrtvwz"
+
+
+def letter_word(i: int) -> str:
+    """Token ``t<i>`` of the zipf corpus as a word of letters that the
+    CLI's BM25 preprocessing leaves as it is."""
+    out = "x"
+    for _ in range(4):
+        i, r = divmod(i, len(_LETTERS))
+        out += _LETTERS[r]
+    return out
+
+
+def letter_text(text: str) -> str:
+    return " ".join(letter_word(int(t[1:])) for t in text.split())
+
+
+def dir_bytes(path: str) -> dict[str, int]:
+    """Bytes on disk per top-level entry of an index or checkpoint dir."""
+    out = {}
+    for entry in sorted(os.listdir(path)):
+        full = os.path.join(path, entry)
+        if os.path.isdir(full):
+            out[entry] = sum(os.path.getsize(os.path.join(root, f))
+                             for root, _, files in os.walk(full) for f in files)
+        else:
+            out[entry] = os.path.getsize(full)
+    return out
+
+
+def leg_arrays(torch, searcher) -> dict[str, list]:
+    """Per leg, ``(name, tensor, f16_stored)`` of every array the index
+    directory persists (f16_stored: the format rounds it through f16)."""
+    from fusion_tpu_torch.index.dense_quant import QuantizedDenseIndex
+
+    s = searcher
+    legs: dict[str, list] = {}
+    if s.bm25 is not None:
+        b = s.bm25
+        legs["bm25"] = [(n, getattr(b, n), False) for n in ("entry_term", "entry_doc", "entry_tf", "idf", "doc_len")]
+        if s.bm25_impact_index is not None:
+            legs["bm25"] += [("impact_doc", s.bm25_impact_index.post_doc, False),
+                             ("impact_val", s.bm25_impact_index.post_impact, False)]
+    for leg, corpus in (("dpr", s.dense_corpus), ("splade", s.splade_corpus)):
+        if isinstance(corpus, QuantizedDenseIndex):
+            n = (s.dense_n_docs if leg == "dpr" else None) or corpus.values.shape[0]
+            legs[leg] = [("values", corpus.values[:n], False), ("scales", corpus.scales[:n], False)]
+        elif corpus is not None:
+            legs[leg] = [("corpus", corpus, True)]
+    if s.splade_scatter_index is not None:
+        legs["splade"] = [("scatter_doc", s.splade_scatter_index.post_doc, False),
+                          ("scatter_val", s.splade_scatter_index.post_impact, False)]
+    if s.splade_impact_index is not None:
+        legs["splade"] = [("impact_doc", s.splade_impact_index.post_doc, False),
+                          ("impact_val", s.splade_impact_index.post_impact, False)]
+    if s.splade_rescore_store is not None:
+        legs["splade"].append(("rescore", s.splade_rescore_store.packed, False))
+    ci = s.colbert_index
+    if ci is not None and hasattr(ci, "tokens"):
+        legs["colbert"] = [("tokens", ci.tokens, True), ("mask", ci.mask, False)]
+    elif ci is not None:
+        legs["colbert"] = [("centroids", ci.centroids, True), ("centroid_ids", ci.centroid_ids, False),
+                           ("codes", ci.codes, False), ("mask", ci.mask, False),
+                           ("bucket_weights", ci.bucket_weights, False)]
+        if s.colbert_ivf is not None:
+            legs["colbert"].append(("ivf_doc", s.colbert_ivf.ivf_doc, False))
+    if s.ce_doc_tokens is not None:
+        legs["monobert"] = [("ce_ids", s.ce_doc_tokens, False), ("ce_mask", s.ce_doc_mask, False)]
+    return legs
+
+
+def rounded_copy(torch, searcher):
+    """The searcher with every array that the index directory stores as f16
+    rounded through f16, as a reload gives it (the bf16 corpus matrices, the
+    token index, the compressed index's centroids)."""
+    from fusion_tpu_torch.models.colbert import TokenIndex
+
+    def r16(x):
+        return x.to(torch.float16).to(x.dtype) if isinstance(x, torch.Tensor) else x
+
+    ci = searcher.colbert_index
+    if isinstance(ci, TokenIndex):
+        ci = TokenIndex(tokens=r16(ci.tokens), mask=ci.mask)
+    elif ci is not None:
+        ci = dataclasses.replace(ci, centroids=r16(ci.centroids), _prepared=None)
+    return dataclasses.replace(
+        searcher, dense_corpus=r16(searcher.dense_corpus), splade_corpus=r16(searcher.splade_corpus),
+        colbert_index=ci,
+    )
+
+
+def persist_check(torch, np, name, searcher, fresh, queries, kernels) -> tuple[dict, object]:
+    """Save ``searcher`` to a temporary directory and reload it into
+    ``fresh`` (a new searcher with the same models and options): every
+    reloaded array equals the in-memory one after the format's own f16
+    rounding, and the reloaded searcher's per-leg and fused lists over
+    ``queries`` are bit-equal to those of the in-memory searcher with that
+    rounding applied, and launch each kernel as often.  Against the
+    in-memory searcher itself: legs whose arrays all round-trip exactly are
+    bit-equal, the others (and the fused lists) keep a top-100 overlap
+    >= 0.99, except PLAID's, whose centroid probe is a discrete choice that
+    the f16 centroids move (its overlap is reported).  Returns (the phase's
+    fields, the reloaded searcher)."""
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix=f"persist_{name}_") as tmp:
+        save_s, load_s = {}, {}
+        t0 = time.perf_counter()
+        searcher.save_indexes(tmp, timings=save_s)
+        out["save_s_total"] = time.perf_counter() - t0
+        out["save_s"] = save_s
+        out["bytes"] = dir_bytes(tmp)
+        t0 = time.perf_counter()
+        fresh.load_indexes(tmp, timings=load_s)
+        torch.cuda.synchronize()
+        out["load_s_total"] = time.perf_counter() - t0
+        out["load_s"] = load_s
+    want, got = leg_arrays(torch, searcher), leg_arrays(torch, fresh)
+    check(sorted(want) == sorted(got), f"persist {name}: legs {sorted(want)} reloaded as {sorted(got)}")
+    exact = {}
+    for leg, arrays in want.items():
+        exact[leg] = True
+        for (an, a, f16), (_, b, _) in zip(arrays, got[leg]):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"persist {name}: {leg}.{an} {tuple(a.shape)} {a.dtype} reloaded as {tuple(b.shape)} {b.dtype}")
+            rounded = a.to(torch.float16).to(a.dtype) if f16 else a
+            check(torch.equal(rounded, b), f"persist {name}: {leg}.{an} differs from its stored form")
+            exact[leg] = exact[leg] and torch.equal(a, b)
+    out["exact_legs"] = exact
+    results, launches = {}, {}
+    for label, s in (("memory", searcher), ("rounded", rounded_copy(torch, searcher)), ("reloaded", fresh)):
+        reset_counts(*kernels)
+        fused, _ = s.search(queries, batch_size=BATCH, external_ids=False)
+        launches[label] = counts(*kernels)
+        results[label] = dict(s.search_systems(queries, batch_size=BATCH, external_ids=False), fused=fused)
+    out["launches"] = launches["reloaded"]
+    check(launches["memory"] == launches["reloaded"],
+          f"persist {name}: launches in memory {launches['memory']}, reloaded {launches['reloaded']}")
+    plaid = searcher.colbert_ivf is not None
+    per_leg = {}
+    for leg, ranked in results["memory"].items():
+        other, same_form = results["reloaded"][leg], results["rounded"][leg]
+        check(torch.equal(same_form.ids, other.ids) and torch.equal(same_form.scores, other.scores),
+              f"persist {name}: the reloaded {leg} lists differ from the in-memory ones over the stored arrays")
+        if all(exact.values()) if leg == "fused" else exact.get(leg, True):
+            check(torch.equal(ranked.ids, other.ids) and torch.equal(ranked.scores, other.scores),
+                  f"persist {name}: the {leg} arrays round-trip exactly but its lists differ")
+            per_leg[leg] = "bit-equal"
+            continue
+        per_leg[leg] = overlap100(np, ranked.ids.numpy(), other.ids.numpy())
+        if not (plaid and leg in ("colbert", "fused")):
+            check(per_leg[leg] >= 0.99, f"persist {name}: {leg} top-100 overlap {per_leg[leg]}")
+    out["lists_vs_memory"] = per_leg
+    return out, fresh
+
+
+def checkpoint_check(torch, np, models, queries, root, device="cuda") -> tuple[dict, dict]:
+    """Save each full-width model under ``root`` and load it back (bf16, on
+    the card): query encodings and rerank logits bit-equal to the
+    originals'.  Returns (the phase's fields, model name → checkpoint dir)."""
+    from fusion_tpu_torch.models.encoder import token_tensors
+
+    out, paths = {"save_s": {}, "load_s": {}, "bytes": {}, "bit_equal": {}}, {}
+    for name, model in models.items():
+        path = os.path.join(root, name)
+        t0 = time.perf_counter()
+        model.save(path)
+        out["save_s"][name] = time.perf_counter() - t0
+        out["bytes"][name] = sum(dir_bytes(path).values())
+        t0 = time.perf_counter()
+        loaded = type(model).load(path, device=device, dtype=model.cfg.dtype)
+        torch.cuda.synchronize()
+        out["load_s"][name] = time.perf_counter() - t0
+        if name == "monobert":
+            ids, mask = model.encode_queries_raw(queries[:BATCH], max_query_tokens=32)
+            d_ids, d_mask = model.encode_queries_raw(queries[BATCH:2 * BATCH], max_query_tokens=200)
+            rows = np.concatenate([ids, d_ids], axis=1), np.concatenate([mask, d_mask], axis=1)
+            a = model.score_tokens(*token_tensors(*rows, device))
+            b = loaded.score_tokens(*token_tensors(*rows, device))
+        else:
+            ids, mask = model.text_encoder.encode(queries, query_mode=True)
+            a = model.embed_tokens(*token_tensors(ids, mask, device))
+            b = loaded.embed_tokens(*token_tensors(ids, mask, device))
+        out["bit_equal"][name] = bool(torch.equal(a, b))
+        check(out["bit_equal"][name], f"checkpoint {name}: outputs differ after the round trip "
+              f"(max {float((a.float() - b.float()).abs().max())})")
+        paths[name] = path
+        del loaded
+    return out, paths
+
+
+def cli_check(torch, np, docs, queries, paths, root, kernels, device="cuda") -> dict:
+    """The CLI in process on a fixture of the slice's corpus (its words
+    spelled in letters that the BM25 preprocessing keeps): serve --task
+    build and search with all four retrievers and the rerank, then hybrid
+    with percentile-rank NSF over BM25, DPR and ColBERT and hybrid with BM25
+    and the rerank, the models from the [checkpoint] directories."""
+    from fusion_tpu_torch.cli.main import main as cli_main
+    from fusion_tpu_torch.data.preprocessor import TextPreprocessor
+    from fusion_tpu_torch.hybrid import run_evaluation
+    from fusion_tpu_torch.utils.rankingio import read_ranking_tsv
+
+    fx_docs = [letter_text(d) for d in docs]
+    fx_queries = [letter_text(q) for q in queries]
+    prep = TextPreprocessor(spacy_model=None)
+    sample = fx_docs[:200] + fx_queries
+    check(prep.preprocess(sample) == sample, "cli: the fixture's words do not pass the preprocessing unchanged")
+    rng = np.random.default_rng(5)
+    gold = rng.integers(0, len(docs), size=len(queries))
+    fixture = {
+        "corpus": [{"id": 100_000 + i, "article": d, "description": ""} for i, d in enumerate(fx_docs)],
+        "questions": {"train": [], "test": [], "dev": [
+            {"id": qi, "question": q, "article_ids": [100_000 + int(gold[qi])]} for qi, q in enumerate(fx_queries)
+        ]},
+    }
+    fx_path = os.path.join(root, "fixture.json")
+    with open(fx_path, "w") as f:
+        json.dump(fixture, f)
+    out_dir, idx = os.path.join(root, "out"), os.path.join(root, "index")
+    base = ["--fixture", fx_path, "--output_dir", out_dir, "--device", device]
+    models = ["--dpr_path", paths["dpr"], "--splade_path", paths["splade"], "--colbert_path", paths["colbert"],
+              "--monobert_path", paths["monobert"]]
+    systems = ["--run_bm25", "--run_dpr", "--run_splade", "--run_colbert", "--run_monobert"]
+    out: dict = {}
+    t0 = time.perf_counter()
+    built = cli_main(["serve", "--task", "build", "--index_dir", idx, "--batch_size", "256"] + systems + models + base)
+    torch.cuda.synchronize()
+    out["serve_build_s"] = time.perf_counter() - t0
+    out["index_bytes"] = sum(dir_bytes(idx).values())
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    cli_main(["serve", "--task", "search", "--index_dir", idx, "--batch_size", str(BATCH)] + systems + models + base)
+    out["serve_search_s"] = time.perf_counter() - t0
+    out["serve_search_launches"] = counts(*kernels)
+    check(out["serve_search_launches"]["K1"] == len(queries) // BATCH,
+          f"cli: serve --task search launched K1 {out['serve_search_launches']['K1']} times")
+    ranking = read_ranking_tsv(os.path.join(out_dir, "serve_ranking.tsv"))
+    check(sorted(ranking) == list(range(len(queries))), f"cli: the ranking TSV has {len(ranking)} queries")
+    for qid, pids in ranking.items():
+        check(len(set(pids)) == len(pids) and all(100_000 <= p < 100_000 + len(docs) for p in pids),
+              f"cli: query {qid}'s ranked ids are out of range or repeated")
+    ref, _ = built.search(fx_queries, batch_size=BATCH)
+    tsv_ids = np.array([ranking[q][:100] for q in range(len(queries))])
+    out["tsv_top100_overlap_vs_built"] = overlap100(np, tsv_ids, ref.ids.numpy()[:, :100])
+    check(out["tsv_top100_overlap_vs_built"] >= 0.99, f"cli: TSV vs in-memory overlap {out}")
+    del built, ref
+    metric_keys = set(run_evaluation([[0]], [[0]], print2console=False))
+    for label, argv in (
+        ("hybrid_nsf_percentile", ["--run_bm25", "--run_dpr", "--run_colbert", "--fusion", "nsf",
+                                   "--normalization", "percentile-rank"]),
+        ("hybrid_monobert", ["--run_bm25", "--run_monobert"]),
+    ):
+        reset_counts(*kernels)
+        t0 = time.perf_counter()
+        cli_main(["hybrid", "--batch_size", str(BATCH)] + argv + models + base)
+        torch.cuda.synchronize()
+        out[f"{label}_s"] = time.perf_counter() - t0
+        out[f"{label}_launches"] = counts(*kernels)
+        with open(os.path.join(out_dir, "performance_hybrid.json")) as f:
+            perf = json.load(f)
+        check(metric_keys <= set(perf), f"cli: {label} metrics lack {metric_keys - set(perf)}")
+        out[f"{label}_recall@100"] = perf["recall@100"]
+    check(out["hybrid_nsf_percentile_launches"]["K1"] > 0, "cli: hybrid --run_colbert never launched K1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _post(url, payload, timeout=120):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+# the HTTP clients of [server], run in a process of their own so that they
+# do not share the server's interpreter lock: argv = base url, a JSON file of
+# queries, the thread count; prints one JSON object
+_CLIENTS = """
+import concurrent.futures, json, sys, time, urllib.request
+url, path, threads = sys.argv[1], sys.argv[2], int(sys.argv[3])
+queries = json.load(open(path))
+def one(qi):
+    t = time.perf_counter()
+    req = urllib.request.Request(url + "/search", data=json.dumps({"queries": [queries[qi]], "topk": 10}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        res = json.loads(r.read())["results"][0]
+    return qi, res, (time.perf_counter() - t) * 1000
+t0 = time.perf_counter()
+with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+    answers = list(pool.map(one, range(len(queries))))
+print(json.dumps({"wall_s": time.perf_counter() - t0, "answers": answers}))
+"""
+
+
+def server_check(torch, np, searcher, queries) -> dict:
+    """A SearchServer (127.0.0.1, port 0, max_batch 64) over ``searcher``:
+    192 single-query POSTs from 32 client threads (in a process of their
+    own), then 3 POSTs of 64 queries, then one malformed body; every answer
+    equals the direct search's top-10 ids with scores within 1e-5 (the
+    server rounds to 6 decimals), the malformed body gets a 400, and the
+    server runs fewer batches than requests."""
+    import urllib.error
+    import urllib.request
+
+    from fusion_tpu_torch.server import SearchServer
+
+    direct, _ = searcher.search(queries, batch_size=BATCH)
+    d_ids, d_scores = direct.ids.numpy(), direct.scores.numpy()
+
+    def agree(qi, res):
+        kr = len(res["ids"])
+        check(kr == 10 and res["ids"] == d_ids[qi][:kr].tolist(), f"server: query {qi} ids differ from the direct search")
+        check(bool(np.abs(np.asarray(res["scores"]) - d_scores[qi][:kr]).max() <= 1e-5),
+              f"server: query {qi} scores differ from the direct search")
+
+    t0 = time.perf_counter()
+    srv = SearchServer(searcher, host="127.0.0.1", port=0, max_batch=BATCH, max_wait_ms=5.0)
+    srv.start()
+    out = {"start_s": time.perf_counter() - t0}
+    host, port = srv.address
+    url = f"http://{host}:{port}"
+    try:
+        with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+            json.dump(list(queries), f)
+        try:
+            run = subprocess.run([sys.executable, "-c", _CLIENTS, url, f.name, "32"], capture_output=True,
+                                 text=True, timeout=600)
+        finally:
+            os.unlink(f.name)
+        check(run.returncode == 0, f"server: the clients failed: {run.stderr[-2000:]}")
+        clients = json.loads(run.stdout)
+        lat = sorted(a[2] for a in clients["answers"])
+        for qi, res, _ in clients["answers"]:
+            agree(qi, res)
+        out.update(single_requests=len(queries), client_threads=32,
+                   requests_per_s=len(queries) / clients["wall_s"], p50_request_ms=lat[len(lat) // 2],
+                   p99_request_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))])
+        t0 = time.perf_counter()
+        for start in range(0, len(queries), BATCH):
+            res = _post(f"{url}/search", {"queries": queries[start:start + BATCH], "topk": 10})
+            for j, r in enumerate(res["results"]):
+                agree(start + j, r)
+        out["batch_request_ms"] = (time.perf_counter() - t0) * 1000 / (len(queries) // BATCH)
+        try:
+            _post(f"{url}/search", {"queries": [1, 2]})
+            fail("server: a malformed body was answered")
+        except urllib.error.HTTPError as e:
+            check(e.code == 400, f"server: a malformed body got HTTP {e.code}")
+        with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.stop()
+    check(stats["batches"] < stats["requests"], f"server: {stats['batches']} batches for {stats['requests']} requests")
+    out.update(requests=stats["requests"], batches=stats["batches"], mean_batch_ms=stats["mean_batch_ms"],
+               errors=stats["errors"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1664,6 +2072,31 @@ def main() -> int:
     t0 = time.perf_counter()
     rerank = rerank_check(torch, np, reranked, queries, smi, kernels)
     phase("rerank", t0, gpu=repr(smi), **rerank)
+
+    # the serving surface over the slice: checkpoints, the index directory,
+    # the HTTP front door over the reloaded searcher, the CLI
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    t0 = time.perf_counter()
+    ckpt, ckpt_paths = checkpoint_check(
+        torch, np, {"dpr": dense, "splade": splade, "colbert": colbert, "monobert": ce}, queries, work.name
+    )
+    phase("checkpoint", t0, gpu=repr(smi), **ckpt)
+    t0 = time.perf_counter()
+    fresh = HybridSearcher(
+        corpus_ids=np.array([]), dense_model=dense, splade_model=splade, colbert_model=colbert,
+        cross_encoder=ce, rerank_depth=100, topk=TOPK, fusion_method="rrf", device="cuda",
+    )
+    persisted, reloaded = persist_check(torch, np, "slice", reranked, fresh, queries, kernels)
+    phase("persist", t0, searcher="slice", gpu=repr(smi), **persisted)
+    check(persisted["launches"]["K1"] > 0, "persist slice: K1 never launched")
+    t0 = time.perf_counter()
+    served = server_check(torch, np, dataclasses.replace(reloaded, rerank_depth=0), queries)
+    phase("server", t0, gpu=repr(smi), **served)
+    del reloaded, fresh
+    t0 = time.perf_counter()
+    phase("cli", t0, gpu=repr(smi), **cli_check(torch, np, docs, queries, ckpt_paths, work.name, kernels))
+    work.cleanup()
+
     bm25 = searcher.bm25
     del searcher, reranked, ranked
     gc.collect()
@@ -1691,7 +2124,16 @@ def main() -> int:
     warm_timing(torch, scale, queries, "scale_build", smi)
     if args.profile:
         profile_search(torch, scale, queries, "scale_build")
-    del scale, ranked
+    t0 = time.perf_counter()
+    fresh = HybridSearcher(
+        corpus_ids=np.array([]), dense_model=dense, splade_model=splade, colbert_model=colbert,
+        dense_impl="fused", topk=TOPK, fusion_method="rrf", device="cuda",
+    )
+    persisted, reloaded = persist_check(torch, np, "scale_build", scale, fresh, queries, kernels)
+    phase("persist", t0, searcher="scale_build", gpu=repr(smi), **persisted)
+    for name in ("K1", "K2", "K3"):
+        check(persisted["launches"][name] > 0, f"persist scale_build: {name} never launched")
+    del scale, ranked, fresh, reloaded
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1727,7 +2169,16 @@ def main() -> int:
     warm_timing(torch, pb, queries, "plaid_build", smi)
     if args.profile:
         profile_search(torch, pb, queries, "plaid_build")
-    del pb, cb, ranked
+    t0 = time.perf_counter()
+    fresh = HybridSearcher(
+        corpus_ids=np.array([]), dense_model=dense, splade_model=splade, colbert_model=colbert,
+        dense_impl="fused", topk=TOPK, fusion_method="rrf", device="cuda",
+    )
+    persisted, reloaded = persist_check(torch, np, "plaid_build", pb, fresh, queries, kernels)
+    phase("persist", t0, searcher="plaid_build", gpu=repr(smi), **persisted)
+    for name in ("K2", "K3", "K4"):
+        check(persisted["launches"][name] > 0, f"persist plaid_build: {name} never launched")
+    del pb, cb, ranked, fresh, reloaded
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -14,7 +14,12 @@ BM25, the int8 DPR corpus through the binned top-k kernel, SPLADE through the
 scatter kernel with an exact rescore, ColBERT's residual-compressed index
 searched exhaustively or by PLAID through the row-gather kernel), the
 monoBERT cross-encoder rerank (flat and packed), the probe tools of the
-TPU kernels' variants (``tools/``), and everything they run.
+TPU kernels' variants (``tools/``), and everything they run; and the serving
+surface around them: index directories and model checkpoints in the JAX
+package's formats (either package loads the other's), percentile NSF, the
+metrics (``eval/metrics.py``), ``HybridPipeline`` (``hybrid.py``), the HTTP
+server (``server.py``) and the CLI's ``bm25`` / ``hybrid`` / ``serve``
+commands (``cli/``, the ``fusion-tpu-torch`` script).
 """
 
 __version__ = "0.1.0"
@@ -30,6 +35,9 @@ _LAZY = {
     "EncoderConfig": "fusion_tpu_torch.models.encoder",
     "Aggregator": "fusion_tpu_torch.fusion.aggregator",
     "HybridSearcher": "fusion_tpu_torch.serving",
+    "HybridPipeline": "fusion_tpu_torch.hybrid",
+    "Metrics": "fusion_tpu_torch.eval.metrics",
+    "SearchServer": "fusion_tpu_torch.server",
 }
 
 

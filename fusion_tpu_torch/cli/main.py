@@ -1,0 +1,472 @@
+"""Command-line entry points of the port (``fusion-tpu-torch``,
+``python -m fusion_tpu_torch.cli.main``), with the JAX package's CLI's
+commands and flags:
+
+  fusion-tpu-torch bm25    --task {evaluate,tune,negatives}
+  fusion-tpu-torch hybrid  [--run_bm25 --run_dpr --run_splade --run_colbert
+                            --run_monobert] [--fusion ...] [--normalization ...]
+  fusion-tpu-torch serve   --task {build,search} --index_dir DIR [--http_port N]
+
+Data comes from a ``--fixture`` JSON file ({"corpus": [...], "questions":
+{...}, "negatives": {...}}, LLeQA's record layout).  One flag is new:
+``--device`` (default ``cuda``; the commands raise without a card unless
+given ``--device cpu``).  Models load from ``--*_path`` checkpoints (either
+package's) and compute in the ``--bf16`` dtype (f32 with ``--no_bf16`` or
+``--tiny``); without a path a model is built untrained from its seed.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
+item: the training commands (``dpr``, ``splade``, ``colbert``,
+``monobert``), the mMARCO and Mr. TyDi datasets, the ``einsum_bf16`` and
+``flash`` attention, ``--ce_int8``, ``--encoders_int8``,
+``--rerank_buckets`` and ``--rerank_cascade``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to fusion_tpu_torch yet (ROADMAP.md Queue 1, {item})")
+
+
+def _load_lleqa(args):
+    """The dataset: LLeQA records from ``--fixture``."""
+    if args.dataset.startswith(("mmarco", "mrtydi")):
+        raise _not_ported(f"--dataset {args.dataset} (its loader)", "item 15")
+    from fusion_tpu_torch.data.lleqa import LLeQALoader
+
+    if not args.fixture:
+        return LLeQALoader()  # raises: the hub loader is not ported
+    with open(args.fixture) as f:
+        raw = json.load(f)
+    neg = raw.get("negatives")
+    if neg:
+        neg = {int(k): v for k, v in neg.items()}
+    return LLeQALoader.from_records(raw["corpus"], raw["questions"], neg)
+
+
+def _encoder_config(args):
+    from fusion_tpu_torch.models.encoder import EncoderConfig
+
+    if getattr(args, "attention_impl", "einsum") != "einsum":
+        raise _not_ported(f"--attention_impl {args.attention_impl}", "item 2")
+    if args.tiny:
+        return EncoderConfig.tiny(vocab_size=2048)
+    return EncoderConfig(dtype=torch.bfloat16 if args.bf16 else torch.float32)
+
+
+def _load_model(cls, path: str, args):
+    """A checkpoint on ``--device``, computing in the CLI's encoder dtype."""
+    return cls.load(path, device=args.device, dtype=_encoder_config(args).dtype)
+
+
+def _load_crossencoder(path: str, args):
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+
+    return _load_model(CrossEncoder, path, args)
+
+
+def cmd_bm25(args):
+    from fusion_tpu_torch.cli.presets import BM25_PRESETS, BM25_TUNING_GRID
+    from fusion_tpu_torch.eval.metrics import Metrics
+    from fusion_tpu_torch.hybrid import HybridPipeline, run_evaluation
+    from fusion_tpu_torch.utils.loggers import write_metrics_csv
+
+    data = _load_lleqa(args).load()
+    pipeline = HybridPipeline(data.corpus, device=args.device)
+    preset = BM25_PRESETS.get(args.dataset.split("-")[0], BM25_PRESETS["lleqa"])
+    k1 = args.k1 if args.k1 is not None else preset.k1
+    b = args.b if args.b is not None else preset.b
+    split = "train" if args.task == "negatives" else ("dev" if args.task == "tune" else args.split)
+    qids, queries, labels = data.split(split)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    if args.task == "tune":
+        evaluator = Metrics(recall_at_k=[10, 100, 200, 500, 1000])
+        rows = []
+        for k1_v in BM25_TUNING_GRID["k1"]:
+            for b_v in BM25_TUNING_GRID["b"]:
+                res = pipeline.bm25_search(
+                    queries, do_preprocessing=args.do_preprocessing, k1=k1_v, b=b_v, return_topk=1000
+                )
+                scores = evaluator.compute_all_metrics(labels, pipeline.to_external_ids(res.ranked))
+                rows.append({"k1": k1_v, "b": b_v, **scores})
+        write_metrics_csv(os.path.join(args.output_dir, "bm25_tuning_results.csv"), rows)
+        best = max(rows, key=lambda r: r["recall@100"])
+        try:
+            from fusion_tpu_torch.utils.loggers import write_tuning_heatmap
+
+            write_tuning_heatmap(os.path.join(args.output_dir, "bm25_tuning_heatmap.pdf"), rows)
+        except ImportError as e:  # no matplotlib: the CSV is the artifact
+            print(f"# heatmap skipped: {e}", file=sys.stderr)
+        print(json.dumps({"best": best}))
+        return
+
+    res = pipeline.bm25_search(queries, do_preprocessing=args.do_preprocessing, k1=k1, b=b, return_topk=1000)
+    preds_ext = pipeline.to_external_ids(res.ranked)
+
+    if args.task == "negatives":
+        negatives = {}
+        for qid, pred, gold in zip(qids, preds_ext, labels):
+            gold = set(gold)
+            negatives[qid] = [p for p in pred if p not in gold][: args.num_negatives]
+        with open(os.path.join(args.output_dir, "negatives_bm25.json"), "w") as f:
+            json.dump(dict(sorted(negatives.items())), f, indent=2)
+        print(json.dumps({"num_queries": len(negatives)}))
+        return
+
+    scores = run_evaluation(preds_ext, labels, print2console=True)
+    scores["latency (ms/query)"] = res.latency_ms_per_query
+    with open(os.path.join(args.output_dir, f"performance_bm25_{args.dataset}_{split}.json"), "w") as f:
+        json.dump(scores, f, indent=2)
+
+
+def cmd_train(args):
+    raise _not_ported(f"the {args.command} command (training and its test task)", "item 16")
+
+
+def cmd_hybrid(args):
+    from fusion_tpu_torch.cli.presets import BM25_PRESETS
+    from fusion_tpu_torch.fusion.aggregator import build_percentile_distribution, tune_fusion_weights
+    from fusion_tpu_torch.hybrid import HybridPipeline
+    from fusion_tpu_torch.models.biencoder import BiEncoder
+    from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+
+    data = _load_lleqa(args).load()
+    pipeline = HybridPipeline(data.corpus, device=args.device)
+    qids, queries, labels = data.split(args.split)
+    # the score-distribution analysis pools every doc's score per system,
+    # so retrieval then runs to the corpus's depth
+    topk = len(data.corpus) if args.analyze_score_distributions else min(1000, len(data.corpus))
+    bp = BM25_PRESETS["lleqa"]
+    cfg = _encoder_config(args)
+    dev = args.device
+    results = {}
+    if args.run_bm25:
+        results["bm25"] = pipeline.bm25_search(queries, k1=bp.k1, b=bp.b, return_topk=topk).ranked
+    if args.run_dpr:
+        model = _load_model(BiEncoder, args.dpr_path, args) if args.dpr_path else BiEncoder(
+            cfg, head="dense", max_query_length=32, max_doc_length=128, device=dev
+        )
+        results["dpr"] = pipeline.single_vector_search(queries, model, return_topk=topk).ranked
+    if args.run_splade:
+        model = _load_model(BiEncoder, args.splade_path, args) if args.splade_path else BiEncoder(
+            cfg, head="splade", max_query_length=32, max_doc_length=128, device=dev
+        )
+        results["splade"] = pipeline.single_vector_search(queries, model, return_topk=topk).ranked
+    if args.run_colbert:
+        model = _load_model(ColBERT, args.colbert_path, args) if args.colbert_path else ColBERT(
+            cfg, dim=16 if args.tiny else 128, max_query_length=32, max_doc_length=64, device=dev
+        )
+        results["colbert"] = pipeline.multi_vector_search(queries, model, return_topk=topk).ranked
+    if not results:
+        raise SystemExit("enable at least one retrieval system (--run_bm25, --run_dpr, ...)")
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    if args.analyze_score_distributions:
+        out = pipeline.analyze_score_distributions(
+            results, labels=labels, normalization=args.normalization, output_dir=args.output_dir, seed=args.seed
+        )
+        print(json.dumps({
+            "systems": list(out["all_scores"].keys()),
+            "distribution_sizes": sorted(out["distributions"].keys()),
+            "labeled_rows": len(out["labeled"]),
+        }))
+        return
+
+    distributions = None
+    if args.normalization in ("percentile-rank", "normal-curve-equivalent"):
+        distributions = {
+            name: build_percentile_distribution(rl.scores.cpu().numpy(), num_points=10_000)
+            for name, rl in results.items()
+        }
+
+    if args.tune_linear_fusion_weight:
+        from fusion_tpu_torch.eval.metrics import Metrics
+        from fusion_tpu_torch.utils.loggers import write_metrics_csv
+
+        ev = Metrics(recall_at_k=[10, 100, 500])
+        best, rows = tune_fusion_weights(
+            results, labels,
+            evaluate=lambda fused: ev.compute_all_metrics(labels, pipeline.to_external_ids(fused)),
+            normalization=args.normalization or "min-max",
+            percentile_distributions=distributions,
+            step=args.weight_step,
+            select_by="recall@100",
+        )
+        write_metrics_csv(os.path.join(args.output_dir, f"nsf_{args.normalization}_tuning.csv"), rows)
+        print(json.dumps({"best_weights": best}))
+        return
+
+    fused = pipeline.fuse(
+        results, method=args.fusion, normalization=args.normalization,
+        percentile_distributions=distributions, return_topk=topk,
+    )
+    if args.run_monobert:
+        ce = _load_crossencoder(args.monobert_path, args) if args.monobert_path else CrossEncoder(
+            cfg, max_length=32 if args.tiny else 256, device=dev
+        )
+        fused = pipeline.cross_encoder_search(queries, fused, ce, return_topk=min(args.rerank_depth, topk)).ranked
+
+    scores = pipeline.evaluate(fused, labels, print2console=True)
+    with open(os.path.join(args.output_dir, "performance_hybrid.json"), "w") as f:
+        json.dump(scores, f, indent=2, default=float)
+
+
+def _check_serve_options(args) -> None:
+    for flag, value, item in (
+        ("--ce_int8", args.ce_int8, "item 17"),
+        ("--encoders_int8", args.encoders_int8, "item 17"),
+        ("--rerank_buckets", args.rerank_buckets, "item 9"),
+        ("--rerank_cascade", args.rerank_cascade, "item 9"),
+    ):
+        if value:
+            raise _not_ported(flag, item)
+    for flag, value in (("--ce_attention", args.ce_attention), ("--encoders_attention", args.encoders_attention)):
+        if value not in (None, "einsum"):
+            raise _not_ported(f"{flag} {value}", "item 2")
+
+
+def cmd_serve(args):
+    """Build or serve a persistent HybridSearcher.
+
+    build:  encode every requested index once and save it to --index_dir
+    search: load --index_dir and answer queries (--queries_file, one per
+            line, or the dataset split) into a ranking TSV, or serve them
+            over HTTP with --http_port
+    """
+    from fusion_tpu_torch.data.preprocessor import TextPreprocessor
+    from fusion_tpu_torch.models.biencoder import BiEncoder
+    from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+    from fusion_tpu_torch.serving import HybridSearcher
+    from fusion_tpu_torch.utils.rankingio import write_ranking_tsv
+
+    _check_serve_options(args)
+    cfg = _encoder_config(args)
+    dev = args.device
+    lengths = dict(max_query_length=32 if args.tiny else 64, max_doc_length=64 if args.tiny else 256)
+    dense = (_load_model(BiEncoder, args.dpr_path, args) if args.dpr_path
+             else BiEncoder(cfg, head="dense", device=dev, **lengths)) if args.run_dpr else None
+    splade = (_load_model(BiEncoder, args.splade_path, args) if args.splade_path
+              else BiEncoder(cfg, head="splade", device=dev, **lengths)) if args.run_splade else None
+    colbert = (_load_model(ColBERT, args.colbert_path, args) if args.colbert_path
+               else ColBERT(cfg, dim=16 if args.tiny else 128, device=dev, **lengths)) if args.run_colbert else None
+    ce = (_load_crossencoder(args.monobert_path, args) if args.monobert_path
+          else CrossEncoder(cfg, max_length=32 if args.tiny else 256, device=dev)) if args.run_monobert else None
+    # packed is the rerank stage unless --no-rerank_packed
+    rerank_packed = True if args.rerank_packed is None else args.rerank_packed
+    common = dict(
+        dense_model=dense, splade_model=splade, colbert_model=colbert, cross_encoder=ce,
+        rerank_depth=args.rerank_depth, fusion_method=args.fusion, plaid_nprobe=args.plaid_nprobe,
+        plaid_ncand=args.plaid_ncand, plaid_ncand_rescore=args.plaid_ncand_rescore or None,
+        plaid_rescore_impl=args.plaid_rescore_impl, dense_impl=args.dense_impl,
+        splade_query_terms=args.splade_query_terms, rerank_packed=rerank_packed,
+        rerank_row_width=args.rerank_row_width or None,
+    )
+    prep = TextPreprocessor(spacy_model=None) if args.run_bm25 else None
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    if args.task == "build":
+        from fusion_tpu_torch.cli.presets import BM25_PRESETS
+
+        data = _load_lleqa(args).load()
+        bp = BM25_PRESETS["lleqa"]
+        docs = list(data.corpus.values())
+        searcher = HybridSearcher.build(
+            data.corpus,
+            bm25_docs=prep.preprocess(docs) if prep else None,
+            colbert_compressed=args.compressed or args.colbert_plaid,
+            batch_size=args.batch_size, k1=bp.k1, b=bp.b, topk=min(1000, len(data.corpus)),
+            bm25_preprocess=(lambda t: prep.preprocess(list(t))) if prep else None,
+            int8_corpus=args.int8_corpus, scale_mode=args.scale_mode, colbert_plaid=args.colbert_plaid,
+            impact_cap=args.impact_cap, splade_impl=args.splade_impl,
+            splade_rescore_depth=None if args.splade_rescore_depth < 0 else args.splade_rescore_depth,
+            ivf_cap=args.ivf_cap, device=dev, **common,
+        )
+        searcher.save_indexes(args.index_dir)
+        print(json.dumps({
+            "index_dir": args.index_dir, "systems": searcher.active_systems, "corpus_docs": len(data.corpus),
+        }))
+        return searcher
+
+    searcher = HybridSearcher(
+        corpus_ids=np.array([]), normalization=args.normalization,
+        splade_rescore_depth=max(args.splade_rescore_depth, 0), device=dev, **common,
+    ).load_indexes(args.index_dir, int8_corpus=args.int8_corpus)
+    if prep is not None:
+        searcher.bm25_preprocess = lambda t: prep.preprocess(list(t))
+    if args.http_port:
+        from fusion_tpu_torch.server import serve_forever
+
+        serve_forever(searcher, host=args.http_host, port=args.http_port, max_batch=args.batch_size)
+        return searcher
+    if args.queries_file:
+        with open(args.queries_file) as f:
+            queries = [line.strip() for line in f if line.strip()]
+        qids = list(range(len(queries)))
+    else:
+        qids, queries, _ = _load_lleqa(args).load().split(args.split)
+    ranked, ms_per_query = searcher.search(queries, batch_size=args.batch_size)
+    out_tsv = os.path.join(args.output_dir, "serve_ranking.tsv")
+    write_ranking_tsv(out_tsv, ranked, qids)
+    print(json.dumps({
+        "num_queries": len(queries), "ms_per_query": round(ms_per_query, 3),
+        "systems": searcher.active_systems, "ranking_tsv": out_tsv,
+    }))
+    return searcher
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="fusion-tpu-torch", description=__doc__.split("\n\n")[0])
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def common(sp):
+        sp.add_argument("--dataset", default="lleqa")
+        sp.add_argument("--split", default="dev", choices=["train", "dev", "test"])
+        sp.add_argument("--fixture", default=None, help="offline dataset JSON")
+        sp.add_argument("--output_dir", default="output")
+        sp.add_argument("--seed", type=int, default=42)
+        sp.add_argument("--tiny", action="store_true", help="tiny encoder for smoke tests")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device of every model and index (default: the card; 'cpu' to run "
+                             "without one)")
+        sp.add_argument("--bf16", action="store_true", default=True)
+        sp.add_argument("--no_bf16", dest="bf16", action="store_false", help="full-f32 run")
+        sp.add_argument("--no_remat", action="store_true", help="training only: no effect in the port")
+        sp.add_argument("--attention_impl", default="einsum", choices=["einsum", "einsum_bf16", "flash"],
+                        help="only einsum (plain f32-logit attention) is ported")
+        sp.add_argument("--batch_size", type=int, default=32)
+        sp.add_argument("--train_batch_size", type=int, default=None)
+        sp.add_argument("--model_path", default=None)
+        sp.add_argument("--steps", type=int, default=None)
+        sp.add_argument("--lr", type=float, default=None)
+        sp.add_argument("--optimizer", default="AdamW", choices=["AdamW", "Adafactor", "Shampoo"])
+        sp.add_argument("--negs_per_query", type=int, default=1)
+        sp.add_argument("--log_every", type=int, default=10)
+        sp.add_argument("--ckpt_save_steps", type=int, default=None)
+        sp.add_argument("--seeds", default=None, help="comma list for multi-seed reruns")
+        sp.add_argument("--freeze_layers_except_last_n", type=int, default=None)
+        sp.add_argument("--no_data_parallel", dest="data_parallel", action="store_false", default=True)
+
+    sp = sub.add_parser("bm25")
+    common(sp)
+    sp.add_argument("--task", default="evaluate", choices=["evaluate", "tune", "negatives"])
+    sp.add_argument("--k1", type=float, default=None)
+    sp.add_argument("--b", type=float, default=None)
+    sp.add_argument("--do_preprocessing", action="store_true", default=False)
+    sp.add_argument("--num_negatives", type=int, default=10)
+    sp.set_defaults(fn=cmd_bm25)
+
+    # the training commands keep their flags and raise until training is ported
+    for name, tasks, default in (("dpr", ["train", "test"], "test"), ("splade", ["train", "test"], "test"),
+                                 ("colbert", ["train", "index", "search", "test"], "test"),
+                                 ("monobert", ["train", "test"], "test")):
+        sp = sub.add_parser(name, help="not ported yet (training)")
+        common(sp)
+        sp.add_argument("--task", default=default, choices=tasks)
+        if name == "splade":
+            sp.add_argument("--splade_variant", default="spladev2", choices=[
+                "spladev1", "spladev2", "spladeplus", "spladeplus_ensemble", "spladeeff", "spladev3",
+            ])
+        if name == "colbert":
+            sp.add_argument("--colbert_loss", default="ce", choices=["ce", "kld"])
+            sp.add_argument("--compressed", action="store_true")
+            sp.add_argument("--nbits", type=int, default=2)
+            sp.add_argument("--kmeans_niters", type=int, default=4)
+        if name == "monobert":
+            sp.add_argument("--neg_per_pos", type=int, default=4)
+            sp.add_argument("--backbone", default="bert", choices=["bert", "t5"])
+        sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("hybrid")
+    common(sp)
+    for flag in ("--run_bm25", "--run_dpr", "--run_splade", "--run_colbert", "--run_monobert"):
+        sp.add_argument(flag, action="store_true")
+    sp.add_argument("--fusion", default="rrf", choices=["bcf", "rrf", "nsf"])
+    sp.add_argument("--normalization", default=None, choices=[
+        None, "none", "min-max", "z-score", "arctan", "percentile-rank", "normal-curve-equivalent",
+    ])
+    sp.add_argument("--tune_linear_fusion_weight", action="store_true")
+    sp.add_argument("--analyze_score_distributions", action="store_true")
+    sp.add_argument("--weight_step", type=float, default=0.05)
+    for flag in ("--dpr_path", "--splade_path", "--colbert_path", "--monobert_path"):
+        sp.add_argument(flag, default=None)
+    sp.add_argument("--rerank_depth", type=int, default=100,
+                    help="candidates passed to the monoBERT reranker (paper setup: 100)")
+    sp.set_defaults(fn=cmd_hybrid)
+
+    sp = sub.add_parser("serve", help="build / query the persistent HybridSearcher")
+    common(sp)
+    sp.add_argument("--task", default="search", choices=["build", "search"])
+    sp.add_argument("--index_dir", required=True)
+    sp.add_argument("--queries_file", default=None)
+    sp.add_argument("--http_port", type=int, default=0,
+                    help="serve over HTTP with dynamic batching (fusion_tpu_torch/server.py)")
+    sp.add_argument("--http_host", default="0.0.0.0")
+    for flag in ("--run_bm25", "--run_dpr", "--run_splade", "--run_colbert", "--run_monobert"):
+        sp.add_argument(flag, action="store_true")
+    sp.add_argument("--fusion", default="rrf", choices=["bcf", "rrf", "nsf"])
+    sp.add_argument("--normalization", default=None,
+                    choices=["min-max", "z-score", "arctan", "percentile-rank", "normal-curve-equivalent"],
+                    help="nsf score normalization; percentile / NCE read the quantile tables saved in the "
+                         "index dir")
+    for flag in ("--dpr_path", "--splade_path", "--colbert_path", "--monobert_path"):
+        sp.add_argument(flag, default=None)
+    sp.add_argument("--rerank_depth", type=int, default=100)
+    sp.add_argument("--compressed", action="store_true")
+    sp.add_argument("--int8_corpus", action="store_true")
+    sp.add_argument("--scale_mode", action="store_true",
+                    help="impact-ordered BM25/SPLADE indexes (mMARCO-scale forms)")
+    sp.add_argument("--colbert_plaid", action="store_true", help="PLAID ColBERT (implies --compressed)")
+    sp.add_argument("--plaid_nprobe", type=int, default=4)
+    sp.add_argument("--plaid_ncand", type=int, default=1024)
+    sp.add_argument("--ivf_cap", type=int, default=1024)
+    sp.add_argument("--dense_impl", choices=["auto", "exact", "fused"], default="auto",
+                    help="int8 dense leg: exact blockwise search or the binned kernel (auto: the kernel "
+                         "on the card at >= 2^20 docs)")
+    sp.add_argument("--impact_cap", type=int, default=4096)
+    sp.add_argument("--splade_query_terms", type=int, default=64)
+    sp.add_argument("--splade_impl", choices=["auto", "impact", "scatter"], default="auto")
+    sp.add_argument("--splade_rescore_depth", type=int, default=-1,
+                    help="-1 = auto (512 in scale mode), 0 = off")
+    sp.add_argument("--plaid_ncand_rescore", type=int, default=0)
+    sp.add_argument("--plaid_rescore_impl", choices=["gather", "factored"], default="gather")
+    sp.add_argument("--plaid_gather_impl", choices=["xla", "pallas"], default="xla",
+                    help="no effect in the port: the candidate-row gather is the Hopper kernel on the "
+                         "card and the plain gather on the CPU")
+    sp.add_argument("--rerank_buckets", type=int, nargs="*", default=None, help="not ported yet")
+    sp.add_argument("--rerank_cascade", type=int, nargs=2, default=None, metavar=("KEEP", "STAGE1_TOKENS"),
+                    help="not ported yet")
+    sp.add_argument("--rerank_packed", action=argparse.BooleanOptionalAction, default=None,
+                    help="sequence-packed monoBERT rerank (the default); --no-rerank_packed serves the "
+                         "flat stage")
+    sp.add_argument("--rerank_row_width", type=int, default=None)
+    sp.add_argument("--ce_attention", default=None, choices=["einsum", "einsum_bf16", "flash"],
+                    help="only einsum is ported (the JAX CLI's default is einsum_bf16)")
+    sp.add_argument("--ce_int8", action="store_true", help="not ported yet")
+    sp.add_argument("--encoders_int8", action="store_true", help="not ported yet")
+    sp.add_argument("--encoders_attention", default=None, choices=["einsum", "einsum_bf16", "flash"],
+                    help="only einsum is ported")
+    sp.set_defaults(fn=cmd_serve)
+    return p
+
+
+def main(argv=None):
+    args, unknown = build_parser().parse_known_args(argv)
+    if unknown:
+        print(f"# WARNING: ignoring unknown arguments: {unknown}", file=sys.stderr)
+    args.model_name = args.command
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -139,3 +139,34 @@ class TextEncoder:
             ids = np.where(pads, self.tokenizer.mask_token_id, ids)
             mask = np.where(pads, 1, mask)
         return ids, mask
+
+
+def tokenizer_config(tokenizer) -> dict:
+    """The tokenizer's identity as a checkpoint's config stores it, so that
+    ``load`` rebuilds the same tokenization."""
+    if hasattr(tokenizer, "name_or_path"):
+        return {"kind": "hf", "name_or_path": tokenizer.name_or_path}
+    return {
+        "kind": "wordhash",
+        "vocab_size": tokenizer.vocab_size,
+        "lowercase": getattr(tokenizer, "lowercase", True),
+    }
+
+
+def tokenizer_from_config(tok_cfg):
+    """Inverse of :func:`tokenizer_config`; None for configs without one.
+    A HuggingFace tokenizer raises: ``HFTokenizer`` is not ported (a hash
+    tokenizer in its place would make every token id meaningless)."""
+    if tok_cfg is None:
+        return None
+    if tok_cfg.get("kind") == "hf":
+        raise NotImplementedError(
+            f"the checkpoint's tokenizer is the HuggingFace tokenizer {tok_cfg['name_or_path']!r}: "
+            "HFTokenizer is not ported to fusion_tpu_torch yet (ROADMAP.md Queue 1, item 15); "
+            "pass tokenizer= explicitly"
+        )
+    if tok_cfg.get("kind") == "wordhash":
+        return WordHashTokenizer(
+            vocab_size=tok_cfg["vocab_size"], lowercase=tok_cfg.get("lowercase", True)
+        )
+    return None

@@ -9,12 +9,16 @@
 
 The union aggregate is a sort by id + a windowed run sum + a stable top-k
 over the concatenated (id, score) tensors, all on the lists' device.
+``build_percentile_distribution`` makes the quantile tables the percentile
+normalizations read (host numpy), and ``tune_fusion_weights`` grid-searches
+NSF's convex weights over ``simplex_grid``.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Mapping
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -188,3 +192,57 @@ class Aggregator:
         return aggregate_scores(ids_cat, scores_cat, k, max_duplicates=len(transformed))
 
     transform_scores = staticmethod(transform_scores)
+
+
+def build_percentile_distribution(all_scores: np.ndarray, num_points: int = 10000) -> np.ndarray:
+    """Empirical quantile table from a system's score sample: exact zeros
+    and the two smallest distinct values dropped, then ``num_points + 1``
+    evenly spaced quantiles (f64)."""
+    s = np.asarray(all_scores, dtype=np.float64).ravel()
+    s = s[s != 0.0]
+    if s.size:
+        s = s[~np.isin(s, np.unique(s)[:2])]
+    if s.size == 0:
+        return np.zeros(num_points + 1)
+    return np.quantile(s, np.linspace(0, 1, num_points + 1))
+
+
+def simplex_grid(systems: Sequence[str], step: float = 0.05) -> list[dict[str, float]]:
+    """Every weight dict over ``systems`` on the ``step`` grid summing to 1."""
+    points = np.arange(0, 1 + step, step)
+    return [
+        dict(zip(systems, comb))
+        for comb in itertools.product(points, repeat=len(systems))
+        if np.isclose(sum(comb), 1.0)
+    ]
+
+
+def tune_fusion_weights(
+    ranked_lists: Mapping[str, RankedLists],
+    labels: Sequence[Sequence[int]],
+    evaluate: Callable[[RankedLists], dict],
+    normalization: str = "min-max",
+    percentile_distributions: Mapping[str, np.ndarray] | None = None,
+    step: float = 0.05,
+    select_by: str = "recall@100",
+) -> tuple[dict[str, float], list[dict]]:
+    """Grid-search NSF's convex weights; returns (the best weights, one row
+    of weights and metrics per grid point).  ``evaluate`` maps the fused
+    lists to a metric dict (``Metrics.compute_all_metrics``); the first
+    point reaching the best ``select_by`` wins."""
+    rows = []
+    best, best_score = None, -1.0
+    for weights in simplex_grid(list(ranked_lists.keys()), step):
+        fused = Aggregator.fuse(
+            ranked_lists,
+            method="nsf",
+            normalization=normalization,
+            linear_weights=weights,
+            percentile_distributions=percentile_distributions,
+        )
+        scores = evaluate(fused)
+        rows.append({**{f"weight_{k}": v for k, v in weights.items()}, **scores})
+        if scores.get(select_by, -1.0) > best_score:
+            best_score = scores[select_by]
+            best = dict(weights)
+    return best, rows

@@ -24,6 +24,7 @@ centroid id + the mask per token, against 256 B in bf16.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -170,6 +171,37 @@ class CompressedTokenIndex:
     @property
     def dim(self) -> int:
         return self.centroids.shape[-1]
+
+    def save(self, path: str) -> None:
+        """``compressed_index.npz`` in the JAX package's format: centroids as
+        f16 (so a reloaded index's centroids are the f16 rounding of the
+        built ones), the mask as int8, the codes as u8."""
+        os.makedirs(path, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(path, "compressed_index.npz"),
+            centroids=self.centroids.to(torch.float16).cpu().numpy(),
+            centroid_ids=self.centroid_ids.cpu().numpy(),
+            codes=self.codes.cpu().numpy(),
+            mask=self.mask.to(torch.int8).cpu().numpy(),
+            bucket_weights=self.bucket_weights.cpu().numpy(),
+            nbits=np.array([self.nbits]),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "CompressedTokenIndex":
+        """An index written by either package, on ``device``.  The JAX
+        package's segmented codes form (``dma_form``) has no counterpart:
+        the port's gather kernel reads the u8 codes directly."""
+        device = torch.device(device)
+        with np.load(os.path.join(path, "compressed_index.npz")) as z:
+            return cls(
+                centroids=torch.as_tensor(z["centroids"].astype(np.float32), device=device),
+                centroid_ids=torch.as_tensor(z["centroid_ids"], device=device),
+                codes=torch.as_tensor(z["codes"], device=device),
+                mask=torch.as_tensor(z["mask"].astype(np.float32), device=device),
+                bucket_weights=torch.as_tensor(z["bucket_weights"], device=device),
+                nbits=int(z["nbits"][0]),
+            )
 
     def to(self, device) -> "CompressedTokenIndex":
         """A copy of the index on ``device`` (the search layout is rebuilt)."""

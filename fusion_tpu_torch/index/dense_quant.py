@@ -10,8 +10,10 @@ exact), so only the rounding of the stored rows differs from the bf16 path.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from fusion_tpu_torch.core.ranked import RankedLists
@@ -31,6 +33,25 @@ class QuantizedDenseIndex(NamedTuple):
 
     def nbytes(self) -> int:
         return self.values.nbytes + self.scales.nbytes
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(path, "dense_int8.npz"),
+            values=self.values.cpu().numpy(),
+            scales=self.scales.cpu().numpy(),
+            normalized=np.array([self.normalized]),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "QuantizedDenseIndex":
+        device = torch.device(device)
+        with np.load(os.path.join(path, "dense_int8.npz")) as z:
+            return cls(
+                values=torch.as_tensor(z["values"], device=device),
+                scales=torch.as_tensor(z["scales"], device=device),
+                normalized=bool(z["normalized"][0]),
+            )
 
 
 def quantize_dense_index(

@@ -20,6 +20,7 @@ the arrays on ``device``; they give the arrays that
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import NamedTuple
 
@@ -78,6 +79,29 @@ class ImpactIndex(NamedTuple):
 
     def nbytes(self) -> int:
         return self.post_doc.nbytes + self.post_impact.nbytes
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        extra = {} if self.term_df is None else {"term_df": np.asarray(self.term_df, np.int32)}
+        np.savez_compressed(
+            os.path.join(path, "impact_index.npz"),
+            post_doc=self.post_doc.cpu().numpy(),
+            post_impact=self.post_impact.cpu().numpy(),
+            meta=np.array([self.n_docs, self.vocab_size, self.cap, self.nnz_kept], np.int64),
+            **extra,
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "ImpactIndex":
+        device = torch.device(device)
+        with np.load(os.path.join(path, "impact_index.npz")) as z:
+            n, v, cap, nnz = (int(x) for x in z["meta"])
+            return cls(
+                post_doc=torch.as_tensor(z["post_doc"], device=device),
+                post_impact=torch.as_tensor(z["post_impact"], device=device),
+                n_docs=n, vocab_size=v, cap=cap, nnz_kept=nnz,
+                term_df=z["term_df"] if "term_df" in z.files else None,
+            )
 
     def unsafe_query_term_frac(self, q_terms: np.ndarray) -> float:
         """Fraction of real (non-pad) query terms whose posting list was
@@ -190,6 +214,30 @@ class ChunkedImpactIndex(NamedTuple):
     @property
     def num_chunks(self) -> int:
         return self.post_doc.shape[1]
+
+    def save(self, path: str) -> None:
+        """The JAX package's file: local doc ids as uint16."""
+        os.makedirs(path, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(path, "chunked_impact_index.npz"),
+            post_doc=self.post_doc.cpu().numpy().view(np.uint16),
+            post_impact=self.post_impact.cpu().numpy(),
+            meta=np.array(
+                [self.n_docs, self.docs_per_chunk, self.vocab_size, self.cap_per_chunk, self.nnz_kept],
+                np.int64,
+            ),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "ChunkedImpactIndex":
+        device = torch.device(device)
+        with np.load(os.path.join(path, "chunked_impact_index.npz")) as z:
+            n, per, v, cap, nnz = (int(x) for x in z["meta"])
+            return cls(
+                post_doc=torch.as_tensor(z["post_doc"].view(np.int16), device=device),
+                post_impact=torch.as_tensor(z["post_impact"], device=device),
+                n_docs=n, docs_per_chunk=per, vocab_size=v, cap_per_chunk=cap, nnz_kept=nnz,
+            )
 
 
 def build_chunked_impact_index(

@@ -21,6 +21,7 @@ Work scales with Q·(Lq·nprobe·ivf_cap + ncand·Ld), not with the corpus.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -48,6 +49,21 @@ class IVFIndex(NamedTuple):
 
     def to(self, device) -> "IVFIndex":
         return self._replace(ivf_doc=self.ivf_doc.to(device))
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(path, "ivf_index.npz"),
+            ivf_doc=self.ivf_doc.cpu().numpy(),
+            meta=np.array([self.n_docs, self.cap], np.int64),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "IVFIndex":
+        device = torch.device(device)
+        with np.load(os.path.join(path, "ivf_index.npz")) as z:
+            n, cap = (int(x) for x in z["meta"])
+            return cls(ivf_doc=torch.as_tensor(z["ivf_doc"], device=device), n_docs=n, cap=cap)
 
 
 def _host(x) -> np.ndarray:

@@ -19,6 +19,7 @@
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -37,6 +38,27 @@ class SparseIndex(NamedTuple):
 
     def nbytes(self) -> int:
         return self.entry_term.nbytes + self.entry_weight.nbytes
+
+    def save(self, path: str) -> None:
+        """The JAX package's file: weights stored as f16."""
+        os.makedirs(path, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(path, "sparse_index.npz"),
+            entry_term=self.entry_term.cpu().numpy(),
+            entry_weight=self.entry_weight.to(torch.float16).cpu().numpy(),
+            meta=np.array([self.n_docs, self.vocab_size, self.nnz], dtype=np.int64),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "SparseIndex":
+        device = torch.device(device)
+        with np.load(os.path.join(path, "sparse_index.npz")) as z:
+            n, v, nnz = (int(x) for x in z["meta"])
+            return cls(
+                entry_term=torch.as_tensor(z["entry_term"], device=device),
+                entry_weight=torch.as_tensor(z["entry_weight"].astype(np.float32), device=device),
+                n_docs=n, vocab_size=v, nnz=nnz,
+            )
 
 
 def build_sparse_index(
@@ -127,6 +149,26 @@ class SpladeRescoreStore(NamedTuple):
 
     def nbytes(self) -> int:
         return self.packed.nbytes
+
+    def save(self, path: str) -> None:
+        """The JAX package's file: the packed rows as uint16 ``[N, 2K]``."""
+        os.makedirs(path, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(path, "rescore_store.npz"),
+            packed=self.packed.cpu().numpy().view(np.uint16).reshape(-1, 2 * self.prune_topk),
+            meta=np.array([self.n_docs, self.vocab_size, self.prune_topk], np.int64),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "SpladeRescoreStore":
+        """A store written by either package (rows past ``n_docs``, which
+        the JAX package pads a store over 4 GiB with, are kept and never
+        read)."""
+        device = torch.device(device)
+        with np.load(os.path.join(path, "rescore_store.npz")) as z:
+            n, v, kk = (int(x) for x in z["meta"])
+            packed = torch.as_tensor(z["packed"].view(np.int16), device=device)
+        return cls(packed=packed, n_docs=n, vocab_size=v, prune_topk=kk)
 
 
 def build_rescore_store(index: SparseIndex) -> SpladeRescoreStore:

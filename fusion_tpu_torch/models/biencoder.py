@@ -11,7 +11,8 @@ The model holds its module on an explicit ``device``; ``encode`` returns the
 embeddings as a tensor on that device, so an encoded corpus never makes a
 host round trip (a SPLADE corpus at 28k docs is 1.8 GB in bf16).  ``search``
 is the model's own exact search over an encoded corpus, ``search_sparse``
-the SPLADE search over a fixed-K pruned index.
+the SPLADE search over a fixed-K pruned index.  ``save`` / ``load`` read and
+write the JAX package's checkpoint format (``models/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +24,13 @@ import torch
 
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists
-from fusion_tpu_torch.data.tokenization import TextEncoder, WordHashTokenizer
-from fusion_tpu_torch.models import heads
+from fusion_tpu_torch.data.tokenization import (
+    TextEncoder,
+    WordHashTokenizer,
+    tokenizer_config,
+    tokenizer_from_config,
+)
+from fusion_tpu_torch.models import checkpoint, convert, heads
 from fusion_tpu_torch.models.encoder import (
     Encoder,
     EncoderConfig,
@@ -209,4 +215,62 @@ class BiEncoder:
 
         return build_sparse_index(
             batches(), vocab_size=self.cfg.vocab_size, prune_topk=prune_topk, device=self.device
+        )
+
+    # -- persistence ------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Write the checkpoint as the JAX package's ``BiEncoder.save`` does:
+        its config keys, and the parameters in Flax's tree layout (f32)."""
+        te = self.text_encoder
+        config = {
+            "head": self.head,
+            "pooling": self.pooling,
+            "similarity": self.similarity,
+            "pruning_topk": self.pruning_topk,
+            "max_query_length": te.max_query_length,
+            "max_doc_length": te.max_doc_length,
+            "query_prefix": te.query_prefix,
+            "doc_prefix": te.doc_prefix,
+            "augment_query_to_maxlen": te.augment_query_to_maxlen,
+            "augment_doc_to_maxlen": te.augment_doc_to_maxlen,
+            "do_lowercase": te.do_lowercase,
+            "tokenizer": tokenizer_config(te.tokenizer),
+            "encoder": checkpoint.encoder_config_dict(self.cfg),
+        }
+        sd = self.module.state_dict()
+        if self.head == "splade":
+            tree = convert.encoder_with_mlm_flax_tree(sd, self.cfg.num_heads)
+        else:
+            tree = convert.encoder_flax_tree(sd, self.cfg.num_heads)
+        checkpoint.write(path, config, tree)
+
+    @classmethod
+    def load(cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32) -> "BiEncoder":
+        """Load a checkpoint written by either package, computing in
+        ``dtype`` on ``device``."""
+        config = checkpoint.read_config(path)
+        if tokenizer is None:
+            tokenizer = tokenizer_from_config(config.get("tokenizer"))
+        cfg = checkpoint.encoder_config_from_dict(config["encoder"], dtype=dtype)
+        variables = checkpoint.read_params(path)
+        if config["head"] == "splade":
+            params = convert.encoder_with_mlm_state_dict(variables)
+        else:
+            params = convert.encoder_state_dict(variables)
+        return cls(
+            cfg,
+            params=params,
+            tokenizer=tokenizer,
+            head=config["head"],
+            pooling=config["pooling"],
+            similarity=config["similarity"],
+            pruning_topk=config["pruning_topk"],
+            max_query_length=config["max_query_length"],
+            max_doc_length=config["max_doc_length"],
+            query_prefix=config["query_prefix"],
+            doc_prefix=config["doc_prefix"],
+            augment_query_to_maxlen=config["augment_query_to_maxlen"],
+            augment_doc_to_maxlen=config["augment_doc_to_maxlen"],
+            do_lowercase=config["do_lowercase"],
+            device=device,
         )

@@ -27,6 +27,8 @@ batches of ``query_batch``.
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -135,6 +137,37 @@ class BM25Index:
     @property
     def vocab_size(self) -> int:
         return len(self.vocab)
+
+    # -- persistence: the JAX package's npz + vocab json ------------------
+    def save(self, output_dir: str, name: str = "bm25_index") -> None:
+        os.makedirs(output_dir, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(output_dir, f"{name}.npz"),
+            entry_term=self.entry_term.cpu().numpy(),
+            entry_doc=self.entry_doc.cpu().numpy(),
+            entry_tf=self.entry_tf.cpu().numpy(),
+            idf=self.idf.cpu().numpy(),
+            doc_len=self.doc_len.cpu().numpy(),
+            meta=np.array([self.n_docs, self.nnz], dtype=np.int64),
+            params=np.array([self.k1, self.b, self.avgdl], dtype=np.float64),
+        )
+        with open(os.path.join(output_dir, f"{name}.vocab.json"), "w") as f:
+            json.dump({"variant": self.variant, "vocab": self.vocab}, f)
+
+    @classmethod
+    def load(cls, output_dir: str, name: str = "bm25_index", device="cuda") -> "BM25Index":
+        device = resolve_device(device)
+        with open(os.path.join(output_dir, f"{name}.vocab.json")) as f:
+            vj = json.load(f)
+        with np.load(os.path.join(output_dir, f"{name}.npz")) as z:
+            n_docs, nnz = (int(x) for x in z["meta"])
+            k1, b, avgdl = (float(x) for x in z["params"])
+            arrays = {
+                key: torch.as_tensor(z[key], device=device)
+                for key in ("entry_term", "entry_doc", "entry_tf", "idf", "doc_len")
+            }
+        return cls(vocab=vj["vocab"], n_docs=n_docs, variant=vj["variant"], k1=k1, b=b,
+                   avgdl=avgdl, nnz=nnz, **arrays)
 
     def encode_queries_np(
         self, queries: Sequence[str], max_terms: int = 64

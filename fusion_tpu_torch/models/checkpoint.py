@@ -1,0 +1,115 @@
+"""Model checkpoints in the JAX package's format.
+
+A checkpoint directory holds ``config_fusion_tpu.json`` (the model's
+options, its tokenizer's identity, the encoder config without its dtype,
+and a version stamp) and ``params.msgpack``: the Flax parameter tree as
+``flax.serialization.to_bytes`` writes it, read and written here by
+``utils/flax_msgpack.py``.  A checkpoint written by either package loads in
+the other; ``BiEncoder``, ``ColBERT`` and ``CrossEncoder`` build their
+``save`` / ``load`` on these helpers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import torch
+
+from fusion_tpu_torch.models.encoder import EncoderConfig
+from fusion_tpu_torch.utils import flax_msgpack
+
+CONFIG_FILENAME = "config_fusion_tpu.json"
+PARAMS_FILENAME = "params.msgpack"
+
+# the JAX EncoderConfig's fields that the port's config has no counterpart
+# for, with the values a port checkpoint writes for them: activation
+# rematerialization is a training option, and the port has one attention
+# implementation and no int8 trunk
+_JAX_ONLY_FIELDS = {"remat": False, "attention_impl": "einsum", "quantize": None}
+
+
+def encoder_config_dict(cfg: EncoderConfig) -> dict:
+    """The ``encoder`` entry of a config: every field but the dtype (a
+    loaded model computes in the dtype its loader asks for)."""
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "dtype"}
+    out.update(_JAX_ONLY_FIELDS)
+    return out
+
+
+def encoder_config_from_dict(entry: dict, dtype: torch.dtype = torch.float32) -> EncoderConfig:
+    """A config's ``encoder`` entry → the port's ``EncoderConfig``.  The
+    training-time and attention-kernel options are dropped; an X-MOD trunk
+    or an int8 trunk raises, as neither is ported."""
+    entry = dict(entry)
+    if "languages" in entry:
+        raise NotImplementedError(
+            "the checkpoint's trunk is X-MOD, which is not ported to fusion_tpu_torch yet "
+            "(ROADMAP.md Queue 1, item 17)"
+        )
+    if entry.get("quantize") is not None:
+        raise NotImplementedError(
+            f"the checkpoint asks for a {entry['quantize']!r} trunk: the int8 views are not ported "
+            "to fusion_tpu_torch yet (ROADMAP.md Queue 1, item 17)"
+        )
+    for name in _JAX_ONLY_FIELDS:
+        entry.pop(name, None)
+    return EncoderConfig(**entry, dtype=dtype)
+
+
+def version_stamp() -> dict:
+    import fusion_tpu_torch
+
+    return {"fusion_tpu_torch": fusion_tpu_torch.__version__, "torch": torch.__version__}
+
+
+def write(path: str, config: dict, params_tree: dict) -> None:
+    """Write ``config`` (with the version stamp) and the Flax tree, wrapped
+    as flax's variables dict ``{"params": tree}``."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, CONFIG_FILENAME), "w") as f:
+        json.dump({**config, "__version__": version_stamp()}, f, indent=2)
+    with open(os.path.join(path, PARAMS_FILENAME), "wb") as f:
+        f.write(flax_msgpack.packb({"params": params_tree}))
+
+
+def read_config(path: str) -> dict:
+    with open(os.path.join(path, CONFIG_FILENAME)) as f:
+        return json.load(f)
+
+
+def read_params(path: str) -> dict:
+    """The checkpoint's variables dict, pre-fusion attention layouts
+    migrated to the fused qkv form."""
+    with open(os.path.join(path, PARAMS_FILENAME), "rb") as f:
+        return migrate_pre_qkv_params(flax_msgpack.unpackb(f.read()))
+
+
+def migrate_pre_qkv_params(tree):
+    """Convert a param tree with separate attention query/key/value
+    projections to the fused layout (qkv kernel ``[H, 3, heads, hd]``), so
+    checkpoints saved before the fusion load unchanged.  No-op on fused
+    trees."""
+
+    def convert(d):
+        if not isinstance(d, dict):
+            return d
+        if "attention" in d and isinstance(d["attention"], dict) and "query" in d["attention"]:
+            att = dict(d["attention"])
+            qkv = {
+                "kernel": np.stack([_host(att[n]["kernel"]) for n in ("query", "key", "value")], axis=1),
+                "bias": np.stack([_host(att[n]["bias"]) for n in ("query", "key", "value")], axis=0),
+            }
+            for n in ("query", "key", "value"):
+                att.pop(n)
+            att["qkv"] = qkv
+            d = {**d, "attention": att}
+        return {k: convert(v) for k, v in d.items()}
+
+    return convert(tree)
+
+
+def _host(x) -> np.ndarray:
+    return x.to(torch.float32).numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

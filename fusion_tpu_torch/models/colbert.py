@@ -9,6 +9,7 @@ retriever's own search over a token index or a compressed one.
 from __future__ import annotations
 
 import dataclasses
+import os
 import string
 import time
 from typing import Mapping, Sequence
@@ -19,8 +20,14 @@ from torch import nn
 
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists
-from fusion_tpu_torch.data.tokenization import TextEncoder, WordHashTokenizer
+from fusion_tpu_torch.data.tokenization import (
+    TextEncoder,
+    WordHashTokenizer,
+    tokenizer_config,
+    tokenizer_from_config,
+)
 from fusion_tpu_torch.index.compression import compress_token_index, maxsim_search_compressed
+from fusion_tpu_torch.models import checkpoint, convert
 from fusion_tpu_torch.models.encoder import (
     Encoder,
     EncoderConfig,
@@ -66,6 +73,25 @@ class TokenIndex:
         if self._prepared is None:
             self._prepared = prepare_token_corpus(self.tokens, self.mask)
         return self._prepared
+
+    def save(self, path: str) -> None:
+        """``token_index.npz``: the tokens as f16 and the mask as int8, the
+        JAX package's format (bf16 values below f16's normal range do not
+        round-trip exactly)."""
+        os.makedirs(path, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(path, "token_index.npz"),
+            tokens=self.tokens.to(torch.float16).cpu().numpy(),
+            mask=self.mask.to(torch.int8).cpu().numpy(),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "TokenIndex":
+        device = resolve_device(device)
+        with np.load(os.path.join(path, "token_index.npz")) as z:
+            tokens = torch.from_numpy(z["tokens"]).to(device).to(torch.bfloat16)
+            mask = torch.from_numpy(z["mask"].astype(np.float32)).to(device)
+        return cls(tokens=tokens, mask=mask)
 
 
 class ColBERT:
@@ -221,3 +247,35 @@ class ColBERT:
             return maxsim_search_tm(q, q_mask, corpus_tm, doc_valid, k=k)
         tokens = index.tokens if index.tokens.is_cuda else index.tokens.float()
         return maxsim_search(q_tok, q_mask, tokens, index.mask, k=k, doc_block=doc_block)
+
+    # -- persistence ------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Write the checkpoint as the JAX package's ``ColBERT.save`` does."""
+        config = {
+            "model_type": "colbert",
+            "dim": self.dim,
+            "mask_punctuation": self.mask_punctuation,
+            "max_query_length": self.text_encoder.max_query_length,
+            "max_doc_length": self.text_encoder.max_doc_length,
+            "tokenizer": tokenizer_config(self.text_encoder.tokenizer),
+            "encoder": checkpoint.encoder_config_dict(self.cfg),
+        }
+        checkpoint.write(path, config, convert.colbert_flax_tree(self.module.state_dict(), self.cfg.num_heads))
+
+    @classmethod
+    def load(cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32) -> "ColBERT":
+        """Load a checkpoint written by either package, computing in
+        ``dtype`` on ``device``."""
+        config = checkpoint.read_config(path)
+        if tokenizer is None:
+            tokenizer = tokenizer_from_config(config.get("tokenizer"))
+        return cls(
+            checkpoint.encoder_config_from_dict(config["encoder"], dtype=dtype),
+            params=convert.colbert_state_dict(checkpoint.read_params(path)),
+            tokenizer=tokenizer,
+            dim=config["dim"],
+            max_query_length=config["max_query_length"],
+            max_doc_length=config["max_doc_length"],
+            mask_punctuation=config["mask_punctuation"],
+            device=device,
+        )

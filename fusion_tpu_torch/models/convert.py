@@ -13,7 +13,10 @@ Layouts that differ between the two packages:
 
 The functions take either a full variables dict (``{"params": ...}``) or the
 bare parameter tree, and return f32 CPU tensors; ``load_state_dict`` casts
-them to each module's dtype and device.
+them to each module's dtype and device.  The ``*_flax_tree`` functions are
+their inverses: a module's state dict → the Flax tree (f32 numpy leaves) that
+``flax.serialization`` writes for the JAX package's model, so a checkpoint
+saved by the port loads there.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ def _tree(variables: Mapping) -> Mapping:
 
 
 def _t(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # a bfloat16 leaf of a msgpack checkpoint
+        return x.detach().to(torch.float32).cpu().clone()
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
@@ -102,6 +107,82 @@ def crossencoder_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     _dense(tree["head"]["pooler"], "head.pooler", out)
     _dense(tree["head"]["classifier"], "head.classifier", out)
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def _dense_tree(sd: Mapping, prefix: str) -> dict:
+    out = {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).T)}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _np(sd[f"{prefix}.bias"])
+    return out
+
+
+def _ln_tree(sd: Mapping, prefix: str) -> dict:
+    return {"bias": _np(sd[f"{prefix}.bias"]), "scale": _np(sd[f"{prefix}.weight"])}
+
+
+def encoder_flax_tree(sd: Mapping, num_heads: int, prefix: str = "") -> dict:
+    """``Encoder`` state dict (keys under ``prefix``) → Flax ``Encoder`` params."""
+    emb = {"ln": _ln_tree(sd, f"{prefix}embeddings.ln")}
+    for name in ("position", "token_type", "word"):
+        emb[name] = {"embedding": _np(sd[f"{prefix}embeddings.{name}.weight"])}
+    tree = {"embeddings": emb}
+    i = 0
+    while f"{prefix}layers.{i}.attention.qkv.weight" in sd:
+        lp = f"{prefix}layers.{i}"
+        qkv_w = _np(sd[f"{lp}.attention.qkv.weight"])  # [3·H, H]
+        h = qkv_w.shape[1]
+        hd = h // num_heads
+        out_w = _np(sd[f"{lp}.attention.out.weight"])  # [H, H]
+        tree[f"layer_{i}"] = {
+            "attention": {
+                "out": {
+                    "bias": _np(sd[f"{lp}.attention.out.bias"]),
+                    "kernel": np.ascontiguousarray(out_w.T.reshape(num_heads, hd, h)),
+                },
+                "qkv": {
+                    "bias": _np(sd[f"{lp}.attention.qkv.bias"]).reshape(3, num_heads, hd),
+                    "kernel": np.ascontiguousarray(qkv_w.T.reshape(h, 3, num_heads, hd)),
+                },
+            },
+            "attn_ln": _ln_tree(sd, f"{lp}.attn_ln"),
+            "ffn_in": _dense_tree(sd, f"{lp}.ffn_in"),
+            "ffn_ln": _ln_tree(sd, f"{lp}.ffn_ln"),
+            "ffn_out": _dense_tree(sd, f"{lp}.ffn_out"),
+        }
+        i += 1
+    return tree
+
+
+def encoder_with_mlm_flax_tree(sd: Mapping, num_heads: int) -> dict:
+    """``EncoderWithMLM`` state dict → Flax ``EncoderWithMLM`` params."""
+    return {
+        "encoder": encoder_flax_tree(sd, num_heads, prefix="encoder."),
+        "mlm": {
+            "decoder": _dense_tree(sd, "mlm.decoder"),
+            "ln": _ln_tree(sd, "mlm.ln"),
+            "transform": _dense_tree(sd, "mlm.transform"),
+        },
+    }
+
+
+def colbert_flax_tree(sd: Mapping, num_heads: int) -> dict:
+    """``ColBERTModule`` state dict → Flax ``ColBERTModule`` params."""
+    return {
+        "colbert": {"proj": _dense_tree(sd, "colbert.proj")},
+        "encoder": encoder_flax_tree(sd, num_heads, prefix="encoder."),
+    }
+
+
+def crossencoder_flax_tree(sd: Mapping, num_heads: int) -> dict:
+    """``CrossEncoderModule`` state dict → Flax ``CrossEncoderModule`` params."""
+    return {
+        "encoder": encoder_flax_tree(sd, num_heads, prefix="encoder."),
+        "head": {"classifier": _dense_tree(sd, "head.classifier"), "pooler": _dense_tree(sd, "head.pooler")},
+    }
 
 
 def plaid_index_from_arrays(

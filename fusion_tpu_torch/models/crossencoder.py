@@ -20,7 +20,8 @@ document.  Two ways to score a batch's ``[Q, K]`` candidates:
     exactly the tokens and positions it has alone.
 
 Both give the same logits up to the order of float sums.  ``predict``,
-``rank`` and ``rerank`` are the host-side API over text pairs.  The JAX
+``rank`` and ``rerank`` are the host-side API over text pairs; ``save`` /
+``load`` read and write the JAX package's checkpoint format.  The JAX
 package's cascade and length-bucketed stages, the int8 view
 (``quantized``) and other attention implementations (``with_attention``)
 are later work (ROADMAP.md Queue 1, items 9, 17 and 2).
@@ -36,7 +37,13 @@ from torch import nn
 
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores
-from fusion_tpu_torch.data.tokenization import WordHashTokenizer, pair_encode_simple
+from fusion_tpu_torch.data.tokenization import (
+    WordHashTokenizer,
+    pair_encode_simple,
+    tokenizer_config,
+    tokenizer_from_config,
+)
+from fusion_tpu_torch.models import checkpoint, convert
 from fusion_tpu_torch.models.encoder import Encoder, EncoderConfig, init_weights, place, token_tensors
 from fusion_tpu_torch.models.heads import CrossEncoderHead
 
@@ -415,4 +422,35 @@ class CrossEncoder:
         raise NotImplementedError(
             f"CrossEncoder.with_attention({impl!r}): the port's attention is the plain f32-logit "
             "math; other implementations are not ported yet (ROADMAP.md Queue 1, item 2)"
+        )
+
+    # -- persistence ------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Write the checkpoint as the JAX package's ``CrossEncoder.save`` does."""
+        config = {
+            "model_type": "crossencoder",
+            "max_length": self.max_length,
+            "tokenizer": tokenizer_config(self.tokenizer),
+            "encoder": checkpoint.encoder_config_dict(self.cfg),
+        }
+        checkpoint.write(path, config, convert.crossencoder_flax_tree(self.module.state_dict(), self.cfg.num_heads))
+
+    @classmethod
+    def load(cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32) -> "CrossEncoder":
+        """Load a checkpoint written by either package, computing in
+        ``dtype`` on ``device``.  A T5 cross-encoder checkpoint raises."""
+        config = checkpoint.read_config(path)
+        if config.get("model_type") == "t5_crossencoder":
+            raise NotImplementedError(
+                "the checkpoint is a T5 cross-encoder: models/t5.py is not ported to fusion_tpu_torch "
+                "yet (ROADMAP.md Queue 1, item 17)"
+            )
+        if tokenizer is None:
+            tokenizer = tokenizer_from_config(config.get("tokenizer"))
+        return cls(
+            checkpoint.encoder_config_from_dict(config["encoder"], dtype=dtype),
+            params=convert.crossencoder_state_dict(checkpoint.read_params(path)),
+            tokenizer=tokenizer,
+            max_length=config["max_length"],
+            device=device,
         )

@@ -29,16 +29,22 @@ pair and re-sorted above the untouched tail (``rerank_head_merge``), either
 packed (the default: pairs packed into fixed-width rows, planned on the host
 from the head ids) or flat (every pair padded to the full doc width).
 
-The offline ``build()`` encodes the corpus once per system.  The cascade and
-length-bucketed rerank stages, int8 query encoders, percentile
-normalizations and index persistence are later slices of the port
-(ROADMAP.md Queue 1); asking for them raises ``NotImplementedError``.
+The offline ``build()`` encodes the corpus once per system;
+``save_indexes`` writes every index to one directory in the JAX package's
+format and ``load_indexes`` serves such a directory, whichever package wrote
+it.  NSF's percentile normalizations read per-system quantile tables
+(``build_percentile_distributions``, or a saved directory's).  The cascade
+and length-bucketed rerank stages and int8 query encoders are later slices
+of the port (ROADMAP.md Queue 1); asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import ClassVar, Mapping, Sequence
 
@@ -47,7 +53,12 @@ import torch
 
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores
-from fusion_tpu_torch.fusion.aggregator import FUSION_METHODS, NORMALIZATIONS, Aggregator
+from fusion_tpu_torch.fusion.aggregator import (
+    FUSION_METHODS,
+    NORMALIZATIONS,
+    Aggregator,
+    build_percentile_distribution,
+)
 from fusion_tpu_torch.index.compression import CompressedTokenIndex, maxsim_search_compressed
 from fusion_tpu_torch.index.dense_quant import (
     QuantizedDenseIndex,
@@ -56,15 +67,18 @@ from fusion_tpu_torch.index.dense_quant import (
 )
 from fusion_tpu_torch.index.inverted import (
     CAP_SAFE_DF_RATIO,
+    ChunkedImpactIndex,
     ImpactCapTruncationWarning,
+    ImpactIndex,
     activations_to_query_terms,
     impact_search,
     sparse_to_chunked_impact_index,
     sparse_to_impact_index,
 )
-from fusion_tpu_torch.index.plaid import build_ivf, plaid_search
-from fusion_tpu_torch.index.sparse import build_rescore_store, sparse_rescore
+from fusion_tpu_torch.index.plaid import IVFIndex, build_ivf, plaid_search
+from fusion_tpu_torch.index.sparse import SpladeRescoreStore, build_rescore_store, sparse_rescore
 from fusion_tpu_torch.models.bm25 import BM25Index
+from fusion_tpu_torch.models.colbert import TokenIndex
 from fusion_tpu_torch.models.crossencoder import CrossEncoder
 from fusion_tpu_torch.models.encoder import token_tensors
 from fusion_tpu_torch.models.heads import l2_normalize
@@ -81,6 +95,32 @@ _NOT_PORTED = {
     "encoders_int8": "int8 query encoders (Slice C, item 17)",
 }
 _PERCENTILE_NORMALIZATIONS = ("percentile-rank", "normal-curve-equivalent")
+
+
+@contextmanager
+def _timed(timings: dict | None, name: str):
+    """Record the block's wall seconds under ``name`` (if collecting)."""
+    t0 = time.perf_counter()
+    yield
+    if timings is not None:
+        timings[name] = time.perf_counter() - t0
+
+
+def _save_corpus_matrix(corpus, path: str, name: str) -> None:
+    """An int8 corpus as its own directory; a bf16 one as f16 ``.npy``."""
+    if isinstance(corpus, QuantizedDenseIndex):
+        corpus.save(os.path.join(path, f"{name}_int8"))
+    else:
+        np.save(os.path.join(path, f"{name}_corpus.npy"), corpus.to(torch.float16).cpu().numpy())
+
+
+def _load_corpus_matrix(path: str, name: str, device: torch.device):
+    if os.path.exists(os.path.join(path, f"{name}_int8", "dense_int8.npz")):
+        return QuantizedDenseIndex.load(os.path.join(path, f"{name}_int8"), device=device)
+    npy = os.path.join(path, f"{name}_corpus.npy")
+    if os.path.exists(npy):
+        return torch.from_numpy(np.load(npy)).to(device).to(torch.bfloat16)
+    return None
 
 
 def rerank_head_merge(fused: RankedLists, head_ids: torch.Tensor, logits: torch.Tensor) -> RankedLists:
@@ -200,6 +240,10 @@ class HybridSearcher:
     rerank_row_width: int | None = None  # None: ~1.5x the longest pair
     fusion_method: str = "rrf"
     normalization: str | None = None
+    # per-system quantile tables of the percentile normalizations: made by
+    # build_percentile_distributions(), read from a saved directory, or
+    # assigned from an offline HybridPipeline.analyze_score_distributions run
+    percentile_distributions: Mapping[str, np.ndarray] | None = None
     linear_weights: Mapping[str, float] | None = None
     topk: int = 1000
     # applied to queries for the lexical leg only (the neural legs take the
@@ -299,12 +343,6 @@ class HybridSearcher:
             raise ValueError(f"fusion_method must be one of {FUSION_METHODS}")
         if normalization not in (None, *NORMALIZATIONS):
             raise ValueError(f"normalization must be one of {NORMALIZATIONS}")
-        if fusion_method == "nsf" and normalization in _PERCENTILE_NORMALIZATIONS:
-            raise NotImplementedError(
-                f"normalization={normalization!r} needs per-system quantile tables "
-                "(build_percentile_distributions), which are not ported to "
-                "fusion_tpu_torch yet (Slice A, item 8)"
-            )
         if splade_impl not in ("auto", "scatter", "impact"):
             raise ValueError(f"splade_impl must be 'auto', 'scatter' or 'impact', got {splade_impl!r}")
         if dense_impl not in ("auto", "exact", "fused"):
@@ -478,11 +516,127 @@ class HybridSearcher:
     def _rerank_active(self) -> bool:
         return self.cross_encoder is not None and self.rerank_depth > 0 and self.ce_doc_tokens is not None
 
-    def save_indexes(self, path: str) -> None:
-        raise NotImplementedError("index persistence is not ported to fusion_tpu_torch yet")
+    # -- index persistence: one directory holds every system's files ------
+    def save_indexes(self, path: str, timings: dict | None = None) -> None:
+        """Write every index in the JAX package's layout and formats (the
+        bf16 corpus matrices and the token index as f16).  ``timings``, if
+        given, receives the seconds each component took, by file name."""
+        os.makedirs(path, exist_ok=True)
+        np.save(os.path.join(path, "corpus_ids.npy"), self.corpus_ids)
+        dc = self.dense_corpus
+        # real rows only: the binned kernel's pad rows are a layout of this
+        # process, and a reloaded searcher could not tell them apart
+        if isinstance(dc, QuantizedDenseIndex) and self.dense_n_docs:
+            dc = dc._replace(values=dc.values[: self.dense_n_docs], scales=dc.scales[: self.dense_n_docs])
+        for name, index in (
+            ("bm25", self.bm25),
+            ("bm25_impact", self.bm25_impact_index),
+            ("dense", dc),
+            ("splade", self.splade_corpus),
+            ("splade_impact", self.splade_impact_index),
+            ("splade_scatter", self.splade_scatter_index),
+            ("splade_rescore", self.splade_rescore_store),
+            ("colbert", self.colbert_index),
+            ("colbert_ivf", self.colbert_ivf),
+        ):
+            if index is None:
+                continue
+            with _timed(timings, name):
+                if name in ("dense", "splade"):
+                    _save_corpus_matrix(index, path, name)
+                else:
+                    index.save(os.path.join(path, name))
+        if self.ce_doc_tokens is not None:
+            with _timed(timings, "ce_doc_tokens"):
+                ids = self.ce_doc_tokens.cpu().numpy()
+                np.savez_compressed(
+                    os.path.join(path, "ce_doc_tokens.npz"),
+                    # the JAX package stores uint16 ids where the port holds int16 bits
+                    ids=ids.view(np.uint16) if ids.dtype == np.int16 else ids,
+                    mask=self.ce_doc_mask.cpu().numpy().astype(np.int8),
+                )
+        if self.percentile_distributions:
+            np.savez_compressed(
+                os.path.join(path, "percentile_distributions.npz"),
+                **{s: np.asarray(t) for s, t in self.percentile_distributions.items()},
+            )
 
-    def load_indexes(self, path: str) -> "HybridSearcher":
-        raise NotImplementedError("index persistence is not ported to fusion_tpu_torch yet")
+    def load_indexes(self, path: str, int8_corpus: bool = False, timings: dict | None = None) -> "HybridSearcher":
+        """Serve the indexes of a directory written by either package, on
+        this searcher's device.  The models stay the searcher's own.
+        ``int8_corpus`` quantizes the BM25 impacts rebuilt from a non-scale
+        BM25 index (the corpus matrices keep their stored form).
+        ``timings``, if given, receives the seconds of each component."""
+        dev = self.device
+        self.corpus_ids = np.load(os.path.join(path, "corpus_ids.npy"))
+
+        def there(*parts):
+            return os.path.exists(os.path.join(path, *parts))
+
+        has_bm25_impact = there("bm25_impact", "impact_index.npz")
+        if there("bm25"):
+            with _timed(timings, "bm25"):
+                self.bm25 = BM25Index.load(os.path.join(path, "bm25"), device=dev)
+                if not has_bm25_impact:
+                    self.bm25_impacts = self.bm25.build_dense_impacts()
+                    if int8_corpus:
+                        self.bm25_impacts = _quantize_impacts(self.bm25_impacts)
+        if has_bm25_impact:
+            with _timed(timings, "bm25_impact"):
+                self.bm25_impact_index = ImpactIndex.load(os.path.join(path, "bm25_impact"), device=dev)
+        for name in ("dense", "splade"):
+            with _timed(timings, name):
+                loaded = _load_corpus_matrix(path, name, dev)
+            if loaded is not None:
+                setattr(self, f"{name}_corpus", loaded)
+                if name == "dense":
+                    self.dense_n_docs = None
+            elif timings is not None:
+                timings.pop(name)
+        for name, file, cls, attr in (
+            ("splade_impact", "impact_index.npz", ImpactIndex, "splade_impact_index"),
+            ("splade_scatter", "chunked_impact_index.npz", ChunkedImpactIndex, "splade_scatter_index"),
+            ("splade_rescore", "rescore_store.npz", SpladeRescoreStore, "splade_rescore_store"),
+            ("colbert_ivf", "ivf_index.npz", IVFIndex, "colbert_ivf"),
+        ):
+            if there(name, file):
+                with _timed(timings, name):
+                    setattr(self, attr, cls.load(os.path.join(path, name), device=dev))
+        if self.splade_rescore_store is not None and not self.splade_rescore_depth:
+            self.splade_rescore_depth = 512  # the scale-mode default
+        for file, cls in (("compressed_index.npz", CompressedTokenIndex), ("token_index.npz", TokenIndex)):
+            if there("colbert", file):
+                with _timed(timings, "colbert"):
+                    self.colbert_index = cls.load(os.path.join(path, "colbert"), device=dev)
+                    if self.colbert_ivf is None:  # PLAID never reads the search layout
+                        self.colbert_index.prepared()
+                break
+        if there("ce_doc_tokens.npz"):
+            with _timed(timings, "ce_doc_tokens"):
+                with np.load(os.path.join(path, "ce_doc_tokens.npz")) as z:
+                    ids, mask = z["ids"], z["mask"]
+                if ids.dtype == np.uint16:
+                    ids = ids.view(np.int16)  # the port holds uint16 ids as int16 bits
+                self.ce_doc_tokens = torch.as_tensor(ids, device=dev)
+                self.ce_doc_mask = torch.as_tensor(mask, device=dev)
+                self.ce_doc_lens = mask.sum(axis=1).astype(np.int32)
+        if there("percentile_distributions.npz"):
+            with np.load(os.path.join(path, "percentile_distributions.npz")) as z:
+                self.percentile_distributions = {s: z[s] for s in z.files}
+        return self
+
+    def build_percentile_distributions(
+        self, queries: Sequence[str], num_points: int = 10_000, batch_size: int = 32
+    ) -> dict[str, np.ndarray]:
+        """Per-system quantile tables from a query sample's scores: each
+        system's per-query top-``self.topk`` scores, pooled.  Sets
+        ``self.percentile_distributions`` and returns the tables."""
+        tables = {}
+        for system, ranked in self.search_systems(queries, batch_size=batch_size, external_ids=False).items():
+            scores = ranked.scores.numpy()
+            tables[system] = build_percentile_distribution(scores[np.isfinite(scores)], num_points=num_points)
+        self.percentile_distributions = tables
+        return tables
 
     def _dense_fused_active(self) -> bool:
         """The DPR leg goes through the binned kernel: an int8 corpus, and
@@ -662,11 +816,21 @@ class HybridSearcher:
         if len(results) == 1:
             return next(iter(results.values()))
         weights = self.linear_weights or {s: 1.0 / len(results) for s in results}
+        tables = None
+        if self.fusion_method == "nsf" and self.normalization in _PERCENTILE_NORMALIZATIONS:
+            if not self.percentile_distributions:
+                raise ValueError(
+                    f"normalization={self.normalization!r} needs per-system quantile tables: call "
+                    "build_percentile_distributions() or assign .percentile_distributions from an "
+                    "offline analyze_score_distributions run"
+                )
+            tables = self.percentile_distributions
         return Aggregator.fuse(
             results,
             method=self.fusion_method,
             normalization=self.normalization,
             linear_weights=weights if self.fusion_method == "nsf" else None,
+            percentile_distributions=tables,
             return_topk=self.topk,
         )
 

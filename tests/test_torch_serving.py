@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 from test_serving import CORPUS, QUERIES
@@ -74,7 +75,7 @@ def test_search_systems_leg_matches_jax(searchers, system):
     [
         dict(rerank_buckets=(8, 16)),
         dict(encoders_int8=True),
-        dict(fusion_method="nsf", normalization="percentile-rank"),
+        dict(rerank_cascade=(4, 8)),
     ],
 )
 def test_unported_build_options_raise(option):
@@ -82,10 +83,20 @@ def test_unported_build_options_raise(option):
         HybridSearcher.build(CORPUS, device=DEVICE, bm25_docs=list(CORPUS.values()), **option)
 
 
-def test_persistence_is_not_ported(searchers):
+def test_persistence_is_not_ported(searchers, tmp_path):
+    """Persistence is ported now: the searcher's directory reloads into a
+    fresh searcher that ranks the same lists (test_torch_persistence.py
+    holds the formats to the JAX package's)."""
     _, got_s = searchers
-    with pytest.raises(NotImplementedError):
-        got_s.save_indexes("unused")
+    got_s.save_indexes(str(tmp_path))
+    fresh = HybridSearcher(
+        corpus_ids=np.array([]), dense_model=got_s.dense_model, splade_model=got_s.splade_model,
+        colbert_model=got_s.colbert_model, topk=got_s.topk, bm25_preprocess=got_s.bm25_preprocess,
+        device=DEVICE,
+    ).load_indexes(str(tmp_path))
+    want, _ = got_s.search(SEARCH_QUERIES, batch_size=4)
+    got, _ = fresh.search(SEARCH_QUERIES, batch_size=4)
+    assert_ranked_match(got.ids, got.scores, want.ids, want.scores, atol=ATOL)
 
 
 def test_serving_import_leaves_jax_out():
