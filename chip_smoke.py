@@ -11,6 +11,32 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 csrc/hopper.cuh), one nvcc each, all at once; prints their
                 ptxas reports (registers, spills, shared memory, and the
                 wgmma waits ptxas inserted);
+     train    — training on the empty card, after the build: each family at
+                its preset's shapes (DPR MNRL, LLeQA: batch 64, query and
+                doc 512, one hard negative; SPLADE spladev2 (InfoNCE with
+                in-batch negatives + FLOPS), LLeQA: batch 32, query 64, doc
+                512; ColBERT CE, mMARCO: batch 128, query 32, doc 256, one
+                negative; monoBERT BCE, LLeQA: batch 32, length 256),
+                CamemBERT-base width, random weights, bf16 compute over f32
+                master weights, remat on, AdamW: 2 warm-up and 5 timed steps
+                (median ms/step, sequences/s, tokens/s, peak memory, the
+                analytic model TFLOP per step (3 x forward) and hardware TFLOP
+                (one more forward of the layers under remat), MFU against 989
+                bf16 TFLOP/s) and one traced step; every loss finite;
+     train_agreement — the f32 train step on the card against the CPU at
+                base width, 2 layers, batch 4, dropout 0, per family: loss
+                within 1e-4, every gradient leaf within 1e-3 (norm-wise) and
+                every param element within 0.2 lr after 3 AdamW steps; SPLADE,
+                whose max pooling breaks near-ties either way, within 1e-2 on
+                gradients and 5e-2 on each leaf's 3-step update;
+     train_fit — full width, one repeated batch of 8 at a constant lr: the
+                loss after 20 steps below step 1's, per family; the first
+                step with dropout 0.1, remat on and off: equal losses,
+                gradients within 2^-8 per leaf;
+     cli_train — the CLI's dpr / splade / colbert / monobert at --tiny on a
+                fixture it writes: --task train then --task test (ColBERT's
+                through K1, its launches counted); each final/ reloaded
+                encodes as the trained model does;
   3. kernel   — K1 (MaxSim, the wgmma/TMA kernel) against its plain version
                 at the serving shape (Ld 128, N 28,032, D 128, QL 64x32),
                 bit-identical over 10 more launches, with its achieved
@@ -1736,6 +1762,320 @@ def server_check(torch, np, searcher, queries) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# training
+# ----------------------------------------------------------------------
+H100_BF16_FLOPS = 989e12  # dense bf16 peak of the H100 SXM data sheet
+# family → (batch, query length, doc / pair length, negatives per query): the
+# presets' shapes (DPR, SPLADE and monoBERT on LLeQA, ColBERT on mMARCO)
+TRAIN_SHAPES = {"dpr": (64, 512, 512, 1), "splade": (32, 64, 512, 1), "colbert": (128, 32, 256, 1),
+                "monobert": (32, 0, 256, 0)}
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# [train_agreement], f32 card vs f32 CPU, gates per family on: the loss
+# (relative), the largest gradient leaf apart (||card - cpu|| / ||cpu||),
+# and the params after 3 steps, element by element in units of the lr or,
+# for SPLADE, per leaf by the norm of the 3 steps' update.  SPLADE's max
+# pooling routes a vocab entry's gradient to one token, and a near-tie
+# between two tokens resolves either way from a last-digit difference: its
+# gradient leaves differ by ~1e-3 between the two devices (1.35e-3 on an
+# H100 80GB HBM3 at 700 W), and Adam turns rounding-level gradient elements
+# into steps of +-lr (the CPU at 1 and at 8 threads already puts one
+# decoder element 0.86 lr apart).  The other families read 6.4e-5 (DPR),
+# 3.7e-6 (ColBERT) and 8.0e-7 (monoBERT) on gradients and at most 0.016 lr
+# on params, and keep the narrow gates, which a card computing in TF32 or
+# bf16 would not pass.
+AGREE_LOSS_RTOL = 1e-4
+AGREE_GATES = {
+    "dpr": {"grad_max_rel": 1e-3, "param_max_abs_over_lr": 0.2},
+    "splade": {"grad_max_rel": 1e-2, "update_max_rel": 5e-2},
+    "colbert": {"grad_max_rel": 1e-3, "param_max_abs_over_lr": 0.2},
+    "monobert": {"grad_max_rel": 1e-3, "param_max_abs_over_lr": 0.2},
+}
+REMAT_GRAD_TOL = 2.0 ** -8  # [train_fit] remat on vs off, bf16: per leaf ||a - b|| / ||b||
+
+
+def train_batch(np, family, b, lq, ld, n_neg, vocab, seed):
+    """A batch of random ids at full length (every token real)."""
+    rng = np.random.default_rng(seed)
+    ids = lambda n, length: rng.integers(5, vocab, size=(n, length), dtype=np.int64)  # noqa: E731
+    if family == "monobert":
+        return {"pair_ids": ids(b, ld), "pair_mask": np.ones((b, ld), np.int32),
+                "labels": (rng.random(b) < 0.5).astype(np.float32)}
+    mask = lambda n, length: np.ones((n, length), np.float32 if family == "colbert" else np.int32)  # noqa: E731
+    return {"query_ids": ids(b, lq), "query_mask": mask(b, lq), "pos_ids": ids(b, ld), "pos_mask": mask(b, ld),
+            "neg_ids": ids(b * n_neg, ld), "neg_mask": mask(b * n_neg, ld)}
+
+
+def train_model(torch, family, cfg, seed, device):
+    """A family's model with f32 master weights."""
+    from fusion_tpu_torch.models.biencoder import BiEncoder
+    from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+
+    kw = dict(seed=seed, device=device, param_dtype=torch.float32)
+    if family in ("dpr", "splade"):
+        return BiEncoder(cfg, head="dense" if family == "dpr" else "splade", **kw)
+    if family == "colbert":
+        return ColBERT(cfg, dim=DIM, **kw)
+    return CrossEncoder(cfg, **kw)
+
+
+def train_loss(family, model, batch, step, seed=0, total_steps=30):
+    """The family's training loss (DPR MNRL, SPLADE spladev2, ColBERT CE,
+    monoBERT BCE) → (loss, metrics)."""
+    from fusion_tpu_torch.models.biencoder import SPLADE_PRESETS
+    from fusion_tpu_torch.train import trainer
+
+    if family == "dpr":
+        return trainer.biencoder_loss(model, batch, step, {"name": "MNRLoss", "scale": 20.0}, None, total_steps, seed)
+    if family == "splade":
+        v = SPLADE_PRESETS["spladev2"]
+        return trainer.biencoder_loss(model, batch, step, v["rank_loss"], v["reg_loss"], total_steps, seed)
+    if family == "colbert":
+        return trainer.colbert_loss(model, batch, step, "ce", seed)
+    return trainer.crossencoder_loss(model, batch, step, seed)
+
+
+def train_step_fn(family, model, tx, total_steps=30):
+    """The family's train step from its public factory, with
+    ``train_loss``'s losses."""
+    from fusion_tpu_torch.models.biencoder import SPLADE_PRESETS
+    from fusion_tpu_torch.train import trainer
+
+    if family == "dpr":
+        return trainer.make_biencoder_train_step(model, tx, {"name": "MNRLoss", "scale": 20.0}, None, total_steps)
+    if family == "splade":
+        v = SPLADE_PRESETS["spladev2"]
+        return trainer.make_biencoder_train_step(model, tx, v["rank_loss"], v["reg_loss"], total_steps)
+    if family == "colbert":
+        return trainer.make_colbert_train_step(model, tx, "ce")
+    return trainer.make_crossencoder_train_step(model, tx)
+
+
+def train_flops(cfg, family, b, lq, ld, n_neg) -> tuple[float, float]:
+    """(model FLOPs, hardware FLOPs) of one train step: 3x the forward
+    (forward + backward), plus under remat one more forward of the layers."""
+    def enc(n, length):
+        return n * (length * _trunk_flops_per_token(cfg) + _attention_flops(cfg, length))
+
+    h, v = cfg.hidden_size, cfg.vocab_size
+    if family == "monobert":
+        layers, heads = enc(b, ld), b * (2 * h * h + 2 * h)
+    else:
+        layers = enc(b, lq) + enc(b * (1 + n_neg), ld)
+        tokens = b * lq + b * (1 + n_neg) * ld
+        if family == "dpr":
+            heads = 2.0 * b * b * (1 + n_neg) * h  # in-batch similarities
+        elif family == "splade":
+            heads = tokens * (2 * h * h + 2 * h * v) + 2.0 * b * b * (1 + n_neg) * v
+        else:  # projection and MaxSim over the positive and the negatives
+            heads = tokens * 2 * h * DIM + 2.0 * b * (1 + n_neg) * lq * ld * DIM
+    model = 3 * (layers + heads)
+    return model, model + (layers if cfg.remat else 0)
+
+
+def train_check(torch, np, device="cuda") -> dict:
+    """[train]: each family at its preset's shapes, CamemBERT-base width,
+    bf16 compute over f32 master weights, remat on, AdamW: 2 warm-up and 5
+    timed steps, each ended by a synchronize, then one traced step (device
+    time, busy share, the top device operations)."""
+    from fusion_tpu_torch.models.encoder import EncoderConfig
+    from fusion_tpu_torch.train import trainer
+
+    cfg = EncoderConfig(dtype=torch.bfloat16, remat=True)
+    out = {}
+    for seed, (family, (b, lq, ld, n_neg)) in enumerate(TRAIN_SHAPES.items()):
+        t0 = time.perf_counter()
+        model = train_model(torch, family, cfg, 100 + seed, device)
+        batch = trainer._to_device(train_batch(np, family, b, lq, ld, n_neg, cfg.vocab_size, seed), model.device)
+        fit_cfg = trainer.FitConfig(steps=30, learning_rate=2e-5)
+        state, tx, _ = trainer.init_train_state(model, fit_cfg)
+        step = train_step_fn(family, model, tx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            w0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            if i >= TRAIN_WARMUP:
+                times.append((time.perf_counter() - w0) * 1000)
+            losses.append(metrics["loss"].item())
+            check(np.isfinite(losses[-1]), f"train {family}: step {i} loss {losses[-1]}")
+        ms = statistics.median(times)
+        traced = stage_profile(torch, lambda: step(state, batch))  # the last step; its state is not kept
+        n_seq = b if family == "monobert" else b * (2 + n_neg)
+        n_tok = b * ld if family == "monobert" else b * lq + b * (1 + n_neg) * ld
+        model_flops, hw_flops = train_flops(cfg, family, b, lq, ld, n_neg)
+        out[family] = {
+            "shape": f"B{b}xLq{lq}xLd{ld}xneg{n_neg}", "ms_per_step": ms, "ms_all": times,
+            "sequences_per_s": n_seq / ms * 1000, "tokens_per_s": n_tok / ms * 1000,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "model_tflop_per_step": model_flops / 1e12, "hw_tflop_per_step": hw_flops / 1e12,
+            "mfu": model_flops / (ms / 1000) / H100_BF16_FLOPS, "hw_util": hw_flops / (ms / 1000) / H100_BF16_FLOPS,
+            "losses": losses, "traced_step": traced, "wall_s": time.perf_counter() - t0,
+        }
+        del model, state, tx, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().float().cpu() for n, p in model.module.named_parameters()}
+
+
+def _max_rel(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).norm() / max(float(b[k].norm()), 1e-30)) for k in b)
+
+
+def train_agreement(torch, np, device="cuda") -> dict:
+    """[train_agreement]: the f32 train step on the card against the CPU,
+    CamemBERT-base width at 2 layers, batch 4 (query 32, doc 64), dropout 0:
+    the loss and every gradient at step 4, then the update of 3 AdamW
+    steps (lr 1e-3, linear warmup over 3 of 10 steps), each held to its
+    family's ``AGREE_GATES``."""
+    from fusion_tpu_torch.models.encoder import EncoderConfig
+    from fusion_tpu_torch.train import trainer
+
+    cfg = EncoderConfig(num_layers=2, dropout=0.0)
+    out = {}
+    for seed, family in enumerate(TRAIN_SHAPES):
+        host = train_batch(np, family, 4, 32, 64, 1, cfg.vocab_size, 50 + seed)
+        res = {}
+        for dev in ("cpu", device):
+            model = train_model(torch, family, cfg, 200 + seed, dev)
+            batch = trainer._to_device(host, model.device)
+            loss, _ = train_loss(family, model, batch, 4)
+            loss.backward()
+            grads = _grads(model)
+            before = {k: v.detach().cpu().clone() for k, v in model.module.state_dict().items()}
+            fit_cfg = trainer.FitConfig(steps=10, learning_rate=1e-3, warmup_ratio=0.3)
+            state, tx, _ = trainer.init_train_state(model, fit_cfg)
+            step = train_step_fn(family, model, tx, total_steps=10)
+            for _ in range(3):
+                state, _ = step(state, batch)
+            after = {k: v.detach().cpu() for k, v in model.module.state_dict().items()}
+            res[dev] = (loss.item(), grads, {k: after[k] - before[k] for k in after}, after)
+            del model, state, tx, step
+        (l_cpu, g_cpu, u_cpu, p_cpu), (l_gpu, g_gpu, u_gpu, p_gpu) = res["cpu"], res[device]
+        out[family] = {
+            "loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
+            "grad_max_rel": _max_rel(g_gpu, g_cpu),
+            "update_max_rel": _max_rel(u_gpu, u_cpu),
+            "param_max_abs_over_lr": max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu) / 1e-3,
+        }
+        r = out[family]
+        check(r["loss_rel"] <= AGREE_LOSS_RTOL and all(r[k] <= lim for k, lim in AGREE_GATES[family].items()),
+              f"train_agreement {family}: {r} against {AGREE_GATES[family]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_fit(torch, np, device="cuda") -> dict:
+    """[train_fit]: full width, bf16, remat, dropout 0.1, one repeated batch
+    of 8 (query 32, doc 128) at a constant lr 1e-4: the loss after 20 AdamW
+    steps below the first step's; then the first step's loss and gradients
+    with remat on and off (the recompute draws the first forward's masks)."""
+    from fusion_tpu_torch.models.encoder import EncoderConfig
+    from fusion_tpu_torch.train import trainer
+
+    out = {}
+    for seed, family in enumerate(TRAIN_SHAPES):
+        host = train_batch(np, family, 8, 32, 128, 1, 32_005, 70 + seed)
+        cfg = EncoderConfig(dtype=torch.bfloat16, remat=True)
+        model = train_model(torch, family, cfg, 300 + seed, device)
+        batch = trainer._to_device(host, model.device)
+        fit_cfg = trainer.FitConfig(steps=21, learning_rate=1e-4, scheduler="constant")
+        state, tx, _ = trainer.init_train_state(model, fit_cfg)
+        step = train_step_fn(family, model, tx, total_steps=21)
+        losses = []
+        for _ in range(21):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+        del model, state, tx, step
+        grads, first = [], []
+        for remat in (True, False):
+            m = train_model(torch, family, dataclasses.replace(cfg, remat=remat), 300 + seed, device)
+            loss, _ = train_loss(family, m, batch, 0, seed=9)
+            loss.backward()
+            grads.append(_grads(m))
+            first.append(loss.item())
+            del m
+        out[family] = {"loss_step1": losses[0], "loss_after_20": losses[20], "remat_loss": first,
+                       "remat_grad_max_rel": _max_rel(grads[0], grads[1])}
+        r = out[family]
+        check(all(np.isfinite(losses)) and losses[20] < losses[0], f"train_fit {family}: losses {losses}")
+        check(first[0] == first[1] and r["remat_grad_max_rel"] <= REMAT_GRAD_TOL, f"train_fit {family} remat: {r}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cli_train_check(torch, np, root, kernels, device="cuda") -> dict:
+    """[cli_train]: the CLI's dpr / splade / colbert / monobert in process
+    at --tiny on a fixture it writes (300 docs of the zipf words spelled in
+    letters, 48 train and 16 dev questions, BM25-style negatives): --task
+    train (10 steps, batch 8), then --task test on the saved final/; the
+    ColBERT test task searches through K1 (its launches counted); each
+    final/ reloaded by the port encodes as the trained model does."""
+    from fusion_tpu_torch.cli.main import main as cli_main
+    from fusion_tpu_torch.models.biencoder import BiEncoder
+    from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+    from fusion_tpu_torch.models.encoder import token_tensors
+
+    docs, queries = zipf_corpus(np, 300, 64, seed=5, vocab=2_000)
+    docs, queries = [letter_text(d) for d in docs], [letter_text(q) for q in queries]
+    rng = np.random.default_rng(6)
+    gold = rng.integers(0, len(docs), size=len(queries))
+    question = lambda qi: {"id": qi, "question": queries[qi], "article_ids": [1000 + int(gold[qi])]}  # noqa: E731
+    fixture = {
+        "corpus": [{"id": 1000 + i, "article": d, "description": ""} for i, d in enumerate(docs)],
+        "questions": {"train": [question(q) for q in range(48)], "dev": [question(q) for q in range(48, 64)],
+                      "test": []},
+        "negatives": {str(q): {"bm25": [1000 + int(x) for x in rng.integers(0, len(docs), 3)]} for q in range(48)},
+    }
+    fx = os.path.join(root, "train_fixture.json")
+    with open(fx, "w") as f:
+        json.dump(fixture, f)
+    out = {}
+    loaders = {"dpr": BiEncoder, "splade": BiEncoder, "colbert": ColBERT, "monobert": CrossEncoder}
+    for cmd, cls in loaders.items():
+        out_dir = os.path.join(root, f"train_{cmd}")
+        base = ["--fixture", fx, "--output_dir", out_dir, "--tiny", "--device", device]
+        t0 = time.perf_counter()
+        model = cli_main([cmd, "--task", "train", "--steps", "10", "--train_batch_size", "8"] + base)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        final = os.path.join(out_dir, "final")
+        reset_counts(*kernels)
+        t0 = time.perf_counter()
+        cli_main([cmd, "--task", "test", "--model_path", final] + base)
+        torch.cuda.synchronize()
+        rec = {"train_s": train_s, "test_s": time.perf_counter() - t0, "K1": counts(*kernels)["K1"]}
+        loaded = cls.load(final, device=device)
+        if cmd == "monobert":
+            pairs = [(q, docs[i]) for i, q in enumerate(queries[:16])]
+            same = np.array_equal(loaded.predict(pairs), model.predict(pairs))
+        else:
+            ids, mask = model.text_encoder.encode(queries[:16], query_mode=True)
+            t = token_tensors(ids, mask, device)
+            same = bool(torch.equal(loaded.embed_tokens(*t), model.embed_tokens(*t)))
+        rec["reload_equal"] = same
+        check(same, f"cli_train {cmd}: the reloaded final/ encodes otherwise than the trained model")
+        metrics_file = {"colbert": "performance_colbert.json", "monobert": "rerank_eval_results.csv"}.get(
+            cmd, "ir_eval_results.csv")
+        check(os.path.isfile(os.path.join(out_dir, metrics_file)), f"cli_train {cmd}: no {metrics_file}")
+        out[cmd] = rec
+        del model, loaded
+    check(out["colbert"]["K1"] > 0, "cli_train: colbert --task test never launched K1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1772,6 +2112,17 @@ def main() -> int:
     phase("build", t0, nvcc_s=[f"{lib.build_seconds:.3f}" for lib in libs])
     for lib in libs:
         print(lib.build_log.strip(), flush=True)
+
+    # training, on an empty card (so each peak is the step's own)
+    t0 = time.perf_counter()
+    phase("train", t0, gpu=repr(smi), **train_check(torch, np))
+    t0 = time.perf_counter()
+    phase("train_agreement", t0, **train_agreement(torch, np))
+    t0 = time.perf_counter()
+    phase("train_fit", t0, **train_fit(torch, np))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        t0 = time.perf_counter()
+        phase("cli_train", t0, gpu=repr(smi), **cli_train_check(torch, np, root, kernels))
 
     t0 = time.perf_counter()
     ql = BATCH * LQ

@@ -19,7 +19,11 @@ surface around them: index directories and model checkpoints in the JAX
 package's formats (either package loads the other's), percentile NSF, the
 metrics (``eval/metrics.py``), ``HybridPipeline`` (``hybrid.py``), the HTTP
 server (``server.py``) and the CLI's ``bm25`` / ``hybrid`` / ``serve``
-commands (``cli/``, the ``fusion-tpu-torch`` script).
+commands (``cli/``, the ``fusion-tpu-torch`` script); and training
+(``train/``: losses, schedules, AdamW / Adafactor / blocked Shampoo, the
+four families' train steps with dropout and per-layer remat, ``fit``), the
+evaluators (``eval/evaluators.py``) and the CLI's ``dpr`` / ``splade`` /
+``colbert`` / ``monobert`` commands.
 """
 
 __version__ = "0.1.0"

@@ -2,10 +2,14 @@
 ``python -m fusion_tpu_torch.cli.main``), with the JAX package's CLI's
 commands and flags:
 
-  fusion-tpu-torch bm25    --task {evaluate,tune,negatives}
-  fusion-tpu-torch hybrid  [--run_bm25 --run_dpr --run_splade --run_colbert
-                            --run_monobert] [--fusion ...] [--normalization ...]
-  fusion-tpu-torch serve   --task {build,search} --index_dir DIR [--http_port N]
+  fusion-tpu-torch bm25     --task {evaluate,tune,negatives}
+  fusion-tpu-torch dpr      --task {train,test}
+  fusion-tpu-torch splade   --task {train,test} [--splade_variant ...]
+  fusion-tpu-torch colbert  --task {train,index,search,test} [--colbert_loss ...]
+  fusion-tpu-torch monobert --task {train,test} [--neg_per_pos N]
+  fusion-tpu-torch hybrid   [--run_bm25 --run_dpr --run_splade --run_colbert
+                             --run_monobert] [--fusion ...] [--normalization ...]
+  fusion-tpu-torch serve    --task {build,search} --index_dir DIR [--http_port N]
 
 Data comes from a ``--fixture`` JSON file ({"corpus": [...], "questions":
 {...}, "negatives": {...}}, LLeQA's record layout).  One flag is new:
@@ -13,12 +17,15 @@ Data comes from a ``--fixture`` JSON file ({"corpus": [...], "questions":
 given ``--device cpu``).  Models load from ``--*_path`` checkpoints (either
 package's) and compute in the ``--bf16`` dtype (f32 with ``--no_bf16`` or
 ``--tiny``); without a path a model is built untrained from its seed.
+Training keeps f32 master weights and computes in that dtype, with each
+layer recomputed in the backward pass unless ``--no_remat``; it runs on one
+device, and raises with more than one visible card unless
+``--no_data_parallel``.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: the training commands (``dpr``, ``splade``, ``colbert``,
-``monobert``), the mMARCO and Mr. TyDi datasets, the ``einsum_bf16`` and
-``flash`` attention, ``--ce_int8``, ``--encoders_int8``,
-``--rerank_buckets`` and ``--rerank_cascade``.
+item: the mMARCO and Mr. TyDi datasets, the ``einsum_bf16`` and ``flash``
+attention, ``--backbone t5``, data-parallel training, ``--ce_int8``,
+``--encoders_int8``, ``--rerank_buckets`` and ``--rerank_cascade``.
 """
 
 from __future__ import annotations
@@ -59,7 +66,9 @@ def _encoder_config(args):
         raise _not_ported(f"--attention_impl {args.attention_impl}", "item 2")
     if args.tiny:
         return EncoderConfig.tiny(vocab_size=2048)
-    return EncoderConfig(dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    # remat: at base width the activations of a training step without it
+    # outgrow the card at the presets' batches
+    return EncoderConfig(dtype=torch.bfloat16 if args.bf16 else torch.float32, remat=not args.no_remat)
 
 
 def _load_model(cls, path: str, args):
@@ -77,6 +86,7 @@ def cmd_bm25(args):
     from fusion_tpu_torch.cli.presets import BM25_PRESETS, BM25_TUNING_GRID
     from fusion_tpu_torch.eval.metrics import Metrics
     from fusion_tpu_torch.hybrid import HybridPipeline, run_evaluation
+    from fusion_tpu_torch.utils.common import convert_colbert_results_to_negatives
     from fusion_tpu_torch.utils.loggers import write_metrics_csv
 
     data = _load_lleqa(args).load()
@@ -113,10 +123,9 @@ def cmd_bm25(args):
     preds_ext = pipeline.to_external_ids(res.ranked)
 
     if args.task == "negatives":
-        negatives = {}
-        for qid, pred, gold in zip(qids, preds_ext, labels):
-            gold = set(gold)
-            negatives[qid] = [p for p in pred if p not in gold][: args.num_negatives]
+        negatives = convert_colbert_results_to_negatives(
+            dict(zip(qids, preds_ext)), dict(zip(qids, labels)), args.num_negatives
+        )
         with open(os.path.join(args.output_dir, "negatives_bm25.json"), "w") as f:
             json.dump(dict(sorted(negatives.items())), f, indent=2)
         print(json.dumps({"num_queries": len(negatives)}))
@@ -128,8 +137,264 @@ def cmd_bm25(args):
         json.dump(scores, f, indent=2)
 
 
-def cmd_train(args):
-    raise _not_ported(f"the {args.command} command (training and its test task)", "item 16")
+# ----------------------------------------------------------------------
+# training commands
+# ----------------------------------------------------------------------
+def _check_one_device(args) -> None:
+    """The port trains on one device: with several visible cards, data
+    parallelism is asked for unless --no_data_parallel, and it is not
+    ported."""
+    if torch.device(args.device).type == "cuda" and args.data_parallel and torch.cuda.device_count() > 1:
+        raise _not_ported(
+            f"data-parallel training over the {torch.cuda.device_count()} visible cards (pass "
+            "--no_data_parallel to train on one)", "item 18")
+
+
+def _fit_config(args, preset, steps: int, batch_size: int, **kw):
+    from fusion_tpu_torch.train.trainer import FitConfig
+
+    return FitConfig(
+        steps=steps, batch_size=batch_size, optimizer_name=args.optimizer,
+        learning_rate=args.lr or preset.learning_rate, scheduler=preset.scheduler,
+        # a preset's warmup in steps rides the ratio
+        warmup_ratio=(preset.warmup_steps / steps) if preset.warmup_steps else preset.warmup_ratio,
+        seed=args.seed, freeze_layers_except_last_n=args.freeze_layers_except_last_n, **kw,
+    )
+
+
+def _make_biencoder(args, head: str, train: bool):
+    from fusion_tpu_torch.cli.presets import train_preset
+    from fusion_tpu_torch.models.biencoder import BiEncoder
+
+    preset = train_preset("dpr" if head == "dense" else "splade", args.dataset)
+    # the head's default pooling for every SPLADE variant, as the JAX CLI
+    model = BiEncoder(
+        _encoder_config(args), head=head,
+        # --tiny: 64 tokens each, within the tiny encoder's positions (the JAX
+        # CLI pads docs to 128, past them, where JAX clamps the position ids)
+        max_query_length=min(preset.max_query_length, 64 if args.tiny else 10_000),
+        max_doc_length=min(preset.max_doc_length, 64 if args.tiny else 10_000),
+        seed=args.seed, device=args.device, param_dtype=torch.float32 if train else None,
+    )
+    return model, preset
+
+
+def _train_biencoder(args, model, preset, rank_loss, reg_loss):
+    from fusion_tpu_torch.data.datasets import Batches, collate_biencoder
+    from fusion_tpu_torch.train.trainer import fit, init_train_state, make_biencoder_train_step
+    from fusion_tpu_torch.utils.loggers import WandbLogger
+
+    sampler = _load_lleqa(args).biencoder_sampler(negs_per_query=args.negs_per_query, seed=args.seed)
+    steps = args.steps or preset.steps or (
+        (preset.epochs or 1) * max(len(sampler) // min(preset.batch_size, len(sampler)), 1))
+    batch_size = args.train_batch_size or min(preset.batch_size, max(len(sampler), 2))
+    logger = WandbLogger(args.dataset, f"{args.model_name}-{args.seed}", log_dir=os.path.join(args.output_dir, "logs"))
+    cfg = _fit_config(
+        args, preset, steps, batch_size, log_every_n_steps=args.log_every, log_callback=logger.log_training,
+        ckpt_path=os.path.join(args.output_dir, "checkpoints"), ckpt_save_steps=args.ckpt_save_steps,
+    )
+    state, tx, schedule = init_train_state(model, cfg)
+    step_fn = make_biencoder_train_step(model, tx, rank_loss, reg_loss, total_steps=steps)
+    batches = Batches(
+        sampler.epochs, lambda s: collate_biencoder(model.text_encoder, s, args.negs_per_query), batch_size)
+    fit(model, step_fn, batches, cfg, schedule=schedule, state=state)
+    model.save(os.path.join(args.output_dir, "final"))
+    print(json.dumps({"trained_steps": steps, "saved": os.path.join(args.output_dir, "final")}))
+    return model
+
+
+def _test_biencoder(args, model):
+    from fusion_tpu_torch.eval.evaluators import InformationRetrievalEvaluator
+
+    data = _load_lleqa(args).load()
+    ks = [k for k in (5, 10, 20, 50, 100, 200, 500, 1000) if k <= len(data.corpus)]
+    ev = InformationRetrievalEvaluator(
+        data.queries[args.split], data.corpus, data.qrels[args.split], recall_at_k=ks, map_at_k=[10, 100],
+        mrr_at_k=[10, 100], ndcg_at_k=[10, 100], batch_size=args.batch_size,
+    )
+    ev(model, output_path=args.output_dir)
+    print(json.dumps(ev.last_scores, default=float))
+
+
+def _seed_loop(args, train_one):
+    """One training run per ``--seeds`` entry, each into ``seed<N>/`` (the
+    output dir itself for a single seed); returns the last run's model."""
+    seeds = [int(s) for s in args.seeds.split(",")] if args.seeds else [args.seed]
+    base_dir = args.output_dir
+    for seed in seeds:
+        args.seed = seed
+        args.output_dir = os.path.join(base_dir, f"seed{seed}") if len(seeds) > 1 else base_dir
+        model = train_one()
+    args.output_dir = base_dir
+    return model
+
+
+def _biencoder_command(args, head: str, rank_loss: dict, reg_loss: dict | None):
+    from fusion_tpu_torch.models.biencoder import BiEncoder
+
+    if args.task == "train":
+        _check_one_device(args)
+
+        def one():
+            model, preset = _make_biencoder(args, head, train=True)
+            return _train_biencoder(args, model, preset, rank_loss, reg_loss)
+
+        return _seed_loop(args, one)
+    model = _load_model(BiEncoder, args.model_path, args) if args.model_path else _make_biencoder(args, head, False)[0]
+    _test_biencoder(args, model)
+
+
+def cmd_dpr(args):
+    return _biencoder_command(args, "dense", {"name": "MNRLoss", "scale": 20.0}, None)
+
+
+def cmd_splade(args):
+    from fusion_tpu_torch.models.biencoder import SPLADE_PRESETS
+
+    variant = SPLADE_PRESETS[args.splade_variant]
+    return _biencoder_command(args, "splade", variant["rank_loss"], variant["reg_loss"])
+
+
+def cmd_colbert(args):
+    from fusion_tpu_torch.cli.presets import train_preset
+    from fusion_tpu_torch.index.compression import CompressedTokenIndex
+    from fusion_tpu_torch.models.colbert import ColBERT, TokenIndex
+
+    preset = train_preset("colbert", args.dataset)
+    train = args.task == "train"
+    if train:
+        _check_one_device(args)
+    if args.model_path:
+        model = _load_model(ColBERT, args.model_path, args) if not train else ColBERT.load(
+            args.model_path, device=args.device, dtype=_encoder_config(args).dtype, param_dtype=torch.float32)
+    else:
+        model = ColBERT(
+            _encoder_config(args), dim=16 if args.tiny else preset.extra.get("dim", 128),
+            max_query_length=min(preset.max_query_length, 32 if args.tiny else 10_000),
+            max_doc_length=min(preset.max_doc_length, 64 if args.tiny else 10_000),
+            seed=args.seed, device=args.device, param_dtype=torch.float32 if train else None,
+        )
+    loader = _load_lleqa(args)
+    data = loader.load()
+    index_dir = os.path.join(args.output_dir, "index")
+
+    if train:
+        from fusion_tpu_torch.data.datasets import Batches, collate_biencoder
+        from fusion_tpu_torch.train.trainer import fit, init_train_state, make_colbert_train_step
+
+        sampler = loader.biencoder_sampler(negs_per_query=args.negs_per_query, seed=args.seed)
+        steps = args.steps or 100
+        batch_size = args.train_batch_size or min(preset.batch_size, max(len(sampler), 2))
+        cfg = _fit_config(args, preset, steps, batch_size, weight_decay=preset.weight_decay)
+        state, tx, schedule = init_train_state(model, cfg)
+        step_fn = make_colbert_train_step(model, tx, loss_name=args.colbert_loss)
+
+        def collate(samples):
+            b = collate_biencoder(model.text_encoder, samples, args.negs_per_query)
+            for k in ("query_mask", "pos_mask", "neg_mask"):
+                b[k] = b[k].astype(np.float32)
+            return b
+
+        fit(model, step_fn, Batches(sampler.epochs, collate, batch_size), cfg, schedule=schedule, state=state)
+        model.save(os.path.join(args.output_dir, "final"))
+        print(json.dumps({"trained_steps": steps}))
+        return model
+
+    if args.task == "index":
+        docs = list(data.corpus.values())
+        if args.compressed:
+            index = model.index_compressed(docs, batch_size=args.batch_size, nbits=args.nbits,
+                                           kmeans_iters=args.kmeans_niters)
+        else:
+            index = model.index(docs, batch_size=args.batch_size)
+        index.save(index_dir)
+        print(json.dumps({"indexed_docs": len(data.corpus), "dir": index_dir, "compressed": bool(args.compressed)}))
+        return
+
+    # search and test reuse a saved index, or build one
+    if os.path.exists(os.path.join(index_dir, "compressed_index.npz")):
+        index = CompressedTokenIndex.load(index_dir, device=args.device)
+    elif os.path.exists(os.path.join(index_dir, "token_index.npz")):
+        index = TokenIndex.load(index_dir, device=args.device)
+    else:
+        index = model.index(list(data.corpus.values()), batch_size=args.batch_size)
+    qids, queries, labels = data.split(args.split)
+    # the token-major search (K1) on the card, the doc-major reference on the CPU
+    ranked = model.search(queries, index, k=min(1000, len(data.corpus)), batch_size=args.batch_size,
+                          use_pallas=torch.device(args.device).type == "cuda")
+    from fusion_tpu_torch.hybrid import run_evaluation
+
+    preds = ranked.remap_ids(np.asarray(list(data.corpus.keys()))).id_lists()
+    os.makedirs(args.output_dir, exist_ok=True)
+    if args.task == "test":
+        scores = run_evaluation(preds, labels, print2console=True)
+        with open(os.path.join(args.output_dir, "performance_colbert.json"), "w") as f:
+            json.dump(scores, f, indent=2, default=float)
+    else:
+        with open(os.path.join(args.output_dir, "ranking.json"), "w") as f:
+            json.dump({str(q): p[:100] for q, p in zip(qids, preds)}, f)
+        print(json.dumps({"searched": len(queries)}))
+
+
+def cmd_monobert(args):
+    from fusion_tpu_torch.cli.presets import train_preset
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+
+    if args.backbone == "t5":
+        raise _not_ported("the T5 cross-encoder (--backbone t5)", "item 17")
+    preset = train_preset("monobert", args.dataset)
+    train = args.task == "train"
+    if train:
+        _check_one_device(args)
+    if args.model_path:
+        model = _load_crossencoder(args.model_path, args) if not train else CrossEncoder.load(
+            args.model_path, device=args.device, dtype=_encoder_config(args).dtype, param_dtype=torch.float32)
+    else:
+        model = CrossEncoder(_encoder_config(args), max_length=32 if args.tiny else preset.max_doc_length,
+                             seed=args.seed, device=args.device, param_dtype=torch.float32 if train else None)
+    loader = _load_lleqa(args)
+    data = loader.load()
+
+    if train:
+        from fusion_tpu_torch.data.datasets import Batches, collate_crossencoder
+        from fusion_tpu_torch.train.trainer import fit, init_train_state, make_crossencoder_train_step
+
+        pairs = loader.crossencoder_pairs(neg_per_pos=args.neg_per_pos, seed=args.seed)
+        steps = args.steps or max(len(pairs) // 4, 1)
+        batch_size = args.train_batch_size or min(preset.batch_size, max(len(pairs), 2))
+        cfg = _fit_config(args, preset, steps, batch_size, weight_decay=preset.weight_decay)
+        state, tx, schedule = init_train_state(model, cfg)
+
+        def sample_stream():
+            while True:
+                yield from pairs
+
+        batches = Batches(
+            sample_stream,
+            lambda s: collate_crossencoder(model.tokenizer, [(q, d) for q, d, _ in s], [lab for _, _, lab in s],
+                                           model.max_length),
+            batch_size,
+        )
+        fit(model, make_crossencoder_train_step(model, tx), batches, cfg, schedule=schedule, state=state)
+        model.save(os.path.join(args.output_dir, "final"))
+        print(json.dumps({"trained_steps": steps}))
+        return model
+
+    from fusion_tpu_torch.eval.evaluators import RerankingEvaluator
+
+    samples = []
+    rng = np.random.default_rng(args.seed)
+    all_ids = list(data.corpus.keys())
+    for qid, text in data.queries[args.split].items():
+        gold = data.qrels[args.split].get(qid, [])
+        pos = [data.corpus[p] for p in gold if p in data.corpus]
+        neg_ids = rng.choice(all_ids, size=min(10, len(all_ids)), replace=False)
+        neg = [data.corpus[n] for n in neg_ids if n not in gold]
+        if pos:
+            samples.append({"query": text, "positive": pos, "negative": neg})
+    ev = RerankingEvaluator(samples, batch_size=args.batch_size)
+    ev(model, output_path=args.output_dir)
+    print(json.dumps(ev.last_scores, default=float))
 
 
 def cmd_hybrid(args):
@@ -341,7 +606,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "without one)")
         sp.add_argument("--bf16", action="store_true", default=True)
         sp.add_argument("--no_bf16", dest="bf16", action="store_false", help="full-f32 run")
-        sp.add_argument("--no_remat", action="store_true", help="training only: no effect in the port")
+        sp.add_argument("--no_remat", action="store_true",
+                        help="training: keep every layer's activations instead of recomputing them")
         sp.add_argument("--attention_impl", default="einsum", choices=["einsum", "einsum_bf16", "flash"],
                         help="only einsum (plain f32-logit attention) is ported")
         sp.add_argument("--batch_size", type=int, default=32)
@@ -366,13 +632,12 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--num_negatives", type=int, default=10)
     sp.set_defaults(fn=cmd_bm25)
 
-    # the training commands keep their flags and raise until training is ported
-    for name, tasks, default in (("dpr", ["train", "test"], "test"), ("splade", ["train", "test"], "test"),
-                                 ("colbert", ["train", "index", "search", "test"], "test"),
-                                 ("monobert", ["train", "test"], "test")):
-        sp = sub.add_parser(name, help="not ported yet (training)")
+    for name, tasks, fn in (("dpr", ["train", "test"], cmd_dpr), ("splade", ["train", "test"], cmd_splade),
+                            ("colbert", ["train", "index", "search", "test"], cmd_colbert),
+                            ("monobert", ["train", "test"], cmd_monobert)):
+        sp = sub.add_parser(name)
         common(sp)
-        sp.add_argument("--task", default=default, choices=tasks)
+        sp.add_argument("--task", default="test", choices=tasks)
         if name == "splade":
             sp.add_argument("--splade_variant", default="spladev2", choices=[
                 "spladev1", "spladev2", "spladeplus", "spladeplus_ensemble", "spladeeff", "spladev3",
@@ -385,7 +650,7 @@ def build_parser() -> argparse.ArgumentParser:
         if name == "monobert":
             sp.add_argument("--neg_per_pos", type=int, default=4)
             sp.add_argument("--backbone", default="bert", choices=["bert", "t5"])
-        sp.set_defaults(fn=cmd_train)
+        sp.set_defaults(fn=fn)
 
     sp = sub.add_parser("hybrid")
     common(sp)

@@ -8,13 +8,17 @@ per question id.  The CLI reads them from a ``--fixture`` JSON file
 ``{"corpus": [...], "questions": {...}, "negatives": {...}}``.  Fetching the
 dataset from the HuggingFace hub is not ported (the card's machine has no
 network and no ``datasets``): ``LLeQALoader()`` without records raises.
+``biencoder_sampler`` and ``crossencoder_pairs`` feed training,
+``export_colbert_files`` writes colbert-ai's file interface.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Mapping, Sequence
 
-from fusion_tpu_torch.data.datasets import RetrievalData
+from fusion_tpu_torch.data.datasets import RetrievalData, TripletSampler, crossencoder_pairs
 
 SPLITS = ("train", "dev", "test")
 
@@ -81,3 +85,61 @@ class LLeQALoader:
                 queries[split][qid] = text
                 qrels[split][qid] = [int(p) for p in r["article_ids"]]
         return RetrievalData(corpus=self.corpus(), queries=queries, qrels=qrels)
+
+    def biencoder_sampler(self, negs_per_query: int = 1, seed: int = 42) -> TripletSampler:
+        data = self.load()
+        return TripletSampler(
+            corpus=data.corpus,
+            queries=data.queries["train"],
+            qrels=data.qrels["train"],
+            hard_negatives=self.hard_negatives(),
+            negs_per_query=negs_per_query,
+            seed=seed,
+        )
+
+    def crossencoder_pairs(self, neg_per_pos: int = 4, seed: int = 42):
+        data = self.load()
+        return crossencoder_pairs(
+            corpus=data.corpus,
+            queries=data.queries["train"],
+            qrels=data.qrels["train"],
+            negatives=self.hard_negatives(),
+            neg_per_pos=neg_per_pos,
+            seed=seed,
+        )
+
+    def export_colbert_files(self, out_dir: str) -> dict[str, str]:
+        """ColBERT's file interface: collection.tsv / queries per split /
+        training triples, with contiguous 0-based ids (lleqa.py:241-345)."""
+        os.makedirs(out_dir, exist_ok=True)
+        data = self.load()
+        pid_map = {pid: i for i, pid in enumerate(data.corpus.keys())}
+        paths = {"collection": os.path.join(out_dir, "collection.tsv")}
+        with open(paths["collection"], "w") as f:
+            for pid, text in data.corpus.items():
+                f.write(f"{pid_map[pid]}\t{text.replace(chr(9), ' ').replace(chr(10), ' ')}\n")
+        negs = self.hard_negatives()
+        for split in SPLITS:
+            qpath = os.path.join(out_dir, f"queries.{split}.tsv")
+            paths[f"queries.{split}"] = qpath
+            qid_map = {qid: i for i, qid in enumerate(data.queries[split].keys())}
+            with open(qpath, "w") as f:
+                for qid, text in data.queries[split].items():
+                    f.write(f"{qid_map[qid]}\t{text.replace(chr(9), ' ')}\n")
+            if split == "train":
+                tpath = os.path.join(out_dir, "triples.train.jsonl")
+                paths["triples.train"] = tpath
+                with open(tpath, "w") as f:
+                    for qid, pids in data.qrels["train"].items():
+                        pool = negs.get(qid, [])
+                        for j, pid in enumerate(pids):
+                            if pid not in pid_map:
+                                continue
+                            neg = pool[j % len(pool)] if pool else None
+                            if neg is None or neg not in pid_map:
+                                continue
+                            f.write(json.dumps([qid_map[qid], pid_map[pid], pid_map[neg]]) + "\n")
+        paths["qrels"] = os.path.join(out_dir, "qrels.json")
+        with open(paths["qrels"], "w") as f:
+            json.dump({s: {str(k): v for k, v in data.qrels[s].items()} for s in SPLITS}, f)
+        return paths

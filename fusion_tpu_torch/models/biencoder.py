@@ -12,7 +12,13 @@ embeddings as a tensor on that device, so an encoded corpus never makes a
 host round trip (a SPLADE corpus at 28k docs is 1.8 GB in bf16).  ``search``
 is the model's own exact search over an encoded corpus, ``search_sparse``
 the SPLADE search over a fixed-K pruned index.  ``save`` / ``load`` read and
-write the JAX package's checkpoint format (``models/checkpoint.py``).
+write the JAX package's checkpoint format (``models/checkpoint.py``), and
+``save_checkpoint`` the rolling step exports of a training run.
+
+Training builds the model with ``param_dtype=torch.float32`` (f32 master
+weights; the forward still computes in ``cfg.dtype``) and calls
+``embed_tokens_train``, the grad-enabled forward with dropout.  The six
+SPLADE training recipes are data: ``SPLADE_PRESETS``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from fusion_tpu_torch.data.tokenization import (
 )
 from fusion_tpu_torch.models import checkpoint, convert, heads
 from fusion_tpu_torch.models.encoder import (
+    DropoutKey,
     Encoder,
     EncoderConfig,
     EncoderWithMLM,
@@ -40,6 +47,49 @@ from fusion_tpu_torch.models.encoder import (
     token_tensors,
 )
 from fusion_tpu_torch.ops.mips import dense_search
+
+_FLOPS_REGS = {"query_reg": "FlopsLoss", "query_reg_weight": 3e-4, "doc_reg": "FlopsLoss", "doc_reg_weight": 1e-4}
+_HARD = {"training_sample_format": "tuple_with_scores", "negs_type": "hard", "negs_per_query": 1}
+
+# training recipes of the six SPLADE variants, as fusion_tpu/models/biencoder.py
+SPLADE_PRESETS: dict[str, dict] = {
+    "spladev1": {
+        "pooling": "sum",
+        "rank_loss": {"name": "InfoNCELoss", "use_ib_negs": True, "temperature": 0.05},
+        "reg_loss": dict(_FLOPS_REGS),
+        "data": {"training_sample_format": "triplet", "negs_type": "original"},
+    },
+    "spladev2": {
+        "pooling": "max",
+        "rank_loss": {"name": "InfoNCELoss", "use_ib_negs": True, "temperature": 0.05},
+        "reg_loss": dict(_FLOPS_REGS),
+        "data": {"training_sample_format": "triplet", "negs_type": "original"},
+    },
+    "spladeplus": {
+        "pooling": "max",
+        "rank_loss": {"name": "MarginMSELoss", "teacher_scale": 0.08},
+        "reg_loss": dict(_FLOPS_REGS),
+        "data": {**_HARD, "negs_mining_systems": "bm25"},
+    },
+    "spladeplus_ensemble": {
+        "pooling": "max",
+        "rank_loss": {"name": "MarginMSELoss", "teacher_scale": 0.08},
+        "reg_loss": dict(_FLOPS_REGS),
+        "data": {**_HARD, "negs_mining_systems": "all"},
+    },
+    "spladeeff": {
+        "pooling": "max",
+        "rank_loss": {"name": "KLDLoss"},
+        "reg_loss": {"query_reg": "L1Loss", "query_reg_weight": 1e-2, "doc_reg": "FlopsLoss", "doc_reg_weight": 1e-4},
+        "data": {**_HARD, "negs_mining_systems": "all"},
+    },
+    "spladev3": {
+        "pooling": "max",
+        "rank_loss": {"name": "KLDLoss"},
+        "reg_loss": dict(_FLOPS_REGS),
+        "data": {**_HARD, "negs_mining_systems": "all", "negs_per_query": 8},
+    },
+}
 
 
 def bucket_width(mask: np.ndarray) -> int:
@@ -75,6 +125,7 @@ class BiEncoder:
         do_lowercase: bool = False,
         seed: int = 42,
         device="cuda",
+        param_dtype: torch.dtype | None = None,
     ):
         if head not in ("dense", "splade"):
             raise ValueError(f"head must be 'dense' or 'splade', got {head!r}")
@@ -94,7 +145,7 @@ class BiEncoder:
             init_weights(self.module, seed)
         else:
             self.module.load_state_dict(params)
-        place(self.module, cfg.dtype, self.device)
+        place(self.module, cfg.dtype, self.device, param_dtype)
         tokenizer = tokenizer or WordHashTokenizer(vocab_size=cfg.vocab_size)
         self.text_encoder = TextEncoder(
             tokenizer,
@@ -107,17 +158,27 @@ class BiEncoder:
             do_lowercase=do_lowercase,
         )
 
+    def _embed(self, input_ids, attention_mask, drop: DropoutKey | None = None, train: bool = False):
+        if self.head == "splade":
+            _, logits = self.module(input_ids, attention_mask, drop)
+            acts = heads.splade_activation(logits, attention_mask, self.pooling)
+            if self.pruning_topk is not None and not train:
+                acts, _ = heads.prune_topk(acts, self.pruning_topk)
+            return acts
+        hidden = self.module(input_ids, attention_mask, drop=drop)
+        return heads.pool(hidden, attention_mask, self.pooling)
+
     @torch.inference_mode()
     def embed_tokens(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """Token batch → embeddings [B, H] (dense) or [B, V] (splade)."""
-        if self.head == "splade":
-            _, logits = self.module(input_ids, attention_mask)
-            acts = heads.splade_activation(logits, attention_mask, self.pooling)
-            if self.pruning_topk is not None:
-                acts, _ = heads.prune_topk(acts, self.pruning_topk)
-            return acts
-        hidden = self.module(input_ids, attention_mask)
-        return heads.pool(hidden, attention_mask, self.pooling)
+        return self._embed(input_ids, attention_mask)
+
+    def embed_tokens_train(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, drop: DropoutKey | None = None
+    ) -> torch.Tensor:
+        """The train-mode forward under autograd: dropout drawn from
+        ``drop``, and SPLADE's activations unpruned."""
+        return self._embed(input_ids, attention_mask, drop, train=True)
 
     def encode(
         self,
@@ -237,17 +298,25 @@ class BiEncoder:
             "tokenizer": tokenizer_config(te.tokenizer),
             "encoder": checkpoint.encoder_config_dict(self.cfg),
         }
-        sd = self.module.state_dict()
-        if self.head == "splade":
-            tree = convert.encoder_with_mlm_flax_tree(sd, self.cfg.num_heads)
-        else:
-            tree = convert.encoder_flax_tree(sd, self.cfg.num_heads)
-        checkpoint.write(path, config, tree)
+        checkpoint.write(path, config, self.flax_tree(self.module.state_dict()))
+
+    def flax_tree(self, tensors) -> dict:
+        """A state dict (or gradients keyed like it) → the JAX model's tree."""
+        return convert.flax_tree(self.module, self.cfg.num_heads, tensors)
+
+    def save_checkpoint(self, ckpt_dir: str, step: int, save_total_limit: int = 3) -> None:
+        """Rolling step exports: ``ckpt_dir/<step>``, keeping the newest
+        ``save_total_limit``."""
+        checkpoint.save_step(self, ckpt_dir, step, save_total_limit)
 
     @classmethod
-    def load(cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32) -> "BiEncoder":
+    def load(
+        cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype | None = None,
+    ) -> "BiEncoder":
         """Load a checkpoint written by either package, computing in
-        ``dtype`` on ``device``."""
+        ``dtype`` on ``device`` (weights held in ``param_dtype``, default
+        ``dtype``)."""
         config = checkpoint.read_config(path)
         if tokenizer is None:
             tokenizer = tokenizer_from_config(config.get("tokenizer"))
@@ -273,4 +342,5 @@ class BiEncoder:
             augment_doc_to_maxlen=config["augment_doc_to_maxlen"],
             do_lowercase=config["do_lowercase"],
             device=device,
+            param_dtype=param_dtype,
         )

@@ -22,7 +22,8 @@ Scoring forms:
     and the doc-major fixed-K forms (``search_impact``, ``search_sparse``).
 
 ``search_all`` ranks every query with the gather or matmul scorer, in
-batches of ``query_batch``.
+batches of ``query_batch``; ``extract_negatives`` mines a ranking's
+top non-positives as training negatives.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores
 from fusion_tpu_torch.ops.mips import matmul_f32
 from fusion_tpu_torch.ops.topk import blockwise_topk_offset
+from fusion_tpu_torch.utils.common import non_positives
 
 VARIANTS = ("bm25", "atire", "tfidf")
 
@@ -414,3 +416,15 @@ class BM25Index:
             out_ids.append(ranked.ids[:real])
             out_scores.append(ranked.scores[:real])
         return RankedLists(ids=torch.cat(out_ids), scores=torch.cat(out_scores))
+
+    def extract_negatives(
+        self,
+        ranked: RankedLists,
+        positives: Sequence[Sequence[int]],
+        num_negatives: int = 10,
+        idx2id: np.ndarray | None = None,
+    ) -> dict[int, list[int]]:
+        """Query index → its top-ranked non-positives (external ids through
+        ``idx2id`` when given)."""
+        lists = ranked.remap_ids(idx2id).id_lists() if idx2id is not None else ranked.id_lists()
+        return {qi: non_positives(preds, pos, num_negatives) for qi, (preds, pos) in enumerate(zip(lists, positives))}

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -25,10 +26,9 @@ CONFIG_FILENAME = "config_fusion_tpu.json"
 PARAMS_FILENAME = "params.msgpack"
 
 # the JAX EncoderConfig's fields that the port's config has no counterpart
-# for, with the values a port checkpoint writes for them: activation
-# rematerialization is a training option, and the port has one attention
-# implementation and no int8 trunk
-_JAX_ONLY_FIELDS = {"remat": False, "attention_impl": "einsum", "quantize": None}
+# for, with the values a port checkpoint writes for them: the port has one
+# attention implementation and no int8 trunk
+_JAX_ONLY_FIELDS = {"attention_impl": "einsum", "quantize": None}
 
 
 def encoder_config_dict(cfg: EncoderConfig) -> dict:
@@ -73,6 +73,15 @@ def write(path: str, config: dict, params_tree: dict) -> None:
         json.dump({**config, "__version__": version_stamp()}, f, indent=2)
     with open(os.path.join(path, PARAMS_FILENAME), "wb") as f:
         f.write(flax_msgpack.packb({"params": params_tree}))
+
+
+def save_step(model, ckpt_dir: str, step: int, save_total_limit: int = 3) -> None:
+    """``model.save`` into ``ckpt_dir/<step>``, then delete the oldest step
+    directories beyond ``save_total_limit`` (0 keeps all)."""
+    model.save(os.path.join(ckpt_dir, str(step)))
+    existing = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
+    while save_total_limit and len(existing) > save_total_limit:
+        shutil.rmtree(os.path.join(ckpt_dir, str(existing.pop(0))))
 
 
 def read_config(path: str) -> dict:

@@ -4,6 +4,12 @@ Per-token 128-d embeddings, query mask-augmentation (pads become [MASK] and
 are attended), a punctuation skiplist on documents, and a device-resident
 token index scored by MaxSim (``ops/maxsim.py``); ``ColBERT.search`` is the
 retriever's own search over a token index or a compressed one.
+
+Training builds the model with ``param_dtype=torch.float32`` and scores
+with ``embed_tokens_train`` (the grad-enabled forward with dropout) and the
+strict, f32 ``pairwise_maxsim`` / ``nway_maxsim``: plain batched products
+under autograd, as the JAX package computes its train step outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from fusion_tpu_torch.data.tokenization import (
 from fusion_tpu_torch.index.compression import compress_token_index, maxsim_search_compressed
 from fusion_tpu_torch.models import checkpoint, convert
 from fusion_tpu_torch.models.encoder import (
+    DropoutKey,
     Encoder,
     EncoderConfig,
     init_weights,
@@ -49,8 +56,10 @@ class ColBERTModule(nn.Module):
         self.encoder = Encoder(cfg)
         self.colbert = ColBERTHead(cfg.hidden_size, dim)
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        return self.colbert(self.encoder(input_ids, attention_mask), attention_mask)
+    def forward(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, drop: DropoutKey | None = None
+    ) -> torch.Tensor:
+        return self.colbert(self.encoder(input_ids, attention_mask, drop=drop), attention_mask)
 
 
 @dataclasses.dataclass
@@ -108,6 +117,7 @@ class ColBERT:
         mask_punctuation: bool = True,
         seed: int = 42,
         device="cuda",
+        param_dtype: torch.dtype | None = None,
     ):
         self.cfg = cfg
         self.dim = dim
@@ -118,7 +128,7 @@ class ColBERT:
             init_weights(self.module, seed)
         else:
             self.module.load_state_dict(params)
-        place(self.module, cfg.dtype, self.device)
+        place(self.module, cfg.dtype, self.device, param_dtype)
         tokenizer = tokenizer or WordHashTokenizer(vocab_size=cfg.vocab_size)
         # ColBERT-style query augmentation: pad → [MASK], attended
         self.text_encoder = TextEncoder(
@@ -148,6 +158,28 @@ class ColBERT:
     def embed_tokens(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """Token batch → per-token embeddings [B, L, dim] f32 (pads zeroed)."""
         return self.module(input_ids, attention_mask)
+
+    def embed_tokens_train(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, drop: DropoutKey | None = None
+    ) -> torch.Tensor:
+        """The train-mode forward under autograd, dropout drawn from ``drop``."""
+        return self.module(input_ids, attention_mask, drop)
+
+    @staticmethod
+    def pairwise_maxsim(q_tok, q_mask, d_tok, d_mask) -> torch.Tensor:
+        """Aligned MaxSim: query i vs doc i → [B]; masked doc tokens at -1e9,
+        products summed in f32."""
+        sim = torch.einsum("bid,bjd->bij", q_tok.float(), d_tok.float())
+        sim = torch.where(d_mask[:, None, :] > 0, sim, -1e9)
+        return (sim.amax(dim=-1) * q_mask).sum(dim=-1)
+
+    @staticmethod
+    def nway_maxsim(q_tok, q_mask, d_tok, d_mask) -> torch.Tensor:
+        """Query i vs its N docs → [B, N]: q [B, Lq, D], docs [B, N, Ld, D],
+        one batched product over all negatives."""
+        sim = torch.einsum("bqd,bnld->bnql", q_tok.float(), d_tok.float())
+        sim = torch.where(d_mask[:, :, None, :] > 0, sim, -1e9)
+        return (sim.amax(dim=-1) * q_mask[:, None, :]).sum(dim=-1)
 
     def _encode_texts(
         self, texts: Sequence[str], query_mode: bool, batch_size: int
@@ -260,12 +292,20 @@ class ColBERT:
             "tokenizer": tokenizer_config(self.text_encoder.tokenizer),
             "encoder": checkpoint.encoder_config_dict(self.cfg),
         }
-        checkpoint.write(path, config, convert.colbert_flax_tree(self.module.state_dict(), self.cfg.num_heads))
+        checkpoint.write(path, config, self.flax_tree(self.module.state_dict()))
+
+    def flax_tree(self, tensors) -> dict:
+        """A state dict (or gradients keyed like it) → the JAX model's tree."""
+        return convert.flax_tree(self.module, self.cfg.num_heads, tensors)
 
     @classmethod
-    def load(cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32) -> "ColBERT":
+    def load(
+        cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype | None = None,
+    ) -> "ColBERT":
         """Load a checkpoint written by either package, computing in
-        ``dtype`` on ``device``."""
+        ``dtype`` on ``device`` (weights held in ``param_dtype``, default
+        ``dtype``)."""
         config = checkpoint.read_config(path)
         if tokenizer is None:
             tokenizer = tokenizer_from_config(config.get("tokenizer"))
@@ -278,4 +318,5 @@ class ColBERT:
             max_doc_length=config["max_doc_length"],
             mask_punctuation=config["mask_punctuation"],
             device=device,
+            param_dtype=param_dtype,
         )

@@ -13,18 +13,19 @@ Layouts that differ between the two packages:
 
 The functions take either a full variables dict (``{"params": ...}``) or the
 bare parameter tree, and return f32 CPU tensors; ``load_state_dict`` casts
-them to each module's dtype and device.  The ``*_flax_tree`` functions are
-their inverses: a module's state dict → the Flax tree (f32 numpy leaves) that
-``flax.serialization`` writes for the JAX package's model, so a checkpoint
-saved by the port loads there.
+them to each module's dtype and device.  ``flax_layouts`` is the inverse
+mapping, one parameter at a time, as views of tensors: training reads
+gradients, the optimizer's decay mask and the freeze labels through it, and
+``flax_tree`` nests it into the Flax tree that a checkpoint saves.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from fusion_tpu_torch.core.device import resolve_device
 
@@ -109,80 +110,87 @@ def crossencoder_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to(torch.float32).cpu().numpy()
+class FlaxLayout(NamedTuple):
+    """One parameter's place in the Flax tree: its path, and its tensor
+    (or gradient) viewed in the Flax layout and back."""
+
+    path: tuple[str, ...]
+    to_flax: Callable[[torch.Tensor], torch.Tensor]
+    from_flax: Callable[[torch.Tensor], torch.Tensor]
 
 
-def _dense_tree(sd: Mapping, prefix: str) -> dict:
-    out = {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).T)}
-    if f"{prefix}.bias" in sd:
-        out["bias"] = _np(sd[f"{prefix}.bias"])
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _transpose(t: torch.Tensor) -> torch.Tensor:
+    return t.T
+
+
+def flax_layouts(module: nn.Module, num_heads: int) -> dict[str, FlaxLayout]:
+    """Parameter name → its ``FlaxLayout`` in ``module`` (an ``Encoder``,
+    ``EncoderWithMLM``, ``ColBERTModule`` or ``CrossEncoderModule``):
+    ``layers.i`` is ``layer_i``; a Linear weight is the transposed
+    ``kernel`` (the fused qkv ``[H, 3, heads, hd]``, the attention out
+    ``[heads, hd, H]``), an Embedding's weight its ``embedding``, a
+    LayerNorm's weight its ``scale``."""
+    owners = dict(module.named_modules())
+    out = {}
+    for name, param in module.named_parameters():
+        *mod_path, leaf = name.split(".")
+        owner = owners[".".join(mod_path)]
+        keys, i = [], 0
+        while i < len(mod_path):
+            if mod_path[i] == "layers":
+                keys.append(f"layer_{mod_path[i + 1]}")
+                i += 2
+            else:
+                keys.append(mod_path[i])
+                i += 1
+        to_flax, from_flax = _same, _same
+        if leaf == "weight" and isinstance(owner, nn.Embedding):
+            leaf = "embedding"
+        elif leaf == "weight" and isinstance(owner, nn.Linear):
+            leaf = "kernel"
+            h_out, h_in = param.shape
+            if mod_path[-2:] == ["attention", "qkv"]:
+                hd = h_in // num_heads
+                to_flax = lambda t, h=h_in, hd=hd: t.T.reshape(h, 3, num_heads, hd)  # noqa: E731
+                from_flax = lambda t, s=tuple(param.shape): t.reshape(s[1], s[0]).T  # noqa: E731
+            elif mod_path[-2:] == ["attention", "out"]:
+                hd = h_in // num_heads
+                to_flax = lambda t, h=h_out, hd=hd: t.T.reshape(num_heads, hd, h)  # noqa: E731
+                from_flax = lambda t, s=tuple(param.shape): t.reshape(s[1], s[0]).T  # noqa: E731
+            else:
+                to_flax, from_flax = _transpose, _transpose
+        elif leaf == "weight":  # LayerNorm
+            leaf = "scale"
+        elif leaf == "bias" and mod_path[-2:] == ["attention", "qkv"]:
+            hd = param.shape[0] // 3 // num_heads
+            to_flax = lambda t, hd=hd: t.reshape(3, num_heads, hd)  # noqa: E731
+            from_flax = lambda t: t.reshape(-1)  # noqa: E731
+        out[name] = FlaxLayout(tuple(keys) + (leaf,), to_flax, from_flax)
     return out
 
 
-def _ln_tree(sd: Mapping, prefix: str) -> dict:
-    return {"bias": _np(sd[f"{prefix}.bias"]), "scale": _np(sd[f"{prefix}.weight"])}
+def flax_tree(module: nn.Module, num_heads: int, tensors: Mapping) -> dict:
+    """``tensors`` keyed by ``module``'s parameter names (its state dict, or
+    its gradients) → the JAX model's Flax tree, with f32 numpy leaves and
+    sorted keys, built leaf by leaf through ``flax_layouts``: the tree that
+    ``flax.serialization`` writes for the JAX package's model, so a
+    checkpoint saved by the port loads there."""
+    tree: dict = {}
+    for name, layout in flax_layouts(module, num_heads).items():
+        node = tree
+        for key in layout.path[:-1]:
+            node = node.setdefault(key, {})
+        leaf = layout.to_flax(tensors[name].detach()).to(torch.float32).cpu()
+        node[layout.path[-1]] = np.ascontiguousarray(leaf.numpy())
+    return _sorted(tree)
 
 
-def encoder_flax_tree(sd: Mapping, num_heads: int, prefix: str = "") -> dict:
-    """``Encoder`` state dict (keys under ``prefix``) → Flax ``Encoder`` params."""
-    emb = {"ln": _ln_tree(sd, f"{prefix}embeddings.ln")}
-    for name in ("position", "token_type", "word"):
-        emb[name] = {"embedding": _np(sd[f"{prefix}embeddings.{name}.weight"])}
-    tree = {"embeddings": emb}
-    i = 0
-    while f"{prefix}layers.{i}.attention.qkv.weight" in sd:
-        lp = f"{prefix}layers.{i}"
-        qkv_w = _np(sd[f"{lp}.attention.qkv.weight"])  # [3·H, H]
-        h = qkv_w.shape[1]
-        hd = h // num_heads
-        out_w = _np(sd[f"{lp}.attention.out.weight"])  # [H, H]
-        tree[f"layer_{i}"] = {
-            "attention": {
-                "out": {
-                    "bias": _np(sd[f"{lp}.attention.out.bias"]),
-                    "kernel": np.ascontiguousarray(out_w.T.reshape(num_heads, hd, h)),
-                },
-                "qkv": {
-                    "bias": _np(sd[f"{lp}.attention.qkv.bias"]).reshape(3, num_heads, hd),
-                    "kernel": np.ascontiguousarray(qkv_w.T.reshape(h, 3, num_heads, hd)),
-                },
-            },
-            "attn_ln": _ln_tree(sd, f"{lp}.attn_ln"),
-            "ffn_in": _dense_tree(sd, f"{lp}.ffn_in"),
-            "ffn_ln": _ln_tree(sd, f"{lp}.ffn_ln"),
-            "ffn_out": _dense_tree(sd, f"{lp}.ffn_out"),
-        }
-        i += 1
-    return tree
-
-
-def encoder_with_mlm_flax_tree(sd: Mapping, num_heads: int) -> dict:
-    """``EncoderWithMLM`` state dict → Flax ``EncoderWithMLM`` params."""
-    return {
-        "encoder": encoder_flax_tree(sd, num_heads, prefix="encoder."),
-        "mlm": {
-            "decoder": _dense_tree(sd, "mlm.decoder"),
-            "ln": _ln_tree(sd, "mlm.ln"),
-            "transform": _dense_tree(sd, "mlm.transform"),
-        },
-    }
-
-
-def colbert_flax_tree(sd: Mapping, num_heads: int) -> dict:
-    """``ColBERTModule`` state dict → Flax ``ColBERTModule`` params."""
-    return {
-        "colbert": {"proj": _dense_tree(sd, "colbert.proj")},
-        "encoder": encoder_flax_tree(sd, num_heads, prefix="encoder."),
-    }
-
-
-def crossencoder_flax_tree(sd: Mapping, num_heads: int) -> dict:
-    """``CrossEncoderModule`` state dict → Flax ``CrossEncoderModule`` params."""
-    return {
-        "encoder": encoder_flax_tree(sd, num_heads, prefix="encoder."),
-        "head": {"classifier": _dense_tree(sd, "head.classifier"), "pooler": _dense_tree(sd, "head.pooler")},
-    }
+def _sorted(tree: dict) -> dict:
+    return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
 
 
 def plaid_index_from_arrays(

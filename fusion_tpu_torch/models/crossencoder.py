@@ -21,7 +21,9 @@ document.  Two ways to score a batch's ``[Q, K]`` candidates:
 
 Both give the same logits up to the order of float sums.  ``predict``,
 ``rank`` and ``rerank`` are the host-side API over text pairs; ``save`` /
-``load`` read and write the JAX package's checkpoint format.  The JAX
+``load`` read and write the JAX package's checkpoint format.  Training
+builds the model with ``param_dtype=torch.float32`` and scores with
+``score_tokens_train``, the grad-enabled forward with dropout.  The JAX
 package's cascade and length-bucketed stages, the int8 view
 (``quantized``) and other attention implementations (``with_attention``)
 are later work (ROADMAP.md Queue 1, items 9, 17 and 2).
@@ -44,7 +46,7 @@ from fusion_tpu_torch.data.tokenization import (
     tokenizer_from_config,
 )
 from fusion_tpu_torch.models import checkpoint, convert
-from fusion_tpu_torch.models.encoder import Encoder, EncoderConfig, init_weights, place, token_tensors
+from fusion_tpu_torch.models.encoder import DropoutKey, Encoder, EncoderConfig, init_weights, place, token_tensors
 from fusion_tpu_torch.models.heads import CrossEncoderHead
 
 # chunk-count grid of the JAX package's packed plan: snapping a plan's chunk
@@ -64,8 +66,10 @@ class CrossEncoderModule(nn.Module):
         self.encoder = Encoder(cfg)
         self.head = CrossEncoderHead(cfg.hidden_size)
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        return self.head(self.encoder(input_ids, attention_mask))
+    def forward(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, drop: DropoutKey | None = None
+    ) -> torch.Tensor:
+        return self.head(self.encoder(input_ids, attention_mask, drop=drop))
 
     def packed(self, input_ids, attention_mask, position_ids, segment_ids, gather_row, gather_col):
         """Packed-row scoring: many pairs per row, each pair's logit read from
@@ -87,6 +91,7 @@ class CrossEncoder:
         max_length: int = 256,
         seed: int = 42,
         device="cuda",
+        param_dtype: torch.dtype | None = None,
     ):
         self.cfg = cfg
         self.max_length = max_length
@@ -96,7 +101,7 @@ class CrossEncoder:
             init_weights(self.module, seed)
         else:
             self.module.load_state_dict(params)
-        place(self.module, cfg.dtype, self.device)
+        place(self.module, cfg.dtype, self.device, param_dtype)
         self.tokenizer = tokenizer or WordHashTokenizer(vocab_size=cfg.vocab_size)
 
     # -- corpus and query tokens ----------------------------------------
@@ -138,6 +143,12 @@ class CrossEncoder:
     def score_tokens(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """Pair tokens [B, L] → f32 logits [B]."""
         return self.module(input_ids, attention_mask)
+
+    def score_tokens_train(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, drop: DropoutKey | None = None
+    ) -> torch.Tensor:
+        """The train-mode forward under autograd, dropout drawn from ``drop``."""
+        return self.module(input_ids, attention_mask, drop)
 
     @torch.inference_mode()
     def packed_score_tokens(self, input_ids, attention_mask, position_ids, segment_ids, gather_row, gather_col):
@@ -433,12 +444,20 @@ class CrossEncoder:
             "tokenizer": tokenizer_config(self.tokenizer),
             "encoder": checkpoint.encoder_config_dict(self.cfg),
         }
-        checkpoint.write(path, config, convert.crossencoder_flax_tree(self.module.state_dict(), self.cfg.num_heads))
+        checkpoint.write(path, config, self.flax_tree(self.module.state_dict()))
+
+    def flax_tree(self, tensors) -> dict:
+        """A state dict (or gradients keyed like it) → the JAX model's tree."""
+        return convert.flax_tree(self.module, self.cfg.num_heads, tensors)
 
     @classmethod
-    def load(cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32) -> "CrossEncoder":
+    def load(
+        cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype | None = None,
+    ) -> "CrossEncoder":
         """Load a checkpoint written by either package, computing in
-        ``dtype`` on ``device``.  A T5 cross-encoder checkpoint raises."""
+        ``dtype`` on ``device`` (weights held in ``param_dtype``, default
+        ``dtype``).  A T5 cross-encoder checkpoint raises."""
         config = checkpoint.read_config(path)
         if config.get("model_type") == "t5_crossencoder":
             raise NotImplementedError(
@@ -453,4 +472,5 @@ class CrossEncoder:
             tokenizer=tokenizer,
             max_length=config["max_length"],
             device=device,
+            param_dtype=param_dtype,
         )

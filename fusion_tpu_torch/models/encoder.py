@@ -14,11 +14,21 @@ The same trunk as ``fusion_tpu/models/encoder.py``, layer for layer:
   * ``segment_ids`` (packed rows) make the allowed mask block-diagonal
     ``[B, 1, L, L]``: a token attends only to tokens of its own segment, and
     the −1e9 bias keeps an all-pad row finite as before;
-  * GELU is exact.
+  * GELU is exact;
+  * every linear layer and embedding computes in its input's (the compute)
+    dtype: weights placed in that dtype serve as they are, f32 master
+    weights (training, ``place(..., param_dtype=torch.float32)``) are cast
+    per use, as flax's ``param_dtype`` f32 / ``dtype`` bf16 modules do, and
+    their gradients reach the optimizer in f32.
 
-The port serves inference only: modules are built in eval mode and the
-forward passes run under ``torch.inference_mode`` in the models that use
-them.  ``models/convert.py`` maps a Flax parameter tree onto these modules.
+Serving runs the forward under ``torch.inference_mode`` in the models that
+use these modules.  Training passes a ``DropoutKey`` (dropout at the JAX
+package's four einsum-attention sites, each mask drawn from a generator
+seeded by ``(seed, step, stream, layer, site)``) and, with ``cfg.remat``,
+recomputes each layer in the backward pass (``torch.utils.checkpoint``):
+the recompute reseeds the same generators, so it draws the masks of the
+first forward.  ``models/convert.py`` maps a Flax parameter tree onto these
+modules.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fusion_tpu_torch.core.device import resolve_device
 
@@ -48,9 +59,12 @@ class EncoderConfig:
     layer_norm_eps: float = 1e-5
     # RoBERTa-style position ids start at pad_token_id + 1; 0 = BERT absolute
     position_offset: int = 2
-    # train-time only: the port runs inference, where dropout is the identity
+    # train-time only: a forward without a DropoutKey applies none
     dropout: float = 0.1
     dtype: torch.dtype = torch.float32
+    # recompute each transformer layer in the backward pass (train-time:
+    # trades a forward's FLOPs for activation memory)
+    remat: bool = False
 
     @classmethod
     def tiny(cls, vocab_size: int = 128, **kw) -> "EncoderConfig":
@@ -76,6 +90,46 @@ def roberta_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Te
     return torch.cumsum(mask, dim=-1) * mask + pad_token_id
 
 
+# dropout sites of the einsum attention, as in fusion_tpu/models/encoder.py
+SITE_EMBEDDINGS, SITE_ATTN_PROBS, SITE_ATTN_OUT, SITE_FFN_OUT = range(4)
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutKey:
+    """Where a train-mode forward draws its dropout masks: one generator per
+    ``(seed, step, stream, layer, site)``, so a resumed run and a remat
+    recompute draw the masks they drew before.  ``stream`` tells apart the
+    forwards of one step (query, positive and negative batches)."""
+
+    seed: int
+    step: int
+    stream: int = 0
+
+    def generator(self, device, layer: int, site: int) -> torch.Generator:
+        entropy = [self.seed, self.step, self.stream, layer + 1, site]
+        state = np.random.SeedSequence(entropy).generate_state(2, np.uint64)[0]
+        return torch.Generator(device=device).manual_seed(int(state) & ((1 << 63) - 1))
+
+
+def dropout(x: torch.Tensor, rate: float, key: DropoutKey | None, layer: int, site: int) -> torch.Tensor:
+    """flax's ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
+    kept values by ``1 / (1 - rate)``, in ``x``'s dtype; the identity
+    without a key or at rate 0."""
+    if key is None or rate == 0.0:
+        return x
+    u = torch.rand(x.shape, generator=key.generator(x.device, layer, site), device=x.device)
+    return torch.where(u >= rate, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype (a no-op cast when the
+    weights are already in it)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with f32 weights that normalizes in f32 (the caller casts)."""
 
@@ -98,7 +152,9 @@ class Embeddings(nn.Module):
         self.token_type = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor, position_ids: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(
+        self, input_ids: torch.Tensor, position_ids: torch.Tensor | None = None, drop: DropoutKey | None = None
+    ) -> torch.Tensor:
         c = self.cfg
         if position_ids is not None:
             pos_ids = position_ids
@@ -109,11 +165,11 @@ class Embeddings(nn.Module):
                 input_ids
             )
         x = (
-            self.word(input_ids)
-            + self.position(pos_ids)
-            + self.token_type(torch.zeros_like(input_ids))
+            self.word(input_ids).to(c.dtype)
+            + self.position(pos_ids).to(c.dtype)
+            + self.token_type(torch.zeros_like(input_ids)).to(c.dtype)
         )
-        return self.ln(x).to(c.dtype)
+        return dropout(self.ln(x), c.dropout, drop, -1, SITE_EMBEDDINGS).to(c.dtype)
 
 
 class SelfAttention(nn.Module):
@@ -121,11 +177,16 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         # fused QKV: output features ordered [3, heads, head_dim]
-        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
-        self.out = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.qkv = Linear(cfg.hidden_size, 3 * cfg.hidden_size)
+        self.out = Linear(cfg.hidden_size, cfg.hidden_size)
 
     def forward(
-        self, x: torch.Tensor, attention_mask: torch.Tensor, segment_ids: torch.Tensor | None = None
+        self,
+        x: torch.Tensor,
+        attention_mask: torch.Tensor,
+        segment_ids: torch.Tensor | None = None,
+        drop: DropoutKey | None = None,
+        layer: int = 0,
     ) -> torch.Tensor:
         c = self.cfg
         b, length, h = x.shape
@@ -143,27 +204,34 @@ class SelfAttention(nn.Module):
             )[:, None]
         bias = torch.where(allowed, 0.0, -1e9).to(torch.float32)
         probs = torch.softmax(logits + bias, dim=-1).to(c.dtype)
+        probs = dropout(probs, c.dropout, drop, layer, SITE_ATTN_PROBS)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return self.out(ctx.reshape(b, length, h))
 
 
 class TransformerLayer(nn.Module):
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, index: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.index = index  # the layer's place in its trunk: part of its dropout seeds
         self.attention = SelfAttention(cfg)
         self.attn_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.ffn_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.ffn_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.ffn_in = Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.ffn_out = Linear(cfg.intermediate_size, cfg.hidden_size)
         self.ffn_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def forward(
-        self, x: torch.Tensor, attention_mask: torch.Tensor, segment_ids: torch.Tensor | None = None
+        self,
+        x: torch.Tensor,
+        attention_mask: torch.Tensor,
+        segment_ids: torch.Tensor | None = None,
+        drop: DropoutKey | None = None,
     ) -> torch.Tensor:
-        dtype = self.cfg.dtype
-        x = self.attn_ln(x + self.attention(x, attention_mask, segment_ids)).to(dtype)
+        c, i = self.cfg, self.index
+        attn = self.attention(x, attention_mask, segment_ids, drop, i)
+        x = self.attn_ln(x + dropout(attn, c.dropout, drop, i, SITE_ATTN_OUT)).to(c.dtype)
         h = self.ffn_out(F.gelu(self.ffn_in(x), approximate="none"))
-        return self.ffn_ln(x + h).to(dtype)
+        return self.ffn_ln(x + dropout(h, c.dropout, drop, i, SITE_FFN_OUT)).to(c.dtype)
 
 
 class Encoder(nn.Module):
@@ -173,7 +241,7 @@ class Encoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embeddings = Embeddings(cfg)
-        self.layers = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(TransformerLayer(cfg, i) for i in range(cfg.num_layers))
 
     def forward(
         self,
@@ -181,10 +249,16 @@ class Encoder(nn.Module):
         attention_mask: torch.Tensor,
         position_ids: torch.Tensor | None = None,
         segment_ids: torch.Tensor | None = None,
+        drop: DropoutKey | None = None,
     ) -> torch.Tensor:
-        x = self.embeddings(input_ids, position_ids)
+        x = self.embeddings(input_ids, position_ids, drop)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, attention_mask, segment_ids)
+            if remat:  # the masks come from seeded generators, not the global RNG state
+                x = checkpoint(layer, x, attention_mask, segment_ids, drop, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, attention_mask, segment_ids, drop)
         return x
 
 
@@ -194,9 +268,9 @@ class MLMHead(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
-        self.transform = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.transform = Linear(cfg.hidden_size, cfg.hidden_size)
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+        self.decoder = Linear(cfg.hidden_size, cfg.vocab_size)
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
         h = F.gelu(self.transform(hidden), approximate="none")
@@ -212,9 +286,9 @@ class EncoderWithMLM(nn.Module):
         self.mlm = MLMHead(cfg)
 
     def forward(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, drop: DropoutKey | None = None
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        hidden = self.encoder(input_ids, attention_mask)
+        hidden = self.encoder(input_ids, attention_mask, drop=drop)
         return hidden, self.mlm(hidden)
 
 
@@ -238,14 +312,15 @@ def init_weights(module: nn.Module, seed: int) -> None:
                     m.bias.zero_()
 
 
-def place(module: nn.Module, dtype: torch.dtype, device) -> nn.Module:
-    """Move to ``device`` in eval mode; linear and embedding weights take the
-    compute dtype, LayerNorm weights stay f32, and so does a layer marked
-    ``keep_f32`` (the cross-encoder's classifier)."""
+def place(module: nn.Module, dtype: torch.dtype, device, param_dtype: torch.dtype | None = None) -> nn.Module:
+    """Move to ``device`` in eval mode; linear and embedding weights take
+    ``param_dtype`` (default: the compute dtype, the serving placement; f32
+    for training's master weights), LayerNorm weights stay f32, and so does
+    a layer marked ``keep_f32`` (the cross-encoder's classifier)."""
     module.to(device).eval()
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Embedding)) and not getattr(m, "keep_f32", False):
-            m.to(dtype)
+            m.to(param_dtype or dtype)
     return module
 
 

@@ -6,6 +6,8 @@
   * ``ColBERTHead``       — per-token projection + L2 norm (late interaction)
   * ``CrossEncoderHead``  — CLS → pooler dense → tanh → f32 classifier logit
                             (monoBERT)
+  * ``pairwise_similarity`` / ``batchwise_similarity`` — the training
+                            losses' row-aligned and all-pairs scores
 
 Each computes in the dtype of its input, as ``fusion_tpu/models/heads.py``.
 """
@@ -16,6 +18,9 @@ import torch
 from torch import nn
 
 from fusion_tpu_torch.core.ranked import stable_topk
+from fusion_tpu_torch.models.encoder import Linear
+
+SIMILARITIES = ("cos_sim", "dot_score")
 
 
 def pool(hidden: torch.Tensor, attention_mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:
@@ -57,12 +62,35 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x / torch.clamp(norm, min=eps)
 
 
+def _check_similarity(similarity: str) -> None:
+    if similarity not in SIMILARITIES:
+        raise ValueError(f"similarity must be one of {SIMILARITIES}, got {similarity!r}")
+
+
+def pairwise_similarity(q: torch.Tensor, d: torch.Tensor, similarity: str = "cos_sim") -> torch.Tensor:
+    """Row-aligned similarity: q [..., H] vs d [..., H] → [...], in the
+    inputs' dtype."""
+    _check_similarity(similarity)
+    if similarity == "cos_sim":
+        q, d = l2_normalize(q), l2_normalize(d)
+    return (q * d).sum(dim=-1)
+
+
+def batchwise_similarity(q: torch.Tensor, d: torch.Tensor, similarity: str = "cos_sim") -> torch.Tensor:
+    """All-pairs similarity: q [Nq, H] × d [Nd, H] → [Nq, Nd] f32 (the
+    products of the inputs' dtype summed in f32)."""
+    _check_similarity(similarity)
+    if similarity == "cos_sim":
+        q, d = l2_normalize(q), l2_normalize(d)
+    return q.float() @ d.float().T
+
+
 class ColBERTHead(nn.Module):
     """Per-token projection to the late-interaction dim (default 128)."""
 
     def __init__(self, hidden_size: int, dim: int = 128):
         super().__init__()
-        self.proj = nn.Linear(hidden_size, dim, bias=False)
+        self.proj = Linear(hidden_size, dim, bias=False)
 
     def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         tok = l2_normalize(self.proj(hidden).float())
@@ -76,8 +104,8 @@ class CrossEncoderHead(nn.Module):
 
     def __init__(self, hidden_size: int):
         super().__init__()
-        self.pooler = nn.Linear(hidden_size, hidden_size)
-        self.classifier = nn.Linear(hidden_size, 1)
+        self.pooler = Linear(hidden_size, hidden_size)
+        self.classifier = Linear(hidden_size, 1)
         self.classifier.keep_f32 = True
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:

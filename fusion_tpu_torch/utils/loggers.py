@@ -1,7 +1,8 @@
 """Experiment logging: a run-scoped JSONL logger with ``log_training`` /
-``log_eval``, a tqdm-safe logging handler, and the CSV and heatmap side
-files of the evaluation and tuning commands.  (The wandb logger waits for
-the training slice of the port.)"""
+``log_eval``, the wandb logger of the training commands (which falls back
+to the JSONL one where wandb is missing or cannot start), a tqdm-safe
+logging handler, and the CSV and heatmap side files of the evaluation and
+tuning commands."""
 
 from __future__ import annotations
 
@@ -32,6 +33,37 @@ class JSONLLogger:
 
     def log_eval(self, epoch: int, step: int, metric: str, value: float) -> None:
         self.log({"kind": "eval", "epoch": epoch, "step": step, "metric": metric, "value": value})
+
+
+class WandbLogger:
+    """A wandb run with ``log_training`` / ``log_eval``; where wandb is not
+    installed or its run cannot start, the same calls go to a
+    ``JSONLLogger`` under ``log_dir``."""
+
+    def __init__(self, project_name: str, run_name: str, run_config=None, log_dir: str = "logs"):
+        self.backend = None
+        try:  # pragma: no cover - wandb is not installed here
+            import wandb
+
+            self.backend = wandb.init(project=project_name, name=run_name, config=run_config, dir=log_dir)
+        except Exception:  # noqa: BLE001 - any failure to start a run falls back to the local log
+            self.fallback = JSONLLogger(log_dir, run_name)
+
+    def log_training(self, epoch, steps_per_epoch, step, lr, loss, loss_name="loss"):
+        if self.backend is not None:  # pragma: no cover
+            self.backend.log({"train/lr": lr, f"train/{loss_name}": loss}, step=step)
+        else:
+            self.fallback.log_training(epoch, steps_per_epoch, step, lr, loss, loss_name)
+
+    def log_eval(self, epoch, step, metric, value):
+        if self.backend is not None:  # pragma: no cover
+            self.backend.log({metric: value}, step=step)
+        else:
+            self.fallback.log_eval(epoch, step, metric, value)
+
+    def finish(self):
+        if self.backend is not None:  # pragma: no cover
+            self.backend.finish()
 
 
 class LoggingHandler(logging.Handler):

@@ -274,8 +274,8 @@ def test_serve_build_writes_the_jax_layout(serve_runs):
 # what the port does not serve yet, and the device
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("argv, match", [
-    (["dpr", "--task", "train"], "item 16"),
-    (["monobert", "--task", "test"], "item 16"),
+    (["monobert", "--task", "train", "--backbone", "t5"], "item 17"),
+    (["dpr", "--task", "test", "--dataset", "mrtydi-en"], "item 15"),
     (["bm25", "--dataset", "mmarco-fr"], "item 15"),
     (["hybrid", "--run_dpr", "--attention_impl", "flash"], "item 2"),
     (["serve", "--task", "search", "--index_dir", "x", "--ce_int8"], "item 17"),
