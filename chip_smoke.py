@@ -4,10 +4,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 
 Phases (each prints its result and wall time; any failed check exits 1):
   1. device   — requires CUDA; prints the card's name and power limit;
-  2. build    — compiles the four kernel sources (csrc/maxsim.cu with K1,
+  2. build    — compiles the five kernel sources (csrc/maxsim.cu with K1,
                 K1-v2 and K1-v1, dense_topk.cu with K2 and P3 at three doc
-                blocks, scatter_score.cu with K3, P4 and P5, gather_rows.cu;
-                all three but gather_rows.cu include the shared
+                blocks, scatter_score.cu with K3, P4 and P5, gather_rows.cu,
+                attention.cu with the masked-attention kernel FA of the
+                flash form; all but gather_rows.cu include the shared
                 csrc/hopper.cuh), one nvcc each, all at once; prints their
                 ptxas reports (registers, spills, shared memory, and the
                 wgmma waits ptxas inserted);
@@ -23,6 +24,9 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 analytic model TFLOP per step (3 x forward) and hardware TFLOP
                 (one more forward of the layers under remat), MFU against 989
                 bf16 TFLOP/s) and one traced step; every loss finite;
+     train_einsum_bf16 — the same with the attention in the einsum_bf16
+                form (bf16-stored logits, the form JAX trains with): one
+                warm-up and one timed step per family, no trace;
      train_agreement — the f32 train step on the card against the CPU at
                 base width, 2 layers, batch 4, dropout 0, per family: loss
                 within 1e-4, every gradient leaf within 1e-3 (norm-wise) and
@@ -33,10 +37,11 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 loss after 20 steps below step 1's, per family; the first
                 step with dropout 0.1, remat on and off: equal losses,
                 gradients within 2^-8 per leaf;
-     cli_train — the CLI's dpr / splade / colbert / monobert at --tiny on a
-                fixture it writes: --task train then --task test (ColBERT's
-                through K1, its launches counted); each final/ reloaded
-                encodes as the trained model does;
+     cli_train — the CLI's dpr / splade / colbert / monobert (and monobert
+                --backbone t5) at --tiny on a fixture it writes: --task
+                train then --task test (ColBERT's through K1, its launches
+                counted); each final/ reloaded encodes as the trained model
+                does;
   3. kernel   — K1 (MaxSim, the wgmma/TMA kernel) against its plain version
                 at the serving shape (Ld 128, N 28,032, D 128, QL 64x32),
                 bit-identical over 10 more launches, with its achieved
@@ -171,6 +176,45 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 f32 forward of the same weights, each
                 stage's time, the packed plan's row fill, analytic FLOPs
                 and the rate reached; warm timing and peak memory of each;
+     attention — FA, the masked-attention kernel of the flash form, against
+                its plain version on the operands the main path gives it
+                (layer 0 of the flash cross-encoder's first packed and flat
+                calls on one batch: [128, 256, 12, 64] with segments and
+                [512, 256, 12, 64], bf16), a query-encoder shape and a
+                ragged case with all-pad rows in bf16 and f32: within
+                ATTN_TOL, repeated launches bit-identical; at the packed
+                shape kernel / plain CUDA-event times in turns, the library
+                call's (scaled_dot_product_attention, memory-efficient
+                backend, same float bias) and the bound from the allowed
+                pairs;
+     rerank_forms — the same searcher and batch with the other forms of the
+                stage: packed and flat with einsum_bf16 and flash attention
+                (with_attention; flash runs FA in every layer, its launches
+                counted in the stage and in the search), the flat cascade at
+                (keep 25, stage1 auto = the corpus p90 length), the
+                length-bucketed stage on aligned_buckets' ladder and the
+                packed stage of the int8 view (quantized): logits within
+                0.04 of the f32 forward (the cascade's kept slots), stage ms
+                (median of 3) and peak memory; all but the flat attention
+                forms also search the 192 queries (FA's count set to 0 just
+                before and read just after; fused output checked, the head
+                the same set as the default stage's, top-10 overlap with
+                it); then each form held to itself, card against CPU, layer
+                by layer from the same inputs, on 4 packed rows in f32
+                (einsum_bf16 and int8 within half their gap to einsum in
+                every layer, flash within 1e-4), and the int8
+                codes of the card bit-equal to the CPU's;
+     t5       — a T5CrossEncoder at the CLI's --backbone t5 widths (d_model
+                512, 6 layers, 8 heads, d_ff 2,048, 32 buckets, max
+                distance 128; bf16, random seeded weights) as the slice's
+                cross-encoder, packed and flat over the same heads: logits
+                within 0.01 of its f32 forward, stage ms, peak memory, a
+                192-query search;
+     query_encoders — the slice's query encoders swapped for their
+                einsum_bf16, flash and int8 views (set_encoder_attention,
+                quantize_encoders): per leg top-100 overlap with the default
+                form (>= 0.95; int8 >= 0.9), the legs' ms on one batch, peak
+                memory, FA's launches in the flash form's search;
      checkpoint — the four full-width models (DPR, SPLADE, ColBERT, the
                 cross-encoder) saved in the JAX package's checkpoint format
                 and loaded back in bf16: query encodings (192 queries) and
@@ -197,7 +241,7 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 than requests; requests/s, p50 / p99 request ms, batches and
                 mean batch ms;
      cli      — fusion_tpu_torch.cli.main in process on a fixture JSON of the
-                slice's 27,940 docs and 192 dev questions (the zipf words
+                slice's first 8,192 docs and 192 dev questions (the zipf words
                 spelled in consonants, which the CLI's BM25 preprocessing
                 keeps as they are), the [checkpoint] models as --*_path:
                 serve --task build and serve --task search with all four
@@ -269,12 +313,13 @@ searcher and prints the device busy share and the top kernels.
 Before them, each maxsim_variants run and each probe tool prints its own
 JSON record.  The line before the last is the kernels' JSON record
 (launches from the slice's search for K1, the four-leg mMARCO search for
-K2, K3 and K4, the two bench runs for K1-v1 and K1-v2, and the probe tools'
-runs for P3, P4 and P5; ms are CUDA-event medians for K1-K3, K1-v1, K1-v2
-and P3-P5 and queued device times for K4; bound_ms is the least time an
-H100 SXM could take for the same work, from this run's shapes and data;
-library_ms is index_select's time for K4 and null elsewhere: no one PyTorch
-call computes the others' functions); the last line is
+K2, K3 and K4, the two bench runs for K1-v1 and K1-v2, the probe tools'
+runs for P3, P4 and P5, and the packed flash search of [rerank_forms] for
+FA; ms are CUDA-event medians for K1-K3, K1-v1, K1-v2, P3-P5 and FA and
+queued device times for K4; bound_ms is the least time an H100 SXM could
+take for the same work, from this run's shapes and data; library_ms is
+index_select's time for K4, scaled_dot_product_attention's for FA and null
+elsewhere: no one PyTorch call computes the others' functions); the last line is
 {"ok": true, "device": {...}}.  Matmul precision on the card: TF32 off for
 matmuls and cuDNN, bf16 reduced-precision reductions off.
 """
@@ -301,10 +346,29 @@ K3_TOL = (1e-6, 1e-5)
 # at most 9.5e-7 apart on an H100
 RERANK_SMALL_TOL = 1e-5
 RERANK_SMALL_DEPTH = 10
+# [attention]: the masked-attention kernel against its plain version
+# (atol, rtol): bf16 rounds the unnormalized probabilities before · v where
+# the plain version rounds the normalized ones, ~1 bf16 ulp of an output
+# (0.0078-0.0156 on an H100); f32 sums in another order (4.8e-7)
+ATTN_TOL = {"bf16": (3e-2, 1e-2), "f32": (1e-5, 1e-5)}
+# [rerank_forms] same form, card vs CPU: packed rows of the first chunk,
+# and the f32 flash trunk's limit (the kernel's f32 body against its plain
+# version through 12 layers)
+SAME_FORM_ROWS, SAME_FORM_F32_TOL = 4, 1e-4
 # the full-width bf16 rerank logits against an f32 forward of the same
 # weights: 0.012 (packed) and 0.013 (flat) apart on an H100, with the
-# logits spread over ±0.24
+# logits spread over ±0.24; [rerank_forms] 0.012-0.014 for the other
+# attention forms, the cascade and the buckets, 0.019 for int8
 RERANK_LOGIT_TOL = 0.04
+# [t5]: the bf16 T5 cross-encoder's logits against its f32 forward (0.0021
+# on an H100, the logits spread over ±0.43)
+T5_LOGIT_TOL = 0.01
+# [query_encoders]: top-100 overlap of each leg with the default form's,
+# set from a dev run of the phase on an H100 (0.979-0.991 for einsum_bf16
+# and flash, 0.949-0.973 for int8)
+ENCODER_FORM_OVERLAP, ENCODER_INT8_OVERLAP = 0.95, 0.9
+# [cli]: the fixture's docs, the first CLI_DOCS of the slice's corpus
+CLI_DOCS = 8_192
 N_DOCS, BATCH, N_QUERIES, TOPK, LQ, LD, DIM = 27_940, 64, 192, 1000, 32, 128, 128
 RUNS = 10  # alternating kernel / plain timing runs
 REPEATS = 10  # repeated launches that must give bit-identical outputs
@@ -894,6 +958,381 @@ def rerank_check(torch, np, searcher, queries, smi, kernels) -> dict:
         timing = warm_timing(torch, s, queries, f"rerank_{name}", smi)
         out[f"{name}_ms_per_batch"] = timing["ms_per_batch_median"]
         out[f"{name}_peak_mem_gib"] = timing["peak_mem_gib"]
+    return out
+
+
+def attention_inputs(torch, searcher, inputs, head):
+    """The masked-attention kernel's operands of its first call on a stage:
+    layer 0 of ``searcher``'s cross-encoder on one batch's head (its packed
+    or flat stage), captured at the attention module's entry → (q, k, v
+    views of the fused qkv projection, key mask, segment ids or None)."""
+    ce = searcher.cross_encoder
+    att = ce.module.encoder.layers[0].attention
+    got = {}
+
+    def hook(_, args):
+        if not got:
+            got["x"], got["mask"], got["seg"] = (None if a is None else a.clone() for a in args[:3])
+
+    handle = att.register_forward_pre_hook(hook)
+    try:
+        searcher._packed_rerank_stage(inputs, head) if searcher.rerank_packed else \
+            searcher._flat_rerank_stage(inputs, head)
+    finally:
+        handle.remove()
+    b, length, hidden = got["x"].shape
+    with torch.inference_mode():
+        qkv = att.qkv(got["x"]).view(b, length, 3, ce.cfg.num_heads, hidden // ce.cfg.num_heads)
+    return (*qkv.unbind(2), got["mask"], got["seg"])
+
+
+def attention_work(torch, q, mask, seg) -> tuple[float, float]:
+    """(operations, bytes) the masked attention of these operands needs: 4 hd
+    operations per head for each (query, allowed key) pair, a query with no
+    allowed key counting every key of its row (its output averages them);
+    q, k, v read and the output written once, the masks as int32."""
+    from fusion_tpu_torch.ops.attention import allowed_keys
+
+    b, length, heads, hd = q.shape
+    n = allowed_keys(mask, seg).expand(b, 1, length, length).sum(-1)
+    pairs = torch.where(n > 0, n, length).sum().item()
+    masks = 1 if seg is None else 2
+    return 4.0 * hd * heads * pairs, 4.0 * q.numel() * q.element_size() + 4.0 * masks * b * length
+
+
+def attention_check(torch, searcher, queries, runs, device="cuda") -> dict:
+    """[attention]: the masked-attention kernel (``ops/attention``,
+    ``csrc/attention.cu``) against its plain version on the operands the
+    main path gives it (layer 0 of the flash cross-encoder's first call on
+    one batch, packed [128, 256, 12, 64] and flat [512, 256, 12, 64], bf16),
+    on a small ragged case with all-pad rows in bf16 and f32, and on a
+    query-encoder shape: max |kernel - plain| within ATTN_TOL, REPEATS more
+    launches bit-identical; at the packed shape the kernel's and the plain
+    version's CUDA-event times (RUNS in turns), the library call's
+    (scaled_dot_product_attention with the same float bias, pinned to the
+    memory-efficient kernel) and the bound from the allowed pairs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from fusion_tpu_torch.ops.attention import allowed_keys, masked_attention_cuda, masked_attention_plain
+    from fusion_tpu_torch.tools import bench_maxsim
+
+    inputs = searcher._prepare_inputs(queries[:BATCH])
+    head = searcher._fuse(searcher._search_batch(inputs)).ids[:, : searcher.rerank_depth]
+    flash = dataclasses.replace(searcher, cross_encoder=searcher.cross_encoder.with_attention("flash"))
+    gen = torch.Generator(device=device).manual_seed(41)
+    ragged_mask = (torch.arange(70, device=device)[None] < torch.tensor([[70], [33], [0]], device=device)).int()
+    ragged_seg = torch.where(torch.arange(70, device=device) < 30, 1, 2)[None].expand(3, 70) * ragged_mask
+    cases = {
+        "packed": attention_inputs(torch, flash, inputs, head),
+        "flat": attention_inputs(torch, dataclasses.replace(flash, rerank_packed=False), inputs, head),
+        "query": (*torch.randn((64, 32, 3, 12, 64), generator=gen, device=device).bfloat16().unbind(2),
+                  (torch.arange(32, device=device)[None] < torch.randint(4, 33, (64, 1), generator=gen,
+                                                                         device=device)).int(), None),
+    }
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        qkv = torch.randn((3, 70, 3, 2, 64), generator=gen, device=device).to(dtype)
+        cases[f"ragged_{tag}"] = (*qkv.unbind(2), ragged_mask, ragged_seg)
+    out, err_max = {}, 0.0
+    with torch.inference_mode():
+        for name, (q, k, v, mask, seg) in cases.items():
+            atol, rtol = ATTN_TOL["bf16" if q.dtype == torch.bfloat16 else "f32"]
+            got = masked_attention_cuda(q, k, v, mask, seg, 0.125)
+            want = masked_attention_plain(q, k, v, mask, seg, 0.125)
+            err = (got.float() - want.float()).abs()
+            res = {"shape": list(q.shape), "dtype": str(q.dtype), "segments": seg is not None,
+                   "max_abs_err": err.max().item(), "tol": [atol, rtol]}
+            check(bool((err <= atol + rtol * want.float().abs()).all()),
+                  f"attention {name}: kernel off its plain version by {res['max_abs_err']}")
+            res["bit_identical_launches"] = REPEATS + 1
+            check(repeat_identical(torch, lambda: masked_attention_cuda(q, k, v, mask, seg, 0.125), got),
+                  f"attention {name}: repeated launches differ")
+            if q.dtype == torch.bfloat16:
+                err_max = max(err_max, res["max_abs_err"])
+            if name == "packed":
+                res["ms"], res["plain_ms"] = alternating_ms(
+                    torch, lambda: masked_attention_cuda(q, k, v, mask, seg, 0.125),
+                    lambda: masked_attention_plain(q, k, v, mask, seg, 0.125), runs)
+                bias = torch.where(allowed_keys(mask, seg), 0.0, -1e9).to(q.dtype)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, scale=0.125)  # noqa: E731
+                    res["library_ms"] = statistics.median(timed_ms(torch, lib, runs))
+                flops, nbytes = attention_work(torch, q, mask, seg)
+                res["bound_ms"] = bench_maxsim.bound(flops, nbytes)
+                res["allowed_share"] = flops / (4.0 * q.shape[-1] * q.shape[2] * q.shape[0] * q.shape[1] ** 2)
+                res["tflops_per_s"] = flops / res["ms"] / 1e9
+            out[name] = res
+    out["max_abs_err"] = err_max
+    return out
+
+
+def top10_overlap(np, a, b) -> float:
+    """Mean top-10 overlap of two [Q, k] id arrays."""
+    return float(np.mean([len(set(x[:10].tolist()) & set(y[:10].tolist())) / 10 for x, y in zip(a, b)]))
+
+
+def layerwise_same_form(torch, ce, ids, mask, pos, seg, device="cuda") -> dict:
+    """``ce``'s trunk in f32 (the same weights) on the card and on the CPU,
+    layer by layer: each layer of a form (``einsum_bf16``, ``flash`` — the
+    kernel's f32 body on the card, its plain version on the CPU —, and the
+    int8 view) runs on both devices from the same input, the card's output
+    of the layer before.  Per layer: the max gap between the two devices
+    over the real tokens, against the form's gap to the f32 ``einsum``
+    layer on the same input.  ``einsum_bf16`` and int8 must sit nearer
+    their own form on the CPU than half their gap to ``einsum`` in every
+    layer; ``flash`` is the ``einsum`` arithmetic, so it has no gap and is
+    held to SAME_FORM_F32_TOL.  (Whole trunks drift apart: a code or a
+    bf16 logit one step off in one layer moves the next layer's codes, so
+    12 int8 layers on two devices differ by nearly the int8 error itself.)"""
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+
+    real = (mask > 0).cpu()
+    h_mask, h_seg = mask.cpu(), seg.cpu()
+    cfg32 = dataclasses.replace(ce.cfg, dtype=torch.float32)
+    params = {k: v.float() for k, v in ce.module.state_dict().items()}
+    card = CrossEncoder(cfg32, params=params, max_length=ce.max_length, device=device)
+    host = CrossEncoder(cfg32, params={k: v.cpu() for k, v in params.items()}, max_length=ce.max_length,
+                        device="cpu")
+    out = {"rows": int(ids.shape[0]), "real_tokens": int(real.sum()), "layers": cfg32.num_layers}
+    for form in ("einsum_bf16", "flash", "int8"):
+        view = (lambda m: m.quantized()) if form == "int8" else (lambda m, f=form: m.with_attention(f))
+        c_layers, h_layers = view(card).module.encoder.layers, view(host).module.encoder.layers
+        same, gap = [], []
+        with torch.inference_mode():
+            x = card.module.encoder.embeddings(ids, pos)
+            for i, ref_layer in enumerate(card.module.encoder.layers):
+                y = c_layers[i](x, mask, seg)
+                same.append((y.cpu() - h_layers[i](x.cpu(), h_mask, h_seg)).abs()[real].max().item())
+                gap.append((y - ref_layer(x, mask, seg)).abs().cpu()[real].max().item())
+                x = y
+        limits = [SAME_FORM_F32_TOL] * len(gap) if form == "flash" else [g / 2 for g in gap]
+        out[form] = {"card_vs_cpu": same, "gap_vs_einsum": gap,
+                     "worst_share_of_limit": max(a / b for a, b in zip(same, limits))}
+    for form in ("einsum_bf16", "flash", "int8"):
+        check(out[form]["worst_share_of_limit"] <= 1.0,
+              f"rerank_forms same form {form}: per-layer card vs CPU {out[form]['card_vs_cpu']} over its "
+              f"limits (gap to einsum {out[form]['gap_vs_einsum']})")
+    return out
+
+
+def same_form_check(torch, searcher, inputs, head, rows=SAME_FORM_ROWS, device="cuda") -> dict:
+    """[rerank_forms] each form held to itself (``layerwise_same_form``) on
+    the first ``rows`` packed rows of one batch's stage, captured at the
+    trunk's entry; then the bf16 int8 view's codes of layer 0's output on
+    the card, bit-equal to the CPU's, and its qkv product within one bf16
+    ulp of the CPU's."""
+    from fusion_tpu_torch.models.encoder import int8_codes, int8_linear
+    from fusion_tpu_torch.tools.bench_maxsim import bf16_ulp
+
+    ce = searcher.cross_encoder
+    got = {}
+
+    def hook(_, args):
+        if not got:
+            got["args"] = tuple(a[:rows].clone() for a in args[:4])
+
+    handle = ce.module.encoder.register_forward_pre_hook(hook)
+    try:
+        searcher._packed_rerank_stage(inputs, head)
+    finally:
+        handle.remove()
+    ids, mask, pos, seg = got["args"]
+    out = layerwise_same_form(torch, ce, ids, mask, pos, seg, device)
+    qce = ce.quantized()
+    with torch.inference_mode():
+        x = qce.module.encoder.layers[0](qce.module.encoder.embeddings(ids, pos), mask, seg)
+        layer = qce.module.encoder.layers[0].attention.qkv
+        codes, scales = int8_codes(x)
+        h_codes, h_scales = int8_codes(x.cpu())
+        y = int8_linear(x, layer.weight, layer.bias).cpu().float()
+        h_y = int8_linear(x.cpu(), layer.weight.cpu(), layer.bias.cpu()).float()
+    out["int8_codes_bit_equal"] = bool(torch.equal(codes.cpu(), h_codes) and torch.equal(scales.cpu(), h_scales))
+    check(out["int8_codes_bit_equal"], "rerank_forms same form int8: the card's codes differ from the CPU's")
+    out["int8_qkv_card_vs_cpu"] = (y - h_y).abs().max().item()
+    ulp = bf16_ulp(h_y.abs().max()).item()
+    check(out["int8_qkv_card_vs_cpu"] <= ulp,
+          f"rerank_forms same form int8: qkv product off the CPU's by {out['int8_qkv_card_vs_cpu']} (> {ulp})")
+    return out
+
+
+def rerank_forms_check(torch, np, searcher, queries, device="cuda") -> dict:
+    """[rerank_forms]: the main path's searcher (the slice with its
+    CamemBERT-width cross-encoder, rerank depth 100) with each other form of
+    the rerank stage, on one batch's fused head: the packed and the flat
+    stage with ``einsum_bf16`` and ``flash`` attention (``with_attention``),
+    the flat cascade at (keep 25, stage1 'auto', resolved to the corpus p90
+    length), the length-bucketed stage on ``aligned_buckets``' ladder, and
+    the packed stage of the ``quantized`` (int8) cross-encoder.  For each:
+    the logits against an f32 ``einsum`` forward of the same weights within
+    RERANK_LOGIT_TOL (all valid slots; the cascade's kept ones), the stage's
+    time (median of 3 CUDA-event runs, host plan and read-back included)
+    and the peak memory over those runs, and the masked-attention kernel's
+    launches in the stage (the flash forms: a multiple of the layer count;
+    the others: none); then (all but the flat attention forms) a search of
+    the 192 queries with the kernel's count set to 0 just before it and
+    read just after (packed flash: the count the kernels line gives the
+    kernel): fused output checked, the reranked head the same set as the
+    default packed stage's and its top-10 overlap with it.  The packed
+    flash logits' gap to the packed ``einsum`` stage (its plain version's
+    arithmetic) is reported; ``same_form`` holds each form to itself."""
+    from fusion_tpu_torch.core.ranked import stable_topk
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+    from fusion_tpu_torch.ops.attention import masked_attention_cuda
+    from fusion_tpu_torch.serving import _resolve_cascade
+
+    ce = searcher.cross_encoder
+    depth = searcher.rerank_depth
+    base, _ = searcher.search(queries, batch_size=BATCH)
+    base_ids = base.ids.numpy()
+    inputs = searcher._prepare_inputs(queries[:BATCH])
+    fused = searcher._fuse(searcher._search_batch(inputs))
+    head = fused.ids[:, :depth]
+    valid = head >= 0
+    ce32 = CrossEncoder(dataclasses.replace(ce.cfg, dtype=torch.float32), params=ce.module.state_dict(),
+                        max_length=ce.max_length, device=ce.device)
+    ref = dataclasses.replace(searcher, cross_encoder=ce32)._packed_rerank_stage(inputs, head)
+    del ce32
+    packed_einsum = searcher._packed_rerank_stage(inputs, head)
+    flat = dataclasses.replace(searcher, rerank_packed=False)
+    width = searcher.ce_doc_tokens.shape[1]
+    cascade = _resolve_cascade((25, "auto"), searcher.ce_doc_lens, width)
+    ladder = ce.aligned_buckets(LQ, width)
+    forms = {
+        **{f"{stage}_{impl}": (dataclasses.replace(s, cross_encoder=ce.with_attention(impl)), RERANK_LOGIT_TOL)
+           for impl in ("einsum_bf16", "flash") for stage, s in (("packed", searcher), ("flat", flat))},
+        "cascade": (dataclasses.replace(flat, rerank_cascade=cascade), RERANK_LOGIT_TOL),
+        "bucketed": (dataclasses.replace(searcher, rerank_packed=False, rerank_buckets=ladder), RERANK_LOGIT_TOL),
+        "packed_int8": (dataclasses.replace(searcher, cross_encoder=ce.quantized()), RERANK_LOGIT_TOL),
+    }
+    out = {"cascade_setting": cascade, "ladder": ladder}
+    kr = min(depth, fused.depth)
+    for name, (s, tol) in forms.items():
+        flash = name.endswith("flash")
+        masked_attention_cuda.launches = 0
+        if s.rerank_buckets is not None:
+            logits = s._bucketed_rerank_stage(inputs, head)
+        elif s.rerank_packed:
+            logits = s._packed_rerank_stage(inputs, head)
+        else:
+            logits = s._flat_rerank_stage(inputs, head)
+        launches = masked_attention_cuda.launches
+        layers = s.cross_encoder.cfg.num_layers
+        check(launches > 0 and launches % layers == 0 if flash else launches == 0,
+              f"rerank_forms {name}: the masked-attention kernel launched {launches} times in the stage")
+        check(bool(torch.isfinite(logits).all()), f"rerank_forms {name}: non-finite logits")
+        slots = valid
+        if name == "cascade":  # the kept slots: the top `keep` (the rest sit below their minimum)
+            _, kept = stable_topk(torch.where(valid, logits, -torch.inf), cascade[0])
+            slots = torch.zeros_like(valid).scatter_(1, kept, True) & valid
+        err = (logits - ref).abs()[slots].max().item()
+        res = {"logit_err_vs_f32": err, "tol": tol, "kernel_launches_stage": launches}
+        check(err <= tol, f"rerank_forms {name}: logits off the f32 forward by {err} (> {tol})")
+        if name == "packed_flash":
+            res["logit_gap_vs_packed_einsum"] = (logits - packed_einsum).abs()[valid].max().item()
+        torch.cuda.reset_peak_memory_stats()
+        res["stage_ms"] = statistics.median(timed_ms(torch, lambda s=s: s._rerank(inputs, fused), 3))
+        res["stage_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if not name.startswith("flat_"):
+            masked_attention_cuda.launches = 0
+            ranked, _ = s.search(queries, batch_size=BATCH)
+            res["kernel_launches_search"] = masked_attention_cuda.launches
+            check(res["kernel_launches_search"] > 0 if flash else res["kernel_launches_search"] == 0,
+                  f"rerank_forms {name}: the masked-attention kernel launched "
+                  f"{res['kernel_launches_search']} times in the search")
+            check_ranked(torch, np, ranked, N_QUERIES, TOPK, N_DOCS)
+            ids = ranked.ids.numpy()
+            res["head_sets_equal"] = all(set(a[:kr]) == set(b[:kr]) for a, b in zip(ids, base_ids))
+            check(res["head_sets_equal"], f"rerank_forms {name}: the reranked head holds other docs")
+            res["top10_overlap_vs_packed_einsum"] = top10_overlap(np, ids, base_ids)
+        out[name] = res
+    out["same_form"] = same_form_check(torch, searcher, inputs, head, device=device)
+    return out
+
+
+def t5_check(torch, np, searcher, queries, device="cuda") -> dict:
+    """[t5]: a T5CrossEncoder at the CLI's ``--backbone t5`` widths
+    (T5Config(vocab_size=32005): d_model 512, d_kv 64, d_ff 2,048, 6 layers,
+    8 heads, 32 buckets, max distance 128; random seeded weights, bf16) as
+    the slice's cross-encoder over the same doc tokens, packed and flat on
+    one batch's fused head: logits of each against an f32 forward of the
+    same weights (within T5_LOGIT_TOL) and against each other, stage times
+    (median of 3) and the peak memory over them; then the packed stage's search of the 192 queries (fused output
+    checked, the head the same set as the fused one's)."""
+    from fusion_tpu_torch.models.t5 import T5Config, T5CrossEncoder
+
+    t5 = T5CrossEncoder(T5Config(vocab_size=SPLADE_VOCAB, dtype=torch.bfloat16), max_length=256, seed=15,
+                        device=device)
+    t5_32 = T5CrossEncoder(dataclasses.replace(t5.cfg, dtype=torch.float32), params=t5.module.state_dict(),
+                           max_length=256, device=device)
+    packed = dataclasses.replace(searcher, cross_encoder=t5)
+    flat = dataclasses.replace(packed, rerank_packed=False)
+    inputs = searcher._prepare_inputs(queries[:BATCH])
+    fused = searcher._fuse(searcher._search_batch(inputs))
+    head = fused.ids[:, : searcher.rerank_depth]
+    valid = head >= 0
+    lp = packed._packed_rerank_stage(inputs, head)
+    lf = flat._flat_rerank_stage(inputs, head)
+    ref = dataclasses.replace(searcher, cross_encoder=t5_32)._packed_rerank_stage(inputs, head)
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(lf).all()), "t5: non-finite logits")
+    out = {
+        "layers": t5.cfg.num_layers, "d_model": t5.cfg.d_model, "heads": t5.cfg.num_heads,
+        # T5's attention is its own unscaled form with a position bias: no
+        # masked-attention kernel
+        "max_abs_logit": lf.abs()[valid].max().item(), "max_logit_gap": (lp - lf).abs()[valid].max().item(),
+        "max_logit_err_vs_f32": {"packed": (lp - ref).abs()[valid].max().item(),
+                                 "flat": (lf - ref).abs()[valid].max().item()},
+    }
+    check(max(out["max_logit_err_vs_f32"].values()) <= T5_LOGIT_TOL,
+          f"t5: bf16 logits off the f32 forward by {out['max_logit_err_vs_f32']} (> {T5_LOGIT_TOL})")
+    for name, s in (("packed", packed), ("flat", flat)):
+        torch.cuda.reset_peak_memory_stats()
+        out[f"{name}_stage_ms"] = statistics.median(timed_ms(torch, lambda s=s: s._rerank(inputs, fused), 3))
+        out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ranked, _ = packed.search(queries, batch_size=BATCH)
+    check_ranked(torch, np, ranked, N_QUERIES, TOPK, N_DOCS)
+    base = searcher._fuse(searcher._search_batch(inputs)).ids[:, : searcher.rerank_depth].cpu().numpy()
+    got = ranked.ids.numpy()[:BATCH, : searcher.rerank_depth]
+    out["head_sets_equal"] = all(set(a) == set(b) for a, b in zip(got, base))
+    check(out["head_sets_equal"], "t5: the reranked head holds other docs")
+    return out
+
+
+def encoder_forms_check(torch, np, searcher, queries) -> dict:
+    """[query_encoders]: the slice's query encoders (DPR, SPLADE, ColBERT)
+    swapped for their ``einsum_bf16``, ``flash`` and int8 views
+    (``set_encoder_attention`` / ``quantize_encoders``; the indexes keep
+    their default-form encoding): per leg, the top-100 overlap of the 192
+    queries' lists with the default form's (>= ENCODER_FORM_OVERLAP, int8
+    >= ENCODER_INT8_OVERLAP); the legs' time on one batch (median of 3) and
+    the peak memory over those runs; the masked-attention kernel's launches
+    in the 192 queries' search, the count set to 0 just before it (flash:
+    three encoders a batch, one per layer; the others: none)."""
+    from fusion_tpu_torch.ops.attention import masked_attention_cuda
+
+    base = searcher.search_systems(queries, batch_size=BATCH, external_ids=False)
+    inputs = searcher._prepare_inputs(queries[:BATCH])
+    out = {}
+    for form in ("einsum", "einsum_bf16", "flash", "int8"):
+        s = dataclasses.replace(searcher)
+        if form == "int8":
+            s.quantize_encoders()
+        else:
+            s.set_encoder_attention(form)
+        torch.cuda.reset_peak_memory_stats()
+        res = {"legs_ms": statistics.median(timed_ms(torch, lambda s=s: s._search_batch(inputs), 3)),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        masked_attention_cuda.launches = 0
+        got = s.search_systems(queries, batch_size=BATCH, external_ids=False)
+        res["kernel_launches"] = masked_attention_cuda.launches
+        check(res["kernel_launches"] > 0 if form == "flash" else res["kernel_launches"] == 0,
+              f"query_encoders {form}: the masked-attention kernel launched {res['kernel_launches']} times")
+        gate = ENCODER_INT8_OVERLAP if form == "int8" else ENCODER_FORM_OVERLAP
+        for leg in ("dpr", "splade", "colbert"):
+            res[f"{leg}_top100_overlap"] = overlap100(np, got[leg].ids.numpy(), base[leg].ids.numpy())
+            check(res[f"{leg}_top100_overlap"] >= gate,
+                  f"query_encoders {form}: {leg} top-100 overlap {res[f'{leg}_top100_overlap']} (< {gate})")
+        out[form] = res
     return out
 
 
@@ -1593,8 +2032,9 @@ def checkpoint_check(torch, np, models, queries, root, device="cuda") -> tuple[d
 
 
 def cli_check(torch, np, docs, queries, paths, root, kernels, device="cuda") -> dict:
-    """The CLI in process on a fixture of the slice's corpus (its words
-    spelled in letters that the BM25 preprocessing keeps): serve --task
+    """The CLI in process on a fixture of the slice's first CLI_DOCS docs
+    (their words spelled in letters that the BM25 preprocessing keeps), the
+    192 queries: serve --task
     build and search with all four retrievers and the rerank, then hybrid
     with percentile-rank NSF over BM25, DPR and ColBERT and hybrid with BM25
     and the rerank, the models from the [checkpoint] directories."""
@@ -1603,6 +2043,7 @@ def cli_check(torch, np, docs, queries, paths, root, kernels, device="cuda") -> 
     from fusion_tpu_torch.hybrid import run_evaluation
     from fusion_tpu_torch.utils.rankingio import read_ranking_tsv
 
+    docs = docs[:CLI_DOCS]  # the corpus cut to bound the phase's time (mostly the index's save)
     fx_docs = [letter_text(d) for d in docs]
     fx_queries = [letter_text(q) for q in queries]
     prep = TextPreprocessor(spacy_model=None)
@@ -1874,15 +2315,17 @@ def train_flops(cfg, family, b, lq, ld, n_neg) -> tuple[float, float]:
     return model, model + (layers if cfg.remat else 0)
 
 
-def train_check(torch, np, device="cuda") -> dict:
+def train_check(torch, np, device="cuda", attention_impl="einsum", warmup=TRAIN_WARMUP, timed=TRAIN_TIMED,
+                traced=True) -> dict:
     """[train]: each family at its preset's shapes, CamemBERT-base width,
-    bf16 compute over f32 master weights, remat on, AdamW: 2 warm-up and 5
-    timed steps, each ended by a synchronize, then one traced step (device
-    time, busy share, the top device operations)."""
+    bf16 compute over f32 master weights, remat on, AdamW, attention in the
+    form ``attention_impl``: ``warmup`` (2) warm-up and ``timed`` (5) timed
+    steps, each ended by a synchronize, then (with ``traced``) one traced
+    step (device time, busy share, the top device operations)."""
     from fusion_tpu_torch.models.encoder import EncoderConfig
     from fusion_tpu_torch.train import trainer
 
-    cfg = EncoderConfig(dtype=torch.bfloat16, remat=True)
+    cfg = EncoderConfig(dtype=torch.bfloat16, remat=True, attention_impl=attention_impl)
     out = {}
     for seed, (family, (b, lq, ld, n_neg)) in enumerate(TRAIN_SHAPES.items()):
         t0 = time.perf_counter()
@@ -1894,16 +2337,17 @@ def train_check(torch, np, device="cuda") -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times, losses = [], []
-        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        for i in range(warmup + timed):
             w0 = time.perf_counter()
             state, metrics = step(state, batch)
             torch.cuda.synchronize()
-            if i >= TRAIN_WARMUP:
+            if i >= warmup:
                 times.append((time.perf_counter() - w0) * 1000)
             losses.append(metrics["loss"].item())
             check(np.isfinite(losses[-1]), f"train {family}: step {i} loss {losses[-1]}")
         ms = statistics.median(times)
-        traced = stage_profile(torch, lambda: step(state, batch))  # the last step; its state is not kept
+        # the last step; its state is not kept
+        profiled = stage_profile(torch, lambda: step(state, batch)) if traced else None
         n_seq = b if family == "monobert" else b * (2 + n_neg)
         n_tok = b * ld if family == "monobert" else b * lq + b * (1 + n_neg) * ld
         model_flops, hw_flops = train_flops(cfg, family, b, lq, ld, n_neg)
@@ -1913,7 +2357,7 @@ def train_check(torch, np, device="cuda") -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
             "model_tflop_per_step": model_flops / 1e12, "hw_tflop_per_step": hw_flops / 1e12,
             "mfu": model_flops / (ms / 1000) / H100_BF16_FLOPS, "hw_util": hw_flops / (ms / 1000) / H100_BF16_FLOPS,
-            "losses": losses, "traced_step": traced, "wall_s": time.perf_counter() - t0,
+            "losses": losses, "traced_step": profiled, "wall_s": time.perf_counter() - t0,
         }
         del model, state, tx, step, batch
         gc.collect()
@@ -2014,17 +2458,19 @@ def train_fit(torch, np, device="cuda") -> dict:
 
 
 def cli_train_check(torch, np, root, kernels, device="cuda") -> dict:
-    """[cli_train]: the CLI's dpr / splade / colbert / monobert in process
-    at --tiny on a fixture it writes (300 docs of the zipf words spelled in
-    letters, 48 train and 16 dev questions, BM25-style negatives): --task
-    train (10 steps, batch 8), then --task test on the saved final/; the
-    ColBERT test task searches through K1 (its launches counted); each
-    final/ reloaded by the port encodes as the trained model does."""
+    """[cli_train]: the CLI's dpr / splade / colbert / monobert (and
+    monobert --backbone t5) in process at --tiny on a fixture it writes
+    (300 docs of the zipf words spelled in letters, 48 train and 16 dev
+    questions, BM25-style negatives): --task train (10 steps, batch 8), then
+    --task test on the saved final/; the ColBERT test task searches through
+    K1 (its launches counted); each final/ reloaded by the port encodes as
+    the trained model does."""
     from fusion_tpu_torch.cli.main import main as cli_main
     from fusion_tpu_torch.models.biencoder import BiEncoder
     from fusion_tpu_torch.models.colbert import ColBERT
     from fusion_tpu_torch.models.crossencoder import CrossEncoder
     from fusion_tpu_torch.models.encoder import token_tensors
+    from fusion_tpu_torch.models.t5 import T5CrossEncoder
 
     docs, queries = zipf_corpus(np, 300, 64, seed=5, vocab=2_000)
     docs, queries = [letter_text(d) for d in docs], [letter_text(q) for q in queries]
@@ -2041,10 +2487,12 @@ def cli_train_check(torch, np, root, kernels, device="cuda") -> dict:
     with open(fx, "w") as f:
         json.dump(fixture, f)
     out = {}
-    loaders = {"dpr": BiEncoder, "splade": BiEncoder, "colbert": ColBERT, "monobert": CrossEncoder}
-    for cmd, cls in loaders.items():
-        out_dir = os.path.join(root, f"train_{cmd}")
-        base = ["--fixture", fx, "--output_dir", out_dir, "--tiny", "--device", device]
+    runs = {"dpr": ("dpr", [], BiEncoder), "splade": ("splade", [], BiEncoder), "colbert": ("colbert", [], ColBERT),
+            "monobert": ("monobert", [], CrossEncoder),
+            "monobert_t5": ("monobert", ["--backbone", "t5"], T5CrossEncoder)}
+    for label, (cmd, extra, cls) in runs.items():
+        out_dir = os.path.join(root, f"train_{label}")
+        base = ["--fixture", fx, "--output_dir", out_dir, "--tiny", "--device", device] + extra
         t0 = time.perf_counter()
         model = cli_main([cmd, "--task", "train", "--steps", "10", "--train_batch_size", "8"] + base)
         torch.cuda.synchronize()
@@ -2064,11 +2512,11 @@ def cli_train_check(torch, np, root, kernels, device="cuda") -> dict:
             t = token_tensors(ids, mask, device)
             same = bool(torch.equal(loaded.embed_tokens(*t), model.embed_tokens(*t)))
         rec["reload_equal"] = same
-        check(same, f"cli_train {cmd}: the reloaded final/ encodes otherwise than the trained model")
+        check(same, f"cli_train {label}: the reloaded final/ encodes otherwise than the trained model")
         metrics_file = {"colbert": "performance_colbert.json", "monobert": "rerank_eval_results.csv"}.get(
             cmd, "ir_eval_results.csv")
-        check(os.path.isfile(os.path.join(out_dir, metrics_file)), f"cli_train {cmd}: no {metrics_file}")
-        out[cmd] = rec
+        check(os.path.isfile(os.path.join(out_dir, metrics_file)), f"cli_train {label}: no {metrics_file}")
+        out[label] = rec
         del model, loaded
     check(out["colbert"]["K1"] > 0, "cli_train: colbert --task test never launched K1")
     gc.collect()
@@ -2108,7 +2556,7 @@ def main() -> int:
 
     kernels = (maxsim, dense_topk, scatter_score, gather_rows)
     t0 = time.perf_counter()
-    libs = _kernels.load_all(["maxsim", "dense_topk", "scatter_score", "gather_rows"])
+    libs = _kernels.load_all(["maxsim", "dense_topk", "scatter_score", "gather_rows", "attention"])
     phase("build", t0, nvcc_s=[f"{lib.build_seconds:.3f}" for lib in libs])
     for lib in libs:
         print(lib.build_log.strip(), flush=True)
@@ -2116,6 +2564,9 @@ def main() -> int:
     # training, on an empty card (so each peak is the step's own)
     t0 = time.perf_counter()
     phase("train", t0, gpu=repr(smi), **train_check(torch, np))
+    t0 = time.perf_counter()
+    phase("train_einsum_bf16", t0, gpu=repr(smi),
+          **train_check(torch, np, attention_impl="einsum_bf16", warmup=1, timed=1, traced=False))
     t0 = time.perf_counter()
     phase("train_agreement", t0, **train_agreement(torch, np))
     t0 = time.perf_counter()
@@ -2423,6 +2874,16 @@ def main() -> int:
     t0 = time.perf_counter()
     rerank = rerank_check(torch, np, reranked, queries, smi, kernels)
     phase("rerank", t0, gpu=repr(smi), **rerank)
+    t0 = time.perf_counter()
+    attn = attention_check(torch, reranked, queries, RUNS)
+    phase("attention", t0, gpu=repr(smi), **attn)
+    t0 = time.perf_counter()
+    forms = rerank_forms_check(torch, np, reranked, queries)
+    phase("rerank_forms", t0, gpu=repr(smi), **forms)
+    t0 = time.perf_counter()
+    phase("t5", t0, gpu=repr(smi), **t5_check(torch, np, reranked, queries))
+    t0 = time.perf_counter()
+    phase("query_encoders", t0, gpu=repr(smi), **encoder_forms_check(torch, np, searcher, queries))
 
     # the serving surface over the slice: checkpoints, the index directory,
     # the HTTP front door over the reloaded searcher, the CLI
@@ -2637,6 +3098,14 @@ def main() -> int:
         entry("scatter_pregathered_chunk_major", "scatter_score.cu", "scripts/probe_scatter_kernel.py:37",
               probe_counts["probe_scatter_kernel"]["P5"], pg_err["chunk_major"], *pg_times["chunk_major"],
               pg_bound["chunk_major"]),
+        # the flash form's kernel: launches in [rerank_forms]' packed flash
+        # search (its path), times at the main path's packed shape, the
+        # library call scaled_dot_product_attention (memory-efficient)
+        entry("masked_attention", "attention.cu",
+              "fusion_tpu/models/encoder.py:225 (jax.experimental.pallas.ops.tpu.flash_attention, "
+              "forward pallas_call at flash_attention.py:758)",
+              forms["packed_flash"]["kernel_launches_search"], attn["max_abs_err"], attn["packed"]["ms"],
+              attn["packed"]["plain_ms"], attn["packed"]["bound_ms"], library_ms=attn["packed"]["library_ms"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

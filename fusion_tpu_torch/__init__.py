@@ -13,7 +13,9 @@ ColBERT MaxSim, rank fusion, int8 corpora) and its scale mode (impact-ordered
 BM25, the int8 DPR corpus through the binned top-k kernel, SPLADE through the
 scatter kernel with an exact rescore, ColBERT's residual-compressed index
 searched exhaustively or by PLAID through the row-gather kernel), the
-monoBERT cross-encoder rerank (flat and packed), the probe tools of the
+cross-encoder rerank (monoBERT or the T5 cross-encoder; packed, flat, the
+two-stage cascade and length-bucketed), the encoders' attention forms
+(``einsum``, ``einsum_bf16``, ``flash``) and int8 views, the probe tools of the
 TPU kernels' variants (``tools/``), and everything they run; and the serving
 surface around them: index directories and model checkpoints in the JAX
 package's formats (either package loads the other's), percentile NSF, the
@@ -42,6 +44,7 @@ _LAZY = {
     "HybridPipeline": "fusion_tpu_torch.hybrid",
     "Metrics": "fusion_tpu_torch.eval.metrics",
     "SearchServer": "fusion_tpu_torch.server",
+    "T5CrossEncoder": "fusion_tpu_torch.models.t5",
 }
 
 

@@ -6,7 +6,7 @@ commands and flags:
   fusion-tpu-torch dpr      --task {train,test}
   fusion-tpu-torch splade   --task {train,test} [--splade_variant ...]
   fusion-tpu-torch colbert  --task {train,index,search,test} [--colbert_loss ...]
-  fusion-tpu-torch monobert --task {train,test} [--neg_per_pos N]
+  fusion-tpu-torch monobert --task {train,test} [--neg_per_pos N] [--backbone {bert,t5}]
   fusion-tpu-torch hybrid   [--run_bm25 --run_dpr --run_splade --run_colbert
                              --run_monobert] [--fusion ...] [--normalization ...]
   fusion-tpu-torch serve    --task {build,search} --index_dir DIR [--http_port N]
@@ -20,12 +20,16 @@ package's) and compute in the ``--bf16`` dtype (f32 with ``--no_bf16`` or
 Training keeps f32 master weights and computes in that dtype, with each
 layer recomputed in the backward pass unless ``--no_remat``; it runs on one
 device, and raises with more than one visible card unless
-``--no_data_parallel``.
+``--no_data_parallel``.  ``--attention_impl`` picks the encoders' attention
+form (``einsum``, ``einsum_bf16``, ``flash``; ``--tiny`` keeps the tiny
+config's, as the JAX CLI does); ``serve`` adds ``--ce_attention`` (default
+``einsum_bf16``, the JAX CLI's), ``--encoders_attention``, ``--ce_int8``,
+``--encoders_int8``, ``--rerank_buckets`` and ``--rerank_cascade``;
+``monobert --backbone t5`` builds a T5 cross-encoder, and a checkpoint's
+``model_type`` picks the backbone it loads as.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: the mMARCO and Mr. TyDi datasets, the ``einsum_bf16`` and ``flash``
-attention, ``--backbone t5``, data-parallel training, ``--ce_int8``,
-``--encoders_int8``, ``--rerank_buckets`` and ``--rerank_cascade``.
+item: the mMARCO and Mr. TyDi datasets and data-parallel training.
 """
 
 from __future__ import annotations
@@ -62,13 +66,14 @@ def _load_lleqa(args):
 def _encoder_config(args):
     from fusion_tpu_torch.models.encoder import EncoderConfig
 
-    if getattr(args, "attention_impl", "einsum") != "einsum":
-        raise _not_ported(f"--attention_impl {args.attention_impl}", "item 2")
     if args.tiny:
         return EncoderConfig.tiny(vocab_size=2048)
     # remat: at base width the activations of a training step without it
     # outgrow the card at the presets' batches
-    return EncoderConfig(dtype=torch.bfloat16 if args.bf16 else torch.float32, remat=not args.no_remat)
+    return EncoderConfig(
+        dtype=torch.bfloat16 if args.bf16 else torch.float32, remat=not args.no_remat,
+        attention_impl=args.attention_impl,
+    )
 
 
 def _load_model(cls, path: str, args):
@@ -76,10 +81,18 @@ def _load_model(cls, path: str, args):
     return cls.load(path, device=args.device, dtype=_encoder_config(args).dtype)
 
 
-def _load_crossencoder(path: str, args):
+def _crossencoder_class(path: str):
+    """The cross-encoder class of a checkpoint, by its ``model_type``."""
+    from fusion_tpu_torch.models import checkpoint
     from fusion_tpu_torch.models.crossencoder import CrossEncoder
+    from fusion_tpu_torch.models.t5 import T5CrossEncoder
 
-    return _load_model(CrossEncoder, path, args)
+    return T5CrossEncoder if checkpoint.read_config(path).get("model_type") == "t5_crossencoder" else CrossEncoder
+
+
+def _load_crossencoder(path: str, args):
+    """A cross-encoder checkpoint of either backbone (BERT-style or T5)."""
+    return _load_model(_crossencoder_class(path), path, args)
 
 
 def cmd_bm25(args):
@@ -340,18 +353,25 @@ def cmd_monobert(args):
     from fusion_tpu_torch.cli.presets import train_preset
     from fusion_tpu_torch.models.crossencoder import CrossEncoder
 
-    if args.backbone == "t5":
-        raise _not_ported("the T5 cross-encoder (--backbone t5)", "item 17")
     preset = train_preset("monobert", args.dataset)
     train = args.task == "train"
     if train:
         _check_one_device(args)
+    cfg = _encoder_config(args)
+    max_len = 32 if args.tiny else preset.max_doc_length
+    param_dtype = torch.float32 if train else None
     if args.model_path:
-        model = _load_crossencoder(args.model_path, args) if not train else CrossEncoder.load(
-            args.model_path, device=args.device, dtype=_encoder_config(args).dtype, param_dtype=torch.float32)
+        model = _load_crossencoder(args.model_path, args) if not train else _crossencoder_class(args.model_path).load(
+            args.model_path, device=args.device, dtype=cfg.dtype, param_dtype=torch.float32)
+    elif args.backbone == "t5":
+        # the JAX CLI's T5: the tiny config, or the base widths at the
+        # encoder's vocabulary, in its default (f32) dtype
+        from fusion_tpu_torch.models.t5 import T5Config, T5CrossEncoder
+
+        t5cfg = T5Config.tiny() if args.tiny else T5Config(vocab_size=cfg.vocab_size)
+        model = T5CrossEncoder(t5cfg, max_length=max_len, seed=args.seed, device=args.device, param_dtype=param_dtype)
     else:
-        model = CrossEncoder(_encoder_config(args), max_length=32 if args.tiny else preset.max_doc_length,
-                             seed=args.seed, device=args.device, param_dtype=torch.float32 if train else None)
+        model = CrossEncoder(cfg, max_length=max_len, seed=args.seed, device=args.device, param_dtype=param_dtype)
     loader = _load_lleqa(args)
     data = loader.load()
 
@@ -486,20 +506,6 @@ def cmd_hybrid(args):
         json.dump(scores, f, indent=2, default=float)
 
 
-def _check_serve_options(args) -> None:
-    for flag, value, item in (
-        ("--ce_int8", args.ce_int8, "item 17"),
-        ("--encoders_int8", args.encoders_int8, "item 17"),
-        ("--rerank_buckets", args.rerank_buckets, "item 9"),
-        ("--rerank_cascade", args.rerank_cascade, "item 9"),
-    ):
-        if value:
-            raise _not_ported(flag, item)
-    for flag, value in (("--ce_attention", args.ce_attention), ("--encoders_attention", args.encoders_attention)):
-        if value not in (None, "einsum"):
-            raise _not_ported(f"{flag} {value}", "item 2")
-
-
 def cmd_serve(args):
     """Build or serve a persistent HybridSearcher.
 
@@ -515,7 +521,6 @@ def cmd_serve(args):
     from fusion_tpu_torch.serving import HybridSearcher
     from fusion_tpu_torch.utils.rankingio import write_ranking_tsv
 
-    _check_serve_options(args)
     cfg = _encoder_config(args)
     dev = args.device
     lengths = dict(max_query_length=32 if args.tiny else 64, max_doc_length=64 if args.tiny else 256)
@@ -527,15 +532,26 @@ def cmd_serve(args):
                else ColBERT(cfg, dim=16 if args.tiny else 128, device=dev, **lengths)) if args.run_colbert else None
     ce = (_load_crossencoder(args.monobert_path, args) if args.monobert_path
           else CrossEncoder(cfg, max_length=32 if args.tiny else 256, device=dev)) if args.run_monobert else None
-    # packed is the rerank stage unless --no-rerank_packed
-    rerank_packed = True if args.rerank_packed is None else args.rerank_packed
+    if ce is not None and args.ce_attention and hasattr(ce, "with_attention"):
+        ce = ce.with_attention(args.ce_attention)
+    if ce is not None and args.ce_int8:
+        if not hasattr(ce, "quantized"):
+            raise SystemExit("--ce_int8 requires a BERT-style cross-encoder checkpoint")
+        ce = ce.quantized()
+    rerank_buckets = tuple(args.rerank_buckets) if args.rerank_buckets else None
+    rerank_cascade = tuple(args.rerank_cascade) if args.rerank_cascade else None
+    # packed is the rerank stage unless another was asked for, or --no-rerank_packed
+    rerank_packed = args.rerank_packed
+    if rerank_packed is None:
+        rerank_packed = rerank_buckets is None and rerank_cascade is None
     common = dict(
         dense_model=dense, splade_model=splade, colbert_model=colbert, cross_encoder=ce,
         rerank_depth=args.rerank_depth, fusion_method=args.fusion, plaid_nprobe=args.plaid_nprobe,
         plaid_ncand=args.plaid_ncand, plaid_ncand_rescore=args.plaid_ncand_rescore or None,
         plaid_rescore_impl=args.plaid_rescore_impl, dense_impl=args.dense_impl,
         splade_query_terms=args.splade_query_terms, rerank_packed=rerank_packed,
-        rerank_row_width=args.rerank_row_width or None,
+        rerank_row_width=args.rerank_row_width or None, rerank_buckets=rerank_buckets,
+        rerank_cascade=rerank_cascade,
     )
     prep = TextPreprocessor(spacy_model=None) if args.run_bm25 else None
 
@@ -555,7 +571,7 @@ def cmd_serve(args):
             int8_corpus=args.int8_corpus, scale_mode=args.scale_mode, colbert_plaid=args.colbert_plaid,
             impact_cap=args.impact_cap, splade_impl=args.splade_impl,
             splade_rescore_depth=None if args.splade_rescore_depth < 0 else args.splade_rescore_depth,
-            ivf_cap=args.ivf_cap, device=dev, **common,
+            ivf_cap=args.ivf_cap, encoders_int8=args.encoders_int8, device=dev, **common,
         )
         searcher.save_indexes(args.index_dir)
         print(json.dumps({
@@ -567,6 +583,10 @@ def cmd_serve(args):
         corpus_ids=np.array([]), normalization=args.normalization,
         splade_rescore_depth=max(args.splade_rescore_depth, 0), device=dev, **common,
     ).load_indexes(args.index_dir, int8_corpus=args.int8_corpus)
+    if args.encoders_int8:
+        searcher.quantize_encoders()
+    if args.encoders_attention:
+        searcher.set_encoder_attention(args.encoders_attention)
     if prep is not None:
         searcher.bm25_preprocess = lambda t: prep.preprocess(list(t))
     if args.http_port:
@@ -609,7 +629,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--no_remat", action="store_true",
                         help="training: keep every layer's activations instead of recomputing them")
         sp.add_argument("--attention_impl", default="einsum", choices=["einsum", "einsum_bf16", "flash"],
-                        help="only einsum (plain f32-logit attention) is ported")
+                        help="einsum_bf16 = bf16-stored attention logits (~0.4%% softmax error); flash = "
+                             "the masked-attention kernel (inference; with dropout it trains as einsum)")
         sp.add_argument("--batch_size", type=int, default=32)
         sp.add_argument("--train_batch_size", type=int, default=None)
         sp.add_argument("--model_path", default=None)
@@ -649,7 +670,8 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--kmeans_niters", type=int, default=4)
         if name == "monobert":
             sp.add_argument("--neg_per_pos", type=int, default=4)
-            sp.add_argument("--backbone", default="bert", choices=["bert", "t5"])
+            sp.add_argument("--backbone", default="bert", choices=["bert", "t5"],
+                            help="cross-encoder trunk; t5 builds a monoT5-style encoder-classifier")
         sp.set_defaults(fn=fn)
 
     sp = sub.add_parser("hybrid")
@@ -708,19 +730,24 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--plaid_gather_impl", choices=["xla", "pallas"], default="xla",
                     help="no effect in the port: the candidate-row gather is the Hopper kernel on the "
                          "card and the plain gather on the CPU")
-    sp.add_argument("--rerank_buckets", type=int, nargs="*", default=None, help="not ported yet")
+    sp.add_argument("--rerank_buckets", type=int, nargs="*", default=None,
+                    help="doc-width ladder of the length-bucketed rerank stage (e.g. 94 222)")
     sp.add_argument("--rerank_cascade", type=int, nargs=2, default=None, metavar=("KEEP", "STAGE1_TOKENS"),
-                    help="not ported yet")
+                    help="two-stage flat rerank: all candidates with docs cut to STAGE1_TOKENS, the top KEEP "
+                         "at full width; STAGE1_TOKENS=0 resolves to the corpus p90 token length")
     sp.add_argument("--rerank_packed", action=argparse.BooleanOptionalAction, default=None,
-                    help="sequence-packed monoBERT rerank (the default); --no-rerank_packed serves the "
-                         "flat stage")
+                    help="sequence-packed rerank (the default unless --rerank_buckets / --rerank_cascade); "
+                         "--no-rerank_packed serves the flat stage")
     sp.add_argument("--rerank_row_width", type=int, default=None)
-    sp.add_argument("--ce_attention", default=None, choices=["einsum", "einsum_bf16", "flash"],
-                    help="only einsum is ported (the JAX CLI's default is einsum_bf16)")
-    sp.add_argument("--ce_int8", action="store_true", help="not ported yet")
-    sp.add_argument("--encoders_int8", action="store_true", help="not ported yet")
+    sp.add_argument("--ce_attention", default="einsum_bf16", choices=["einsum", "einsum_bf16", "flash"],
+                    help="the rerank stage's attention form (the JAX CLI's default, einsum_bf16)")
+    sp.add_argument("--ce_int8", action="store_true",
+                    help="serve the rerank stage with dynamic int8 trunk matmuls")
+    sp.add_argument("--encoders_int8", action="store_true",
+                    help="serve the query encoders with dynamic int8 trunk matmuls (the index keeps its "
+                         "full-precision encoding)")
     sp.add_argument("--encoders_attention", default=None, choices=["einsum", "einsum_bf16", "flash"],
-                    help="only einsum is ported")
+                    help="serve the query encoders with this attention form (default: each model's own)")
     sp.set_defaults(fn=cmd_serve)
     return p
 

@@ -20,3 +20,11 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def check_use_pallas(use_pallas) -> None:
+    """The JAX package's ``use_pallas`` (its Pallas kernel or XLA's plain
+    form), accepted where JAX takes it and dropped: the port runs a kernel on
+    a tensor on the card and its plain version on a tensor on the CPU."""
+    if use_pallas not in (None, True, False):
+        raise ValueError(f"use_pallas must be None, True or False, got {use_pallas!r}")

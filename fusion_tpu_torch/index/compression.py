@@ -188,7 +188,7 @@ class CompressedTokenIndex:
         )
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "CompressedTokenIndex":
+    def load(cls, path: str, *, device="cuda") -> "CompressedTokenIndex":
         """An index written by either package, on ``device``.  The JAX
         package's segmented codes form (``dma_form``) has no counterpart:
         the port's gather kernel reads the u8 codes directly."""
@@ -225,13 +225,16 @@ class CompressedTokenIndex:
             )
         return self._prepared
 
-    def decompress(self, centroid_ids: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    def decompress(self, doc_slice: torch.Tensor, code_slice: torch.Tensor, use_onehot: bool = False) -> torch.Tensor:
         """(centroid ids [..., Ld], packed codes [..., Ld, D/p]) → bf16 tokens
         [..., Ld, D]: the bf16 centroid plus the bf16 bucket weight of each
-        code, rounded once to bf16."""
-        base = _rows(self.centroids.to(torch.bfloat16), centroid_ids)
+        code, rounded once to bf16.  ``use_onehot`` (JAX's TPU lookup as a
+        matmul) is checked and dropped."""
+        if not isinstance(use_onehot, bool):
+            raise ValueError(f"use_onehot must be a bool, got {use_onehot!r}")
+        base = _rows(self.centroids.to(torch.bfloat16), doc_slice)
         residual = _rows(
-            self.bucket_weights.to(torch.bfloat16), _unpack_codes(codes, self.nbits, self.dim)
+            self.bucket_weights.to(torch.bfloat16), _unpack_codes(code_slice, self.nbits, self.dim)
         )
         return base + residual
 
@@ -286,6 +289,7 @@ def compress_token_index(
     kmeans_iters: int = 4,
     sample_size: int = 262_144,
     seed: int = 0,
+    *,
     timings: dict | None = None,
 ) -> CompressedTokenIndex:
     """Build the residual-compressed index on ``tokens``' device.

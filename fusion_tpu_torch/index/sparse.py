@@ -116,12 +116,16 @@ def sparse_search(
     query_activations: torch.Tensor,  # [Q, V] dense query activations
     index: SparseIndex,
     k: int = 1000,
+    query_chunk: int = 0,
     doc_block: int = 16384,
+    local_topk: str | None = None,
 ) -> RankedLists:
     """Dot-product search over the fixed-K pruned index, on its device: per
     block of ``doc_block`` docs (the tail block clamped into range, its
     overlap masked), the query values at each doc's term ids times the doc's
-    weights, summed over K, streamed through a running top-k."""
+    weights, summed over K, streamed through a running top-k (``local_topk``
+    as ``blockwise_topk_offset``).  ``query_chunk`` is unused, as in JAX."""
+    del query_chunk
     q = query_activations.shape[0]
     n = index.entry_term.shape[0]
     # column V scores the pad term 0
@@ -138,7 +142,7 @@ def sparse_search(
         fresh = real_start + offsets >= start
         return torch.where(fresh[None, :], scores, -torch.inf), real_start
 
-    return blockwise_topk_offset(block_scores, -(-n // doc_block), q, min(k, n))
+    return blockwise_topk_offset(block_scores, -(-n // doc_block), q, min(k, n), local_topk=local_topk)
 
 
 class SpladeRescoreStore(NamedTuple):

@@ -41,6 +41,7 @@ from fusion_tpu_torch.models.encoder import (
     DropoutKey,
     Encoder,
     EncoderConfig,
+    EncoderViews,
     EncoderWithMLM,
     init_weights,
     place,
@@ -104,8 +105,10 @@ def bucket_width(mask: np.ndarray) -> int:
     return min(w, mask.shape[1])
 
 
-class BiEncoder:
-    """Siamese encoder with a dense or sparse head."""
+class BiEncoder(EncoderViews):
+    """Siamese encoder with a dense or sparse head.  ``quantized`` and
+    ``with_attention`` give serving views (for the query side; the corpus
+    keeps the forward it was encoded with) holding the same parameters."""
 
     def __init__(
         self,
@@ -140,7 +143,7 @@ class BiEncoder:
         self.similarity = similarity
         self.pruning_topk = pruning_topk
         self.device = resolve_device(device)
-        self.module = EncoderWithMLM(cfg) if head == "splade" else Encoder(cfg)
+        self.module = self._build_module(cfg)
         if params is None:
             init_weights(self.module, seed)
         else:
@@ -157,6 +160,9 @@ class BiEncoder:
             augment_doc_to_maxlen=augment_doc_to_maxlen,
             do_lowercase=do_lowercase,
         )
+
+    def _build_module(self, cfg: EncoderConfig):
+        return EncoderWithMLM(cfg) if self.head == "splade" else Encoder(cfg)
 
     def _embed(self, input_ids, attention_mask, drop: DropoutKey | None = None, train: bool = False):
         if self.head == "splade":
@@ -185,6 +191,7 @@ class BiEncoder:
         sentences: Sequence[str],
         query_mode: bool = True,
         batch_size: int = 32,
+        convert_to_numpy: bool = True,
         sort_by_length: bool = False,
     ) -> torch.Tensor:
         """Encode texts in fixed-size batches (tail padded with "", then
@@ -193,8 +200,11 @@ class BiEncoder:
         ``sort_by_length=True`` groups inputs by word count and trims each
         batch to the smallest power-of-two width that holds its real tokens
         (``bucket_width``), which cuts encoder work on natural-length corpora
-        and leaves every embedding unchanged.
+        and leaves every embedding unchanged.  JAX's ``convert_to_numpy`` is
+        checked and dropped: the embeddings stay a tensor on the device.
         """
+        if not isinstance(convert_to_numpy, bool):
+            raise ValueError(f"convert_to_numpy must be a bool, got {convert_to_numpy!r}")
         n = len(sentences)
         if sort_by_length and n > batch_size:
             order = np.argsort([len(s.split()) for s in sentences], kind="stable")

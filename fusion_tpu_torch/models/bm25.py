@@ -77,6 +77,7 @@ class BM25Index:
         b: float = 0.75,
         variant: str = "bm25",
         pad_multiple: int = 1024,
+        *,
         device="cuda",
     ) -> "BM25Index":
         """Build from preprocessed documents (whitespace-token strings) with

@@ -25,37 +25,24 @@ from fusion_tpu_torch.utils import flax_msgpack
 CONFIG_FILENAME = "config_fusion_tpu.json"
 PARAMS_FILENAME = "params.msgpack"
 
-# the JAX EncoderConfig's fields that the port's config has no counterpart
-# for, with the values a port checkpoint writes for them: the port has one
-# attention implementation and no int8 trunk
-_JAX_ONLY_FIELDS = {"attention_impl": "einsum", "quantize": None}
 
-
-def encoder_config_dict(cfg: EncoderConfig) -> dict:
-    """The ``encoder`` entry of a config: every field but the dtype (a
-    loaded model computes in the dtype its loader asks for)."""
-    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "dtype"}
-    out.update(_JAX_ONLY_FIELDS)
-    return out
+def encoder_config_dict(cfg) -> dict:
+    """The ``encoder`` entry of a config (an ``EncoderConfig`` or a
+    ``T5Config``): every field but the dtype (a loaded model computes in
+    the dtype its loader asks for), the attention form and ``quantize``
+    included."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "dtype"}
 
 
 def encoder_config_from_dict(entry: dict, dtype: torch.dtype = torch.float32) -> EncoderConfig:
-    """A config's ``encoder`` entry → the port's ``EncoderConfig``.  The
-    training-time and attention-kernel options are dropped; an X-MOD trunk
-    or an int8 trunk raises, as neither is ported."""
-    entry = dict(entry)
+    """A config's ``encoder`` entry → the port's ``EncoderConfig``, its
+    ``attention_impl`` and ``quantize`` honoured.  An X-MOD trunk raises: it
+    is not ported."""
     if "languages" in entry:
         raise NotImplementedError(
             "the checkpoint's trunk is X-MOD, which is not ported to fusion_tpu_torch yet "
-            "(ROADMAP.md Queue 1, item 17)"
+            "(ROADMAP.md Queue 1, item 15: its only way in is HF weights)"
         )
-    if entry.get("quantize") is not None:
-        raise NotImplementedError(
-            f"the checkpoint asks for a {entry['quantize']!r} trunk: the int8 views are not ported "
-            "to fusion_tpu_torch yet (ROADMAP.md Queue 1, item 17)"
-        )
-    for name in _JAX_ONLY_FIELDS:
-        entry.pop(name, None)
     return EncoderConfig(**entry, dtype=dtype)
 
 

@@ -38,6 +38,7 @@ from fusion_tpu_torch.models.encoder import (
     DropoutKey,
     Encoder,
     EncoderConfig,
+    EncoderViews,
     init_weights,
     place,
     token_tensors,
@@ -103,8 +104,10 @@ class TokenIndex:
         return cls(tokens=tokens, mask=mask)
 
 
-class ColBERT:
-    """Late-interaction bi-encoder with token-level MaxSim."""
+class ColBERT(EncoderViews):
+    """Late-interaction bi-encoder with token-level MaxSim; ``quantized`` and
+    ``with_attention`` give query-side serving views holding the same
+    parameters."""
 
     def __init__(
         self,
@@ -123,7 +126,7 @@ class ColBERT:
         self.dim = dim
         self.mask_punctuation = mask_punctuation
         self.device = resolve_device(device)
-        self.module = ColBERTModule(cfg, dim=dim)
+        self.module = self._build_module(cfg)
         if params is None:
             init_weights(self.module, seed)
         else:
@@ -138,6 +141,9 @@ class ColBERT:
             augment_query_to_maxlen=True,
         )
         self._punct_ids = sorted(self._punctuation_token_ids(tokenizer))
+
+    def _build_module(self, cfg: EncoderConfig) -> ColBERTModule:
+        return ColBERTModule(cfg, dim=self.dim)
 
     @staticmethod
     def _punctuation_token_ids(tokenizer) -> set[int]:
@@ -223,6 +229,7 @@ class ColBERT:
         nbits: int = 2,
         kmeans_iters: int = 4,
         num_centroids: int | None = None,
+        *,
         timings: dict | None = None,
     ):
         """Residual-compressed index (colbert-ai's nbits=2, kmeans_niters=4),

@@ -15,8 +15,10 @@ The functions take either a full variables dict (``{"params": ...}``) or the
 bare parameter tree, and return f32 CPU tensors; ``load_state_dict`` casts
 them to each module's dtype and device.  ``flax_layouts`` is the inverse
 mapping, one parameter at a time, as views of tensors: training reads
-gradients, the optimizer's decay mask and the freeze labels through it, and
-``flax_tree`` nests it into the Flax tree that a checkpoint saves.
+gradients, the optimizer's decay mask and the freeze labels through it,
+``flax_tree`` nests it into the Flax tree that a checkpoint saves, and
+``state_dict_from_flax`` reads a tree back through it (T5's modules load
+that way).
 """
 
 from __future__ import annotations
@@ -127,13 +129,19 @@ def _transpose(t: torch.Tensor) -> torch.Tensor:
     return t.T
 
 
+# module lists and the Flax scope names of their members
+_INDEXED = {"layers": "layer", "blocks": "block"}
+
+
 def flax_layouts(module: nn.Module, num_heads: int) -> dict[str, FlaxLayout]:
     """Parameter name → its ``FlaxLayout`` in ``module`` (an ``Encoder``,
-    ``EncoderWithMLM``, ``ColBERTModule`` or ``CrossEncoderModule``):
-    ``layers.i`` is ``layer_i``; a Linear weight is the transposed
+    ``EncoderWithMLM``, ``ColBERTModule``, ``CrossEncoderModule`` or
+    ``T5EncoderForSequenceClassification``): ``layers.i`` is ``layer_i``
+    and ``blocks.i`` ``block_i``; a Linear weight is the transposed
     ``kernel`` (the fused qkv ``[H, 3, heads, hd]``, the attention out
     ``[heads, hd, H]``), an Embedding's weight its ``embedding``, a
-    LayerNorm's weight its ``scale``."""
+    LayerNorm's or RMSNorm's weight its ``scale``; any other parameter (T5's
+    ``relative_attention_bias``) keeps its name and layout."""
     owners = dict(module.named_modules())
     out = {}
     for name, param in module.named_parameters():
@@ -141,8 +149,8 @@ def flax_layouts(module: nn.Module, num_heads: int) -> dict[str, FlaxLayout]:
         owner = owners[".".join(mod_path)]
         keys, i = [], 0
         while i < len(mod_path):
-            if mod_path[i] == "layers":
-                keys.append(f"layer_{mod_path[i + 1]}")
+            if mod_path[i] in _INDEXED:
+                keys.append(f"{_INDEXED[mod_path[i]]}_{mod_path[i + 1]}")
                 i += 2
             else:
                 keys.append(mod_path[i])
@@ -187,6 +195,30 @@ def flax_tree(module: nn.Module, num_heads: int, tensors: Mapping) -> dict:
         leaf = layout.to_flax(tensors[name].detach()).to(torch.float32).cpu()
         node[layout.path[-1]] = np.ascontiguousarray(leaf.numpy())
     return _sorted(tree)
+
+
+def state_dict_from_flax(module: nn.Module, num_heads: int, variables: Mapping) -> dict[str, torch.Tensor]:
+    """A Flax tree (or variables dict) → ``module``'s state dict, read leaf
+    by leaf through ``flax_layouts``: the inverse of ``flax_tree``."""
+    tree = _tree(variables)
+    out = {}
+    for name, layout in flax_layouts(module, num_heads).items():
+        node = tree
+        for key in layout.path:
+            node = node[key]
+        out[name] = layout.from_flax(_t(node)).contiguous()
+    return out
+
+
+def t5_crossencoder_state_dict(variables: Mapping, cfg) -> dict[str, torch.Tensor]:
+    """Flax ``T5EncoderForSequenceClassification`` params (``{"encoder",
+    "head_dense", "head_out"}``) → the port's module's state dict for the
+    ``T5Config`` ``cfg``."""
+    from fusion_tpu_torch.models.t5 import T5EncoderForSequenceClassification
+
+    with torch.device("meta"):
+        module = T5EncoderForSequenceClassification(cfg)
+    return state_dict_from_flax(module, cfg.num_heads, variables)
 
 
 def _sorted(tree: dict) -> dict:

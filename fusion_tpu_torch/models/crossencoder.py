@@ -19,14 +19,25 @@ document.  Two ways to score a batch's ``[Q, K]`` candidates:
     attention and positions that restart at each pair, so every pair sees
     exactly the tokens and positions it has alone.
 
-Both give the same logits up to the order of float sums.  ``predict``,
-``rank`` and ``rerank`` are the host-side API over text pairs; ``save`` /
-``load`` read and write the JAX package's checkpoint format.  Training
-builds the model with ``param_dtype=torch.float32`` and scores with
-``score_tokens_train``, the grad-enabled forward with dropout.  The JAX
-package's cascade and length-bucketed stages, the int8 view
-(``quantized``) and other attention implementations (``with_attention``)
-are later work (ROADMAP.md Queue 1, items 9, 17 and 2).
+Both give the same logits up to the order of float sums.  Two more stages
+trade work for padding or depth:
+
+  * ``rerank_tokens_bucketed`` — each pair padded only to the smallest rung
+    of a doc-width ladder that holds its doc (``aligned_buckets``: pair
+    lengths on multiples of 128), each rung's pair count snapped to
+    ``_BUCKET_CHUNK_GRID``, which fixes the padding and so the FLOPs;
+  * ``rerank_tokens_cascade`` — every candidate scored with its doc cut to
+    ``stage1_tokens``, the top ``keep`` rescored at full width, the rest
+    shifted below the kept minimum.
+
+All of it lives in ``PairRerankMixin``, which ``CrossEncoder`` and
+``models/t5.py``'s ``T5CrossEncoder`` share; a backbone supplies its
+forwards and its pair layout.  ``predict``, ``rank`` and ``rerank`` are the
+host-side API over text pairs; ``save`` / ``load`` read and write the JAX
+package's checkpoint format.  ``quantized`` and ``with_attention`` are
+serving views holding the same parameters.  Training builds the model with
+``param_dtype=torch.float32`` and scores with ``score_tokens_train``, the
+grad-enabled forward with dropout.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ import torch
 from torch import nn
 
 from fusion_tpu_torch.core.device import resolve_device
-from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores
+from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores, stable_topk
 from fusion_tpu_torch.data.tokenization import (
     WordHashTokenizer,
     pair_encode_simple,
@@ -46,12 +57,20 @@ from fusion_tpu_torch.data.tokenization import (
     tokenizer_from_config,
 )
 from fusion_tpu_torch.models import checkpoint, convert
-from fusion_tpu_torch.models.encoder import DropoutKey, Encoder, EncoderConfig, init_weights, place, token_tensors
+from fusion_tpu_torch.models.encoder import (
+    DropoutKey,
+    Encoder,
+    EncoderConfig,
+    EncoderViews,
+    init_weights,
+    place,
+    token_tensors,
+)
 from fusion_tpu_torch.models.heads import CrossEncoderHead
 
-# chunk-count grid of the JAX package's packed plan: snapping a plan's chunk
-# count to it bounds the shapes a compiled program sees; kept so that
-# ``plan_packed`` returns JAX's arrays
+# chunk-count grid of the packed plan and the bucketed stage: dense through
+# 16, then ~12 % steps.  Snapping a count to it fixes the padding (and so the
+# FLOPs) as the JAX package's does, so ``plan_packed`` returns JAX's arrays
 _BUCKET_CHUNK_GRID = (
     1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16,
     18, 20, 22, 25, 28, 32, 36, 40, 45, 51, 57, 64, 72, 81, 91, 102, 114, 128,
@@ -78,31 +97,50 @@ class CrossEncoderModule(nn.Module):
         return self.head(hidden[gather_row, gather_col][:, None, :])
 
 
-class CrossEncoder:
-    """monoBERT cross-encoder on an explicit ``device``."""
+def assemble_pair_rows(desc, q_ids, drows, R: int, W: int, cls_id, sep_id, pad_id, pos_start: int, pos_pad: int):
+    """Packed token rows of a plan's pairs, laid out ``[CLS | q | SEP | d]``
+    (``cls_id`` None: ``[q | SEP | d]``): ``desc`` [6, P] (``plan_packed``),
+    the queries' raw tokens [Q, Lq] and the pairs' doc tokens [P, Ld] →
+    (ids, mask, segment ids, positions), each [R, W] int64.  A slot's owning
+    pair is the running max of the pairs' scattered (index + 1) start
+    markers; slots past its length are padding (segment 0, position
+    ``pos_pad``), and a pair's slot t has position ``t + pos_start``."""
+    qrow, _, prow, poff, qlen, dlen = (d.long() for d in desc)
+    dev = desc.device
+    lead = 0 if cls_id is None else 1
+    n_pairs = qrow.shape[0]
+    plen = lead + 1 + qlen + dlen
+    start = torch.zeros(R * W, dtype=torch.int64, device=dev)
+    start[prow * W + poff] = torch.arange(1, n_pairs + 1, device=dev)
+    own = torch.cummax(start.view(R, W), dim=1).values
+    p = (own - 1).clamp(min=0)
+    t = torch.arange(W, device=dev)[None, :] - poff[p]
+    ql = qlen[p]
+    inseg = (own > 0) & (t < plen[p])
+    qtok = q_ids[qrow[p], (t - lead).clamp(0, q_ids.shape[1] - 1)].long()
+    dtok = drows[p, (t - lead - 1 - ql).clamp(0, drows.shape[1] - 1)].long()
+    ids = torch.where(
+        inseg & (t >= lead) & (t < ql + lead), qtok,
+        torch.where(inseg & (t == ql + lead), sep_id, torch.where(inseg & (t > ql + lead), dtok, pad_id)),
+    )
+    if lead:
+        ids = torch.where(inseg & (t == 0), cls_id, ids)
+    mask = inseg.long()
+    return ids, mask, own * mask, torch.where(inseg, t + pos_start, pos_pad)
+
+
+class PairRerankMixin:
+    """The device (query, doc) pair rerank surface shared by cross-encoder
+    backbones (``CrossEncoder``, ``T5CrossEncoder``).
+
+    A backbone provides ``score_tokens(ids, mask)`` and
+    ``packed_score_tokens(...)``, the attributes ``cfg`` (with
+    ``vocab_size``), ``max_length``, ``tokenizer``, ``device`` and
+    ``module``; it may override ``_pair_layout`` (default ``[CLS | q | SEP |
+    d]``), ``PAIR_SPECIALS`` (the special slots that layout inserts),
+    ``_packed_consts`` and ``assemble_packed_rows``."""
 
     PAIR_SPECIALS = 2  # [CLS] and [SEP] inside a pair: [CLS | q | SEP | d]
-
-    def __init__(
-        self,
-        cfg: EncoderConfig,
-        params: Mapping[str, torch.Tensor] | None = None,
-        tokenizer=None,
-        max_length: int = 256,
-        seed: int = 42,
-        device="cuda",
-        param_dtype: torch.dtype | None = None,
-    ):
-        self.cfg = cfg
-        self.max_length = max_length
-        self.device = resolve_device(device)
-        self.module = CrossEncoderModule(cfg)
-        if params is None:
-            init_weights(self.module, seed)
-        else:
-            self.module.load_state_dict(params)
-        place(self.module, cfg.dtype, self.device, param_dtype)
-        self.tokenizer = tokenizer or WordHashTokenizer(vocab_size=cfg.vocab_size)
 
     # -- corpus and query tokens ----------------------------------------
     def prepare_corpus_tokens(
@@ -137,24 +175,6 @@ class CrossEncoder:
         """Stored doc tokens → int64 ids (int16 storage holds uint16 bits)."""
         ids = tokens.to(torch.int64)
         return ids & 0xFFFF if tokens.dtype == torch.int16 else ids
-
-    # -- scoring --------------------------------------------------------
-    @torch.inference_mode()
-    def score_tokens(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        """Pair tokens [B, L] → f32 logits [B]."""
-        return self.module(input_ids, attention_mask)
-
-    def score_tokens_train(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, drop: DropoutKey | None = None
-    ) -> torch.Tensor:
-        """The train-mode forward under autograd, dropout drawn from ``drop``."""
-        return self.module(input_ids, attention_mask, drop)
-
-    @torch.inference_mode()
-    def packed_score_tokens(self, input_ids, attention_mask, position_ids, segment_ids, gather_row, gather_col):
-        """Packed rows [R, W] → f32 logits [P] of the pairs whose CLS slots
-        are (gather_row, gather_col)."""
-        return self.module.packed(input_ids, attention_mask, position_ids, segment_ids, gather_row, gather_col)
 
     def _pair_layout(self, q_ids, q_mask, d_ids, d_mask):
         """[n, Lq] + [n, Ld] → pair tokens [n, 2 + Lq + Ld] laid out
@@ -194,6 +214,120 @@ class CrossEncoder:
             d_msk = torch.nn.functional.pad(d_msk, (0, pad))
         ids, mask = self._pair_layout(qe, qm, d_ids, d_msk)
         return self._score_pairs_chunked(ids, mask, pair_chunk).reshape(q, k)
+
+    def rerank_tokens_cascade(
+        self, q_ids, q_mask, doc_ids, doc_mask, keep: int, stage1_tokens: int, pair_chunk: int = 512
+    ) -> torch.Tensor:
+        """Two-stage flat scoring → logits [Q, K]: every candidate with its
+        doc cut to ``stage1_tokens``, then the top ``keep`` real candidates
+        by stage-1 logit (ties to the lower slot, as ``lax.top_k``) at full
+        width.  Kept slots carry their full-width logits, the rest their
+        stage-1 logits shifted below the kept minimum by ``max(rest_max -
+        kept_min + 1, 0)``, so one total order holds.  With ``keep >= K`` or
+        ``stage1_tokens >= Ld`` one flat pass scores every candidate, equal
+        to ``rerank_tokens``."""
+        q, k, ld = doc_ids.shape
+        keep = max(1, min(keep, k))
+        w1 = min(stage1_tokens, ld)
+        if keep >= k or w1 >= ld:
+            return self.rerank_tokens(q_ids, q_mask, doc_ids, doc_mask, pair_chunk)
+        s1 = self.rerank_tokens(q_ids, q_mask, doc_ids[:, :, :w1], doc_mask[:, :, :w1], pair_chunk)
+        # pad slots (doc mask all 0) score a query-only pair: they may not
+        # take a full-width slot from a real candidate
+        valid = doc_mask.sum(dim=-1) > 0
+        _, idx = stable_topk(torch.where(valid, s1, -torch.inf), keep)  # [Q, keep]
+        d2 = torch.take_along_dim(doc_ids, idx[..., None], dim=1)
+        m2 = torch.take_along_dim(doc_mask, idx[..., None], dim=1)
+        s2 = self.rerank_tokens(q_ids, q_mask, d2, m2, pair_chunk)
+        kept_min = s2.min(dim=1, keepdim=True).values
+        kept = torch.zeros((q, k), dtype=torch.bool, device=s1.device).scatter_(1, idx, True)
+        rest_max = torch.where(kept, -torch.inf, s1).max(dim=1, keepdim=True).values
+        rest = s1 - torch.clamp(rest_max - kept_min + 1.0, min=0.0)
+        return rest.scatter(1, idx, s2)
+
+    # -- length-bucketed rerank (planned on the host) ---------------------
+    @classmethod
+    def aligned_buckets(cls, lq: int, ld_full: int, align: int = 128) -> tuple:
+        """The doc-width ladder whose pair lengths (``PAIR_SPECIALS + lq +
+        ld``) land on multiples of ``align``, up to the first rung that holds
+        ``ld_full`` (the last rung may be wider than the corpus matrix)."""
+        ladder = []
+        k = 1
+        while True:
+            ld = align * k - (lq + cls.PAIR_SPECIALS)
+            if ld > 0:
+                ladder.append(ld)
+            if ld >= ld_full:
+                break
+            k += 1
+        return tuple(ladder)
+
+    def _bucket_score_scatter(self, ld: int, pc: int, q_ids, q_mask, doc_tokens, doc_mask, packed, buf):
+        """One rung: ``packed`` [4, cap] (query row, candidate, valid, output
+        slot; fillers write the spill slot) → the rung's pairs at doc width
+        ``ld`` scored ``pc`` per forward and written into ``buf``."""
+        q_row, cand, pvalid, slot = packed.long().unbind(0)
+        w = min(ld, doc_tokens.shape[1])
+        d_ids = self._token_ids(doc_tokens[cand][:, :w])
+        d_msk = doc_mask[cand][:, :w].long() * pvalid[:, None]
+        if ld > w:  # a rung wider than the matrix: attention-0 pad slots
+            d_ids = torch.nn.functional.pad(d_ids, (0, ld - w))
+            d_msk = torch.nn.functional.pad(d_msk, (0, ld - w))
+        ids, mask = self._pair_layout(q_ids[q_row], q_mask[q_row], d_ids, d_msk)
+        buf[slot] = self._score_pairs_chunked(ids, mask, pc)
+        return buf
+
+    def rerank_tokens_bucketed(
+        self,
+        q_ids: torch.Tensor,
+        q_mask: torch.Tensor,
+        doc_tokens: torch.Tensor,
+        doc_mask: torch.Tensor,
+        head_ids: np.ndarray,
+        doc_lens: np.ndarray,
+        buckets: Sequence[int] | None = None,
+        pair_chunk: int = 512,
+    ) -> torch.Tensor:
+        """Length-bucketed scoring → logits [Q, Kr] on the device: each
+        pair padded only to the smallest rung of ``buckets`` (default
+        ``aligned_buckets``) that holds its doc, which scores it exactly as
+        at full width (pad slots carry attention 0 and do not move RoBERTa
+        positions).  ``head_ids`` (pads -1) and ``doc_lens`` are host
+        arrays.  A rung's pair count is rounded up to a grid multiple of
+        its chunk, filler pairs included in the work."""
+        qn, kr = head_ids.shape
+        n_docs, ld_full = doc_tokens.shape
+        flat = head_ids.reshape(-1).astype(np.int64)
+        valid = flat >= 0
+        safe = np.clip(flat, 0, n_docs - 1)
+        lens = np.where(valid, np.asarray(doc_lens)[safe], 0)
+        if buckets is None:
+            buckets = self.aligned_buckets(int(q_ids.shape[1]), ld_full)
+        # the last rung must hold every stored doc width
+        ladder = sorted({int(b) for b in buckets if b > 0})
+        if not ladder or ladder[-1] < ld_full:
+            ladder.append(ld_full)
+        bidx = np.searchsorted(np.asarray(ladder), lens)
+        n = qn * kr
+        buf = torch.zeros(n + 1, dtype=torch.float32, device=doc_tokens.device)  # slot n: the spill
+        for bi, ld in enumerate(ladder):
+            sel = np.nonzero(bidx == bi)[0]
+            if sel.size == 0:
+                continue
+            pc = min(pair_chunk, max(256, 1 << (sel.size - 1).bit_length()))
+            units = -(-sel.size // pc)
+            nchunks = next((g for g in _BUCKET_CHUNK_GRID if g >= units), units)
+            cap = nchunks * pc
+            packed = np.zeros((4, cap), np.int32)
+            packed[0, : sel.size] = sel // kr
+            packed[1, : sel.size] = safe[sel]
+            packed[2, : sel.size] = valid[sel]
+            packed[3, :] = n
+            packed[3, : sel.size] = sel
+            buf = self._bucket_score_scatter(
+                ld, pc, q_ids, q_mask, doc_tokens, doc_mask, torch.as_tensor(packed, device=buf.device), buf
+            )
+        return buf[:n].reshape(qn, kr)
 
     # -- packed rerank (planned on the host, assembled on the device) ----
     @staticmethod
@@ -290,44 +424,16 @@ class CrossEncoder:
         )
 
     @staticmethod
-    def assemble_packed_rows(desc, q_ids, drows, n_rows: int, width: int, consts):
+    def assemble_packed_rows(desc, q_ids, drows, R: int, W: int, consts):
         """Device assembly of packed token rows from the plan: ``desc``
         [6, P] (``plan_packed``), the queries' raw tokens [Q, Lq] and the
         pairs' doc tokens [P, Ld] → (ids, mask, segment ids, positions), each
-        [R, W] int64.  A position's owning pair is the running max of the
-        pairs' scattered (index + 1) start markers; positions past its length
-        are padding (segment 0)."""
+        [R, W] int64, pairs laid out ``[CLS | q | SEP | d]``.  Every token of
+        a pair is real, so its RoBERTa position is t + 1 past the pad index
+        (bounded by the pair's length, not the row's); BERT's is t."""
         cls_id, sep_id, pad_id, roberta, cfg_pad = consts
-        qrow, _, prow, poff, qlen, dlen = (d.long() for d in desc)
-        dev = desc.device
-        n_pairs = qrow.shape[0]
-        plen = 2 + qlen + dlen
-        start = torch.zeros(n_rows * width, dtype=torch.int64, device=dev)
-        start[prow * width + poff] = torch.arange(1, n_pairs + 1, device=dev)
-        own = torch.cummax(start.view(n_rows, width), dim=1).values
-        p = (own - 1).clamp(min=0)
-        t = torch.arange(width, device=dev)[None, :] - poff[p]
-        ql = qlen[p]
-        inseg = (own > 0) & (t < plen[p])
-        lq_max = q_ids.shape[1]
-        qtok = q_ids[qrow[p], (t - 1).clamp(0, lq_max - 1)].long()
-        dtok = drows[p, (t - 2 - ql).clamp(0, drows.shape[1] - 1)].long()
-        ids = torch.where(
-            inseg & (t == 0), cls_id,
-            torch.where(
-                inseg & (t == ql + 1), sep_id,
-                torch.where(inseg & (t >= 1) & (t <= ql), qtok, torch.where(inseg & (t >= ql + 2), dtok, pad_id)),
-            ),
-        )
-        mask = inseg.long()
-        seg = own * mask
-        if roberta:
-            # every token of a pair is real, so its RoBERTa position is t + 1
-            # past the pad index: bounded by the pair's length, not the row's
-            pos = torch.where(inseg, t + 1 + cfg_pad, cfg_pad)
-        else:
-            pos = torch.where(inseg, t, 0)
-        return ids, mask, seg, pos
+        return assemble_pair_rows(desc, q_ids, drows, R, W, cls_id, sep_id, pad_id,
+                                  pos_start=1 + cfg_pad if roberta else 0, pos_pad=cfg_pad if roberta else 0)
 
     def rerank_tokens_packed(
         self,
@@ -368,7 +474,6 @@ class CrossEncoder:
             buf[tb[:, 2]] = self.packed_score_tokens(ids[rows], mask[rows], pos[rows], seg[rows], tb[:, 0], tb[:, 1])
         return buf[: qn * kr].reshape(qn, kr)
 
-    # -- host API over text ---------------------------------------------
     def predict(
         self, pairs: Sequence[tuple[str, str]], batch_size: int = 64, apply_sigmoid: bool = True
     ) -> np.ndarray:
@@ -387,12 +492,6 @@ class CrossEncoder:
             out.append(logits[:real].cpu().numpy())
         logits = np.concatenate(out, axis=0) if out else np.zeros(0, np.float32)
         return 1.0 / (1.0 + np.exp(-logits)) if apply_sigmoid else logits
-
-    def rank(self, query: str, documents: Sequence[str], top_k: int | None = None, batch_size: int = 64) -> list[dict]:
-        """One query's documents ranked by relevance."""
-        scores = self.predict([(query, d) for d in documents], batch_size=batch_size)
-        order = np.argsort(-scores, kind="stable")[: top_k or len(documents)]
-        return [{"corpus_id": int(i), "score": float(scores[i])} for i in order]
 
     def rerank(
         self,
@@ -423,17 +522,58 @@ class CrossEncoder:
         remapped = np.where(pos < 0, -1, remapped)
         return RankedLists(ids=torch.from_numpy(remapped.astype(np.int32)), scores=ranked.scores)
 
-    def quantized(self, mode: str = "int8") -> "CrossEncoder":
-        raise NotImplementedError(
-            "CrossEncoder.quantized: the int8 views of the cross-encoder and encoders are not "
-            "ported to fusion_tpu_torch yet (ROADMAP.md Queue 1, item 17)"
-        )
 
-    def with_attention(self, impl: str) -> "CrossEncoder":
-        raise NotImplementedError(
-            f"CrossEncoder.with_attention({impl!r}): the port's attention is the plain f32-logit "
-            "math; other implementations are not ported yet (ROADMAP.md Queue 1, item 2)"
-        )
+class CrossEncoder(EncoderViews, PairRerankMixin):
+    """monoBERT cross-encoder on an explicit ``device``."""
+
+    def __init__(
+        self,
+        cfg: EncoderConfig,
+        params: Mapping[str, torch.Tensor] | None = None,
+        tokenizer=None,
+        max_length: int = 256,
+        seed: int = 42,
+        device="cuda",
+        param_dtype: torch.dtype | None = None,
+    ):
+        self.cfg = cfg
+        self.max_length = max_length
+        self.device = resolve_device(device)
+        self.module = self._build_module(cfg)
+        if params is None:
+            init_weights(self.module, seed)
+        else:
+            self.module.load_state_dict(params)
+        place(self.module, cfg.dtype, self.device, param_dtype)
+        self.tokenizer = tokenizer or WordHashTokenizer(vocab_size=cfg.vocab_size)
+
+    @staticmethod
+    def _build_module(cfg: EncoderConfig) -> CrossEncoderModule:
+        return CrossEncoderModule(cfg)
+
+    # -- scoring --------------------------------------------------------
+    @torch.inference_mode()
+    def score_tokens(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """Pair tokens [B, L] → f32 logits [B]."""
+        return self.module(input_ids, attention_mask)
+
+    def score_tokens_train(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, drop: DropoutKey | None = None
+    ) -> torch.Tensor:
+        """The train-mode forward under autograd, dropout drawn from ``drop``."""
+        return self.module(input_ids, attention_mask, drop)
+
+    @torch.inference_mode()
+    def packed_score_tokens(self, input_ids, attention_mask, position_ids, segment_ids, gather_row, gather_col):
+        """Packed rows [R, W] → f32 logits [P] of the pairs whose CLS slots
+        are (gather_row, gather_col)."""
+        return self.module.packed(input_ids, attention_mask, position_ids, segment_ids, gather_row, gather_col)
+
+    def rank(self, query: str, documents: Sequence[str], top_k: int | None = None, batch_size: int = 64) -> list[dict]:
+        """One query's documents ranked by relevance."""
+        scores = self.predict([(query, d) for d in documents], batch_size=batch_size)
+        order = np.argsort(-scores, kind="stable")[: top_k or len(documents)]
+        return [{"corpus_id": int(i), "score": float(scores[i])} for i in order]
 
     # -- persistence ------------------------------------------------------
     def save(self, path: str) -> None:
@@ -457,13 +597,11 @@ class CrossEncoder:
     ) -> "CrossEncoder":
         """Load a checkpoint written by either package, computing in
         ``dtype`` on ``device`` (weights held in ``param_dtype``, default
-        ``dtype``).  A T5 cross-encoder checkpoint raises."""
+        ``dtype``), with the checkpoint's attention form and ``quantize``.
+        A T5 cross-encoder checkpoint is ``T5CrossEncoder.load``'s."""
         config = checkpoint.read_config(path)
         if config.get("model_type") == "t5_crossencoder":
-            raise NotImplementedError(
-                "the checkpoint is a T5 cross-encoder: models/t5.py is not ported to fusion_tpu_torch "
-                "yet (ROADMAP.md Queue 1, item 17)"
-            )
+            raise ValueError(f"{path} holds a 't5_crossencoder' checkpoint: use T5CrossEncoder.load")
         if tokenizer is None:
             tokenizer = tokenizer_from_config(config.get("tokenizer"))
         return cls(

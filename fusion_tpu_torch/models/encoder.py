@@ -5,9 +5,13 @@ The same trunk as ``fusion_tpu/models/encoder.py``, layer for layer:
   * the compute dtype is ``cfg.dtype`` (bf16 on the card): linear and
     embedding weights are held in it, LayerNorm weights stay f32 and every
     LayerNorm runs in f32 before casting back;
-  * attention logits are accumulated and soft-maxed in f32, and padding is an
-    additive -1e9 bias, so a row with no attended key softmaxes uniformly
-    instead of giving NaN;
+  * attention (``cfg.attention_impl``) takes JAX's three forms: ``einsum``
+    accumulates and soft-maxes the logits in f32; ``einsum_bf16`` stores the
+    f32-accumulated logits as bf16 and scales and biases them in bf16 before
+    the f32 softmax; ``flash`` is ``ops/attention.masked_attention``, the
+    hand-written kernel on the card (forward only) and the ``einsum`` form's
+    arithmetic on the CPU.  Padding is an additive -1e9 bias in every form,
+    so a row with no attended key softmaxes uniformly instead of giving NaN;
   * positions count non-pad ids (RoBERTa scheme, offset past the pad index),
     read from the ids and not from the attention mask, unless the caller
     passes ``position_ids`` (the packed rerank restarts them per pair);
@@ -15,6 +19,10 @@ The same trunk as ``fusion_tpu/models/encoder.py``, layer for layer:
     ``[B, 1, L, L]``: a token attends only to tokens of its own segment, and
     the −1e9 bias keeps an all-pad row finite as before;
   * GELU is exact;
+  * ``cfg.quantize == "int8"`` runs the trunk's linear layers (qkv, out,
+    ffn_in, ffn_out) as JAX's ``int8_dot_general`` does: per-row absmax
+    codes of both operands, an int8 product accumulated in int32
+    (``torch._int_mm``), an f32 rescale.  Inference only;
   * every linear layer and embedding computes in its input's (the compute)
     dtype: weights placed in that dtype serve as they are, f32 master
     weights (training, ``place(..., param_dtype=torch.float32)``) are cast
@@ -28,11 +36,22 @@ seeded by ``(seed, step, stream, layer, site)``) and, with ``cfg.remat``,
 recomputes each layer in the backward pass (``torch.utils.checkpoint``):
 the recompute reseeds the same generators, so it draws the masks of the
 first forward.  ``models/convert.py`` maps a Flax parameter tree onto these
-modules.
+modules, and ``config_view`` rebuilds a model's module under another config
+(the models' ``with_attention`` / ``quantized``) holding the same
+parameters.
+
+One difference from the JAX package is stated: its ``flash`` runs the Pallas
+kernel only on a TPU and at a sequence length that is a multiple of 128, and
+falls back to ``einsum`` otherwise.  Those two are TPU tiling rules, so the
+port's ``flash`` runs at any length on any device; with active dropout it
+computes the ``einsum`` form, as JAX's does.  Its kernel on the card takes a
+head dim of 64 and has no backward pass (JAX's has one): a gradient through
+``flash`` without dropout raises there.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -43,6 +62,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fusion_tpu_torch.core.device import resolve_device
+from fusion_tpu_torch.ops.attention import allowed_keys, masked_attention
+
+
+ATTENTION_IMPLS = ("einsum", "einsum_bf16", "flash")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +88,18 @@ class EncoderConfig:
     # recompute each transformer layer in the backward pass (train-time:
     # trades a forward's FLOPs for activation memory)
     remat: bool = False
+    # 'einsum' (f32 logits), 'einsum_bf16' (bf16-stored logits, ~0.4 %
+    # softmax error) or 'flash' (the masked-attention kernel)
+    attention_impl: str = "einsum"
+    # None, or 'int8': the trunk's linear layers on dynamic int8 codes
+    # (serving only: round() has no gradient)
+    quantize: str | None = None
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {self.attention_impl!r}")
+        if self.quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {self.quantize!r}")
 
     @classmethod
     def tiny(cls, vocab_size: int = 128, **kw) -> "EncoderConfig":
@@ -130,6 +165,88 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+def int8_codes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 codes of each row of ``x`` [..., K]: the row's absmax
+    (in f32, floored at 1e-12) and ``round(x / absmax * 127)``, in JAX's
+    order of operations, so the codes equal ``int8_dot_general``'s bit for
+    bit → (codes int8 [..., K], absmax f32 [..., 1])."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12)
+    return torch.round(xf / scale * 127.0).to(torch.int8), scale
+
+
+# cuBLAS's int8 product (torch._int_mm) takes more than 16 rows: fewer are
+# padded with zero rows, whose products are dropped
+_INT_MM_MIN_ROWS = 17
+
+
+def int8_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """``x @ weight.T + bias`` as JAX's ``int8_dot_general`` computes it:
+    per-row codes of ``x`` and per-output-row codes of ``weight`` (both in
+    ``x``'s dtype first, as flax promotes them), an int8 × int8 product
+    accumulated in int32, and an f32 rescale by ``s_x · s_w / 127²``, cast
+    to ``x``'s dtype before the bias is added."""
+    k = x.shape[-1]
+    xq, xs = int8_codes(x.reshape(-1, k))
+    wq, ws = int8_codes(weight.to(x.dtype))
+    rows = xq.shape[0]
+    if rows < _INT_MM_MIN_ROWS:
+        xq = F.pad(xq, (0, 0, 0, _INT_MM_MIN_ROWS - rows))
+    acc = torch._int_mm(xq, wq.T)[:rows]
+    out = (acc.float() * (xs * ws.view(1, -1) / (127.0 * 127.0))).to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(x.dtype)
+    return out.view(*x.shape[:-1], weight.shape[0])
+
+
+def trunk_linear(layer: nn.Linear, x: torch.Tensor, cfg) -> torch.Tensor:
+    """A trunk linear layer under ``cfg.quantize``: the int8 product, or the
+    layer's own forward."""
+    if cfg.quantize == "int8":
+        return int8_linear(x, layer.weight, layer.bias)
+    return layer(x)
+
+
+def attention(
+    q, k, v, attention_mask: torch.Tensor, segment_ids: torch.Tensor | None, cfg,
+    drop: DropoutKey | None = None, layer: int = 0,
+) -> torch.Tensor:
+    """Scaled dot-product attention of ``q``, ``k``, ``v`` [B, L, heads, hd]
+    in the form ``cfg.attention_impl`` names, over the keys ``allowed_keys``
+    gives for ``attention_mask`` and ``segment_ids`` → context [B, L, heads,
+    hd].  Dropout (site ``SITE_ATTN_PROBS`` of ``layer``) falls on the
+    probabilities; ``flash`` with active dropout computes the ``einsum``
+    form."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    impl = cfg.attention_impl
+    if impl == "flash" and (drop is None or cfg.dropout == 0.0):
+        return masked_attention(q, k, v, attention_mask, segment_ids, scale)
+    allowed = allowed_keys(attention_mask, segment_ids)
+    if impl == "einsum_bf16":
+        # stored as bf16 after an f32 accumulation (a bf16 product's own
+        # output), then scaled and biased in bf16
+        if q.dtype == torch.bfloat16:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).to(torch.bfloat16)
+        bias = torch.where(allowed, 0.0, -1e9).to(torch.bfloat16)
+        z = logits * scale + bias
+        # softmax of a bf16 input computes in f32 and rounds once to bf16:
+        # the f32 softmax cast to a bf16 cfg.dtype, without its f32 buffer
+        if cfg.dtype == torch.bfloat16:
+            probs = torch.softmax(z, dim=-1)
+        else:
+            probs = torch.softmax(z.float(), dim=-1).to(cfg.dtype)
+    else:
+        # f32 logits from the compute-dtype projections, as the JAX einsum
+        # with preferred_element_type=f32 gives them
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        bias = torch.where(allowed, 0.0, -1e9).to(torch.float32)
+        probs = torch.softmax(logits + bias, dim=-1).to(cfg.dtype)
+    probs = dropout(probs, cfg.dropout, drop, layer, SITE_ATTN_PROBS)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with f32 weights that normalizes in f32 (the caller casts)."""
 
@@ -190,23 +307,12 @@ class SelfAttention(nn.Module):
     ) -> torch.Tensor:
         c = self.cfg
         b, length, h = x.shape
-        head_dim = h // c.num_heads
-        qkv = self.qkv(x).view(b, length, 3, c.num_heads, head_dim)
+        qkv = trunk_linear(self.qkv, x, c).view(b, length, 3, c.num_heads, h // c.num_heads)
         q, k, v = qkv.unbind(dim=2)  # [B, L, heads, hd]
-        # f32 logits from the compute-dtype projections, as the JAX einsum
-        # with preferred_element_type=f32 gives them
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(head_dim)
-        if segment_ids is None:
-            allowed = attention_mask[:, None, None, :] > 0
-        else:  # block-diagonal: pairs packed into one row never attend across
-            allowed = (
-                (segment_ids[:, None, :] == segment_ids[:, :, None]) & (attention_mask[:, None, :] > 0)
-            )[:, None]
-        bias = torch.where(allowed, 0.0, -1e9).to(torch.float32)
-        probs = torch.softmax(logits + bias, dim=-1).to(c.dtype)
-        probs = dropout(probs, c.dropout, drop, layer, SITE_ATTN_PROBS)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out(ctx.reshape(b, length, h))
+        # segments make the allowed keys block-diagonal: pairs packed into
+        # one row never attend across
+        ctx = attention(q, k, v, attention_mask, segment_ids, c, drop, layer)
+        return trunk_linear(self.out, ctx.reshape(b, length, h), c)
 
 
 class TransformerLayer(nn.Module):
@@ -230,7 +336,7 @@ class TransformerLayer(nn.Module):
         c, i = self.cfg, self.index
         attn = self.attention(x, attention_mask, segment_ids, drop, i)
         x = self.attn_ln(x + dropout(attn, c.dropout, drop, i, SITE_ATTN_OUT)).to(c.dtype)
-        h = self.ffn_out(F.gelu(self.ffn_in(x), approximate="none"))
+        h = trunk_linear(self.ffn_out, F.gelu(trunk_linear(self.ffn_in, x, c), approximate="none"), c)
         return self.ffn_ln(x + dropout(h, c.dropout, drop, i, SITE_FFN_OUT)).to(c.dtype)
 
 
@@ -322,6 +428,42 @@ def place(module: nn.Module, dtype: torch.dtype, device, param_dtype: torch.dtyp
         if isinstance(m, (nn.Linear, nn.Embedding)) and not getattr(m, "keep_f32", False):
             m.to(param_dtype or dtype)
     return module
+
+
+def config_view(model, build, **changes):
+    """A shallow copy of ``model`` whose ``cfg`` takes ``changes`` and whose
+    ``module`` is ``build(cfg)`` holding the original's parameter tensors
+    themselves, not copies (built on the meta device, so no weights are
+    allocated): the models' serving views."""
+    out = copy.copy(model)
+    out.cfg = dataclasses.replace(model.cfg, **changes)
+    with torch.device("meta"):
+        out.module = build(out.cfg)
+    out.module.load_state_dict(model.module.state_dict(), assign=True)
+    out.module.train(model.module.training)
+    return out
+
+
+class QuantizedView:
+    """``quantized`` for a model with ``cfg``, ``module`` and
+    ``_build_module(cfg)``: a view that shares the model's parameters and
+    tokenizer."""
+
+    def quantized(self, mode: str = "int8"):
+        """Serving view whose trunk linear layers run on dynamic int8 codes
+        (``int8_linear``); inference only."""
+        return config_view(self, self._build_module, quantize=mode)
+
+
+class EncoderViews(QuantizedView):
+    """``quantized`` and ``with_attention`` views (see ``QuantizedView``)."""
+
+    def with_attention(self, impl: str):
+        """Serving view with another attention form (``einsum``,
+        ``einsum_bf16`` or ``flash``); the model itself if it has it."""
+        if impl == self.cfg.attention_impl:
+            return self
+        return config_view(self, self._build_module, attention_impl=impl)
 
 
 def init_encoder_params(

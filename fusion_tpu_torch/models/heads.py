@@ -56,9 +56,9 @@ def prune_topk(activations: torch.Tensor, keep_topk: int) -> tuple[torch.Tensor,
     return torch.zeros_like(activations).scatter(-1, idx, vals), idx
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    """x / max(||x||, eps), computed in x's dtype (bf16 stays bf16)."""
-    norm = torch.sqrt((x * x).sum(dim=dim, keepdim=True))
+def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps) along ``axis``, computed in x's dtype (bf16 stays bf16)."""
+    norm = torch.sqrt((x * x).sum(dim=axis, keepdim=True))
     return x / torch.clamp(norm, min=eps)
 
 

@@ -35,6 +35,7 @@ import functools
 
 import torch
 
+from fusion_tpu_torch.core.device import check_use_pallas
 from fusion_tpu_torch.core.ranked import RankedLists, stable_topk
 from fusion_tpu_torch.models.heads import l2_normalize
 from fusion_tpu_torch.ops import _kernels
@@ -238,7 +239,10 @@ def fused_dense_topk(
     index,  # QuantizedDenseIndex or (values, scales, normalized)
     k: int = 1000,
     doc_block: int = KERNEL_DOC_BLOCK,
+    recall_target: float = 0.99,
+    use_pallas: bool | None = None,
     n_docs: int | None = None,
+    *,
     dead_rows: bool = True,
 ) -> RankedLists:
     """Corpus-scale dense search through the binned scorer.
@@ -246,7 +250,13 @@ def fused_dense_topk(
     Rows should already be padded to a ``doc_block`` multiple (otherwise
     this pads a COPY); pass the real row count as ``n_docs`` so pad rows are
     masked.  Scores come back with 4 mantissa bits cleared.
-    ``dead_rows=False`` scores with the no-mask variant."""
+    ``dead_rows=False`` scores with the no-mask variant.  JAX's
+    ``recall_target`` (of its approximate final select) and ``use_pallas``
+    are checked and dropped: the port's select is exact, and the device
+    picks the kernel or its plain version."""
+    if not 0.0 < recall_target <= 1.0:
+        raise ValueError(f"recall_target must be in (0, 1], got {recall_target!r}")
+    check_use_pallas(use_pallas)
     values, scales, normalized = tuple(index)
     if n_docs is None:
         n_docs = values.shape[0]

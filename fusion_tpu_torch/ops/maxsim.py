@@ -43,6 +43,7 @@ import functools
 
 import torch
 
+from fusion_tpu_torch.core.device import check_use_pallas
 from fusion_tpu_torch.core.ranked import RankedLists
 from fusion_tpu_torch.ops import _kernels
 from fusion_tpu_torch.ops.topk import blockwise_topk, blockwise_topk_offset
@@ -465,11 +466,15 @@ def maxsim_search_tm(
     corpus_tm: torch.Tensor,
     doc_valid: torch.Tensor,
     k: int = 1000,
+    use_pallas: bool | None = None,
+    *,
     outer_block: int = 65536,
 ) -> RankedLists:
     """Streaming MaxSim top-k over a PREPARED token corpus
     (``prepare_token_corpus``): blocks of ``outer_block`` docs are scored
-    and merged into a running top-k; invalid docs score -inf."""
+    and merged into a running top-k; invalid docs score -inf.
+    ``use_pallas`` is JAX's, checked and dropped (``check_use_pallas``)."""
+    check_use_pallas(use_pallas)
     ld, n, _ = corpus_tm.shape
     q = q_tokens.shape[0]
     k = min(k, n)
@@ -498,6 +503,8 @@ def maxsim_search(
     corpus_mask: torch.Tensor,
     k: int = 1000,
     doc_block: int = 1024,
+    use_pallas: bool | None = None,
+    *,
     outer_block: int = 65536,
 ) -> RankedLists:
     """Streaming MaxSim top-k over a doc-major [N, Ld, D] token matrix with
@@ -508,7 +515,9 @@ def maxsim_search(
     and scored through K1.  On the CPU: the dense reference
     (``maxsim_scores_zeromask``) over blocks of ``doc_block`` docs.  Both clamp
     the tail block into range and mask the overlap, so ids and ties match
-    ``fusion_tpu``'s blocked top-k."""
+    ``fusion_tpu``'s blocked top-k.  ``use_pallas`` is checked and dropped:
+    the device picks the path."""
+    check_use_pallas(use_pallas)
     n = corpus_tokens.shape[0]
     q = q_tokens.shape[0]
     k = min(k, n)

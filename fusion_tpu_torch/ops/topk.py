@@ -42,13 +42,8 @@ def _init_state(num_queries: int, k: int, device) -> tuple[torch.Tensor, torch.T
 
 
 def _check_local_topk(local_topk: str | None) -> None:
-    if local_topk == "approx":
-        raise NotImplementedError(
-            "local_topk='approx' (an approximate binned reducer) is not ported "
-            "yet; it arrives with the scale-mode search (ROADMAP Slice B)"
-        )
-    if local_topk not in (None, "exact"):
-        raise ValueError(f"local_topk must be None or 'exact', got {local_topk!r}")
+    if local_topk not in (None, "exact", "approx"):
+        raise ValueError(f"local_topk must be None, 'exact' or 'approx', got {local_topk!r}")
 
 
 def blockwise_topk(
@@ -64,6 +59,8 @@ def blockwise_topk(
     that block (ids are global corpus indices; masked slots carry -inf).
     ``local_topk='exact'`` first cuts each block wider than ``2k`` to its own
     top-k, which shrinks every merge to ``[Q, 2k]`` and ranks the same.
+    ``'approx'`` (the JAX package's approximate reducer) is served by the
+    same exact cut: the port's result never depends on a recall target.
     """
     _check_local_topk(local_topk)
     acc_scores = acc_ids = None
@@ -89,7 +86,8 @@ def blockwise_topk_offset(
 ) -> RankedLists:
     """``blockwise_topk`` for blocks whose ids are ``start + arange(B)``:
     ``score_block(block_idx)`` returns ``(scores [Q, B], start)`` and global
-    ids come from arithmetic on the kept positions."""
+    ids come from arithmetic on the kept positions; ``local_topk`` as in
+    ``blockwise_topk`` ('approx' is the exact cut)."""
     _check_local_topk(local_topk)
     acc_scores = acc_ids = None
     for bi in range(num_blocks):

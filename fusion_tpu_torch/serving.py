@@ -23,20 +23,25 @@ the MaxSim kernel, or with ``colbert_plaid`` by PLAID: centroid probe → IVF
 candidates → exact rescore of the candidates' rows, which the gather kernel
 fetches.
 
-With a ``cross_encoder`` the searcher adds the monoBERT final stage: the
-fused head of each query (``rerank_depth`` candidates) is scored pair by
-pair and re-sorted above the untouched tail (``rerank_head_merge``), either
-packed (the default: pairs packed into fixed-width rows, planned on the host
-from the head ids) or flat (every pair padded to the full doc width).
+With a ``cross_encoder`` (``CrossEncoder`` or ``T5CrossEncoder``) the
+searcher adds the final rerank stage: the fused head of each query
+(``rerank_depth`` candidates) is scored pair by pair and re-sorted above the
+untouched tail (``rerank_head_merge``), in one of four forms — packed (the
+default: pairs packed into fixed-width rows, planned on the host from the
+head ids), flat (every pair padded to the full doc width), the flat
+two-stage cascade (``rerank_cascade``: a truncated pass over every
+candidate, a full-width pass over the kept ones) or length-bucketed
+(``rerank_buckets``: each pair padded to the smallest rung of a doc-width
+ladder that holds it).  ``quantize_encoders`` and ``set_encoder_attention``
+swap the query encoders for their int8 or other-attention views.
 
 The offline ``build()`` encodes the corpus once per system;
 ``save_indexes`` writes every index to one directory in the JAX package's
 format and ``load_indexes`` serves such a directory, whichever package wrote
 it.  NSF's percentile normalizations read per-system quantile tables
-(``build_percentile_distributions``, or a saved directory's).  The cascade
-and length-bucketed rerank stages and int8 query encoders are later slices
-of the port (ROADMAP.md Queue 1); asking for them raises
-``NotImplementedError``.
+(``build_percentile_distributions``, or a saved directory's).  The public
+methods take the JAX searcher's parameters in its order; ``use_pallas`` is
+checked and dropped (the port picks its kernels by device).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from typing import ClassVar, Mapping, Sequence
 import numpy as np
 import torch
 
-from fusion_tpu_torch.core.device import resolve_device
+from fusion_tpu_torch.core.device import check_use_pallas, resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores
 from fusion_tpu_torch.fusion.aggregator import (
     FUSION_METHODS,
@@ -79,7 +84,6 @@ from fusion_tpu_torch.index.plaid import IVFIndex, build_ivf, plaid_search
 from fusion_tpu_torch.index.sparse import SpladeRescoreStore, build_rescore_store, sparse_rescore
 from fusion_tpu_torch.models.bm25 import BM25Index
 from fusion_tpu_torch.models.colbert import TokenIndex
-from fusion_tpu_torch.models.crossencoder import CrossEncoder
 from fusion_tpu_torch.models.encoder import token_tensors
 from fusion_tpu_torch.models.heads import l2_normalize
 from fusion_tpu_torch.ops.dense_topk import fused_dense_topk
@@ -87,13 +91,6 @@ from fusion_tpu_torch.ops.maxsim import maxsim_search_tm
 from fusion_tpu_torch.ops.mips import dense_search, matmul_f32
 from fusion_tpu_torch.ops.scatter_score import MAX_POSTING_WIDTH, scatter_impact_search
 
-# build() options of the JAX searcher that this port does not serve yet,
-# with the ROADMAP.md Queue 1 item that brings each
-_NOT_PORTED = {
-    "rerank_buckets": "the length-bucketed rerank stage (Slice A, item 9)",
-    "rerank_cascade": "the two-stage cascade rerank (Slice A, item 9)",
-    "encoders_int8": "int8 query encoders (Slice C, item 17)",
-}
 _PERCENTILE_NORMALIZATIONS = ("percentile-rank", "normal-curve-equivalent")
 
 
@@ -145,16 +142,54 @@ def rerank_head_merge(fused: RankedLists, head_ids: torch.Tensor, logits: torch.
 
 
 def _check_rerank_options(packed: bool, buckets, cascade) -> None:
-    """The packed stage replaces the JAX package's bucketed and cascade
-    stages, which the port does not serve yet."""
+    """The JAX searcher's two exclusions between the rerank stages."""
+    if cascade is not None and buckets is not None:
+        raise ValueError(
+            "rerank_cascade and rerank_buckets are mutually exclusive (the bucketed stage would "
+            "silently ignore the cascade): configure one"
+        )
     if packed and (buckets is not None or cascade is not None):
         raise ValueError(
             "rerank_packed is mutually exclusive with rerank_buckets / rerank_cascade "
             "(the packed stage replaces them as the variable-length strategy): configure one"
         )
-    for option, value in (("rerank_buckets", buckets), ("rerank_cascade", cascade)):
-        if value is not None:
-            raise NotImplementedError(f"{option}: {_NOT_PORTED[option]} is not ported to fusion_tpu_torch yet")
+
+
+class CascadeTruncationWarning(UserWarning):
+    """Cascade stage 1 truncates below most documents' evidence reach."""
+
+
+def _check_cascade_stage1_depth(stage1_tokens: int, doc_lens, p: float = 90.0) -> None:
+    """Warn when the cascade's stage 1 cuts docs below the corpus's p90
+    token length: a doc whose evidence lies past the cut can miss the
+    full-width pass (the JAX package measured an MRR cliff there)."""
+    if doc_lens is None or len(doc_lens) == 0:
+        return
+    p90 = float(np.percentile(np.asarray(doc_lens), p))
+    if stage1_tokens < p90:
+        warnings.warn(
+            f"rerank_cascade stage1_tokens={stage1_tokens} is below the corpus p{p:.0f} doc length "
+            f"({p90:.0f} tokens): documents whose evidence sits past the truncation can miss the "
+            f"stage-1 cut. Raise stage1_tokens to >= {int(p90)}, raise keep, or use rerank_buckets "
+            "(exact).",
+            CascadeTruncationWarning,
+            stacklevel=3,
+        )
+
+
+def _resolve_cascade(rerank_cascade: tuple, doc_lens, doc_width: int) -> tuple[int, int]:
+    """(keep, stage1_tokens) with stage1 0 / None / 'auto' resolved to the
+    corpus p90 token length rounded up to a multiple of 16 and clamped to
+    the stored doc width (the full width collapses the cascade to one flat
+    pass)."""
+    keep, stage1 = rerank_cascade
+    if stage1 in (None, 0, "auto"):
+        if doc_lens is None or len(doc_lens) == 0:
+            stage1 = doc_width
+        else:
+            p90 = float(np.percentile(np.asarray(doc_lens), 90.0))
+            stage1 = min(int(-(-p90 // 16) * 16), doc_width)
+    return int(keep), int(stage1)
 
 
 def _quantize_impacts(impacts: torch.Tensor) -> QuantizedDenseIndex:
@@ -226,9 +261,9 @@ class HybridSearcher:
     # 'gather' reconstructs every candidate token; 'factored' reuses the
     # centroid-score table and reconstructs only the residuals
     plaid_rescore_impl: str = "gather"
-    cross_encoder: CrossEncoder | None = None
+    cross_encoder: object | None = None  # CrossEncoder or T5CrossEncoder
     # the corpus's raw cross-encoder tokens on the device, and their host
-    # token counts (the packed stage's plan)
+    # token counts (the packed and bucketed stages' plans)
     ce_doc_tokens: torch.Tensor | None = None
     ce_doc_mask: torch.Tensor | None = None
     ce_doc_lens: np.ndarray | None = None
@@ -238,6 +273,11 @@ class HybridSearcher:
     # the packed stage (the build default); the flat stage otherwise
     rerank_packed: bool = True
     rerank_row_width: int | None = None  # None: ~1.5x the longest pair
+    # the doc-width ladder of the length-bucketed stage (None: not bucketed)
+    rerank_buckets: tuple | None = None
+    # (keep, stage1_tokens) of the flat two-stage cascade; build() resolves
+    # stage1 0 / None / 'auto' to the corpus p90 token length
+    rerank_cascade: tuple | None = None
     fusion_method: str = "rrf"
     normalization: str | None = None
     # per-system quantile tables of the percentile normalizations: made by
@@ -271,6 +311,11 @@ class HybridSearcher:
         dense_model=None,
         splade_model=None,
         colbert_model=None,
+        cross_encoder=None,
+        rerank_depth: int = 100,
+        ce_max_doc_tokens: int | None = None,
+        colbert_compressed: bool = False,
+        colbert_nbits: int = 2,
         batch_size: int = 64,
         k1: float = 2.5,
         b: float = 0.2,
@@ -279,24 +324,6 @@ class HybridSearcher:
         linear_weights: Mapping[str, float] | None = None,
         topk: int = 1000,
         bm25_preprocess=None,
-        device="cuda",
-        cross_encoder=None,
-        rerank_depth: int = 100,
-        ce_max_doc_tokens: int | None = None,
-        rerank_packed: bool | None = None,
-        rerank_row_width: int | None = None,
-        rerank_buckets: tuple | None = None,
-        rerank_cascade: tuple | None = None,
-        colbert_compressed: bool = False,
-        colbert_nbits: int = 2,
-        colbert_plaid: bool = False,
-        plaid_nprobe: int = 4,
-        plaid_ncand: int = 1024,
-        plaid_ncand_rescore: int | None = None,
-        plaid_rescore_impl: str = "gather",
-        plaid_gather_impl: str = "auto",
-        plaid_topk_impl: str = "approx",
-        ivf_cap: int = 1024,
         int8_corpus: bool = False,
         scale_mode: bool = False,
         impact_cap: int = 4096,
@@ -305,8 +332,22 @@ class HybridSearcher:
         splade_impl: str = "auto",
         splade_rescore_depth: int | None = None,
         scatter_docs_per_chunk: int = 16_384,
+        colbert_plaid: bool = False,
+        plaid_nprobe: int = 4,
+        plaid_ncand: int = 1024,
+        plaid_ncand_rescore: int | None = None,
+        plaid_rescore_impl: str = "gather",
+        plaid_gather_impl: str = "auto",
+        plaid_topk_impl: str = "approx",
+        ivf_cap: int = 1024,
+        rerank_buckets: tuple | None = None,
+        rerank_cascade: tuple | None = None,
+        rerank_packed: bool | None = None,
+        rerank_row_width: int | None = None,
         dense_impl: str = "auto",
         encoders_int8: bool = False,
+        *,
+        device="cuda",
     ) -> "HybridSearcher":
         """Encode/build every requested index once, on ``device``.  Each
         model must already live on ``device``.
@@ -327,18 +368,19 @@ class HybridSearcher:
         'exact') is checked and dropped: every PLAID select in the port is
         exact.
 
-        ``cross_encoder`` adds the monoBERT final stage over each query's
-        fused top ``rerank_depth``: the corpus is tokenized once into a device
-        matrix of raw doc tokens (``ce_max_doc_tokens`` wide).
-        ``rerank_packed`` None resolves to the packed stage (rows of
-        ``rerank_row_width`` tokens); False serves the flat stage."""
+        ``cross_encoder`` adds the rerank stage over each query's fused top
+        ``rerank_depth``: the corpus is tokenized once into a device matrix
+        of raw doc tokens (``ce_max_doc_tokens`` wide).  ``rerank_packed``
+        None resolves to the packed stage (rows of ``rerank_row_width``
+        tokens) unless ``rerank_buckets`` (a doc-width ladder, such as
+        ``aligned_buckets``') or ``rerank_cascade`` ((keep, stage1_tokens),
+        stage1 0 resolved to the corpus p90 length) asks for another; False
+        serves the flat stage.  ``encoders_int8`` swaps the query encoders
+        for their int8 views after the corpus is encoded (``device`` is the
+        port's own, keyword-only)."""
         if rerank_packed is None:
             rerank_packed = rerank_buckets is None and rerank_cascade is None
         _check_rerank_options(rerank_packed, rerank_buckets, rerank_cascade)
-        if encoders_int8:
-            raise NotImplementedError(
-                f"encoders_int8: {_NOT_PORTED['encoders_int8']} is not ported to fusion_tpu_torch yet"
-            )
         if fusion_method not in FUSION_METHODS:
             raise ValueError(f"fusion_method must be one of {FUSION_METHODS}")
         if normalization not in (None, *NORMALIZATIONS):
@@ -423,7 +465,34 @@ class HybridSearcher:
             out.ce_doc_tokens, out.ce_doc_mask, out.ce_doc_lens = cross_encoder.prepare_corpus_tokens(
                 documents, max_doc_tokens=ce_max_doc_tokens, return_lens=True
             )
+            out.rerank_buckets = rerank_buckets
+            if rerank_cascade is not None:
+                rerank_cascade = _resolve_cascade(rerank_cascade, out.ce_doc_lens, out.ce_doc_tokens.shape[1])
+                _check_cascade_stage1_depth(rerank_cascade[1], out.ce_doc_lens)
+            out.rerank_cascade = rerank_cascade
+        if encoders_int8:
+            # the corpus was encoded by the full-precision forwards above
+            out.quantize_encoders()
         return out
+
+    def quantize_encoders(self, mode: str = "int8") -> "HybridSearcher":
+        """Swap the query encoders (DPR, SPLADE, ColBERT) for their
+        ``quantized`` views; the indexes keep the forwards they were built
+        with."""
+        for attr in ("dense_model", "splade_model", "colbert_model"):
+            model = getattr(self, attr)
+            if model is not None:
+                setattr(self, attr, model.quantized(mode))
+        return self
+
+    def set_encoder_attention(self, impl: str) -> "HybridSearcher":
+        """Swap the query encoders for their ``with_attention(impl)`` views:
+        the same parameters under another attention form."""
+        for attr in ("dense_model", "splade_model", "colbert_model"):
+            model = getattr(self, attr)
+            if model is not None and hasattr(model, "with_attention"):
+                setattr(self, attr, model.with_attention(impl))
+        return self
 
     def _build_colbert(self, documents, batch_size, compressed, nbits, plaid, ivf_cap) -> None:
         """ColBERT's index: the bf16 token matrix, or the compressed index
@@ -620,17 +689,20 @@ class HybridSearcher:
                 self.ce_doc_tokens = torch.as_tensor(ids, device=dev)
                 self.ce_doc_mask = torch.as_tensor(mask, device=dev)
                 self.ce_doc_lens = mask.sum(axis=1).astype(np.int32)
+            if self.rerank_cascade is not None:
+                _check_cascade_stage1_depth(int(self.rerank_cascade[1]), self.ce_doc_lens)
         if there("percentile_distributions.npz"):
             with np.load(os.path.join(path, "percentile_distributions.npz")) as z:
                 self.percentile_distributions = {s: z[s] for s in z.files}
         return self
 
     def build_percentile_distributions(
-        self, queries: Sequence[str], num_points: int = 10_000, batch_size: int = 32
+        self, queries: Sequence[str], num_points: int = 10_000, batch_size: int = 32, use_pallas: bool | None = None
     ) -> dict[str, np.ndarray]:
         """Per-system quantile tables from a query sample's scores: each
         system's per-query top-``self.topk`` scores, pooled.  Sets
         ``self.percentile_distributions`` and returns the tables."""
+        check_use_pallas(use_pallas)
         tables = {}
         for system, ranked in self.search_systems(queries, batch_size=batch_size, external_ids=False).items():
             scores = ranked.scores.numpy()
@@ -835,10 +907,13 @@ class HybridSearcher:
         )
 
     def _rerank(self, inputs: dict, fused: RankedLists) -> RankedLists:
-        """The monoBERT stage over the fused head of one batch."""
+        """The rerank stage over the fused head of one batch."""
+        _check_rerank_options(self.rerank_packed, self.rerank_buckets, self.rerank_cascade)
         kr = min(self.rerank_depth, fused.depth)
         head_ids = fused.ids[:, :kr]
-        if self.rerank_packed:
+        if self.rerank_buckets is not None:
+            logits = self._bucketed_rerank_stage(inputs, head_ids)
+        elif self.rerank_packed:
             logits = self._packed_rerank_stage(inputs, head_ids)
         else:
             logits = self._flat_rerank_stage(inputs, head_ids)
@@ -846,12 +921,27 @@ class HybridSearcher:
 
     def _flat_rerank_stage(self, inputs: dict, head_ids: torch.Tensor) -> torch.Tensor:
         """Every (query, candidate) pair padded to the full doc width, all on
-        the device: gather the head's doc tokens, score in chunks."""
+        the device: gather the head's doc tokens, score in chunks — in one
+        pass, or in the cascade's two."""
+        ce = self.cross_encoder
         safe = head_ids.clamp(0, self.ce_doc_tokens.shape[0] - 1).long()
-        d_ids = CrossEncoder._token_ids(self.ce_doc_tokens[safe])
+        d_ids = ce._token_ids(self.ce_doc_tokens[safe])
         d_mask = self.ce_doc_mask[safe].long() * (head_ids >= 0)[..., None]
-        return self.cross_encoder.rerank_tokens(
-            inputs["ce_ids"], inputs["ce_mask"], d_ids, d_mask, pair_chunk=self.rerank_chunk
+        if self.rerank_cascade is not None:
+            keep, stage1 = self.rerank_cascade
+            return ce.rerank_tokens_cascade(
+                inputs["ce_ids"], inputs["ce_mask"], d_ids, d_mask, keep=int(keep),
+                stage1_tokens=int(stage1), pair_chunk=self.rerank_chunk,
+            )
+        return ce.rerank_tokens(inputs["ce_ids"], inputs["ce_mask"], d_ids, d_mask, pair_chunk=self.rerank_chunk)
+
+    def _bucketed_rerank_stage(self, inputs: dict, head_ids: torch.Tensor) -> torch.Tensor:
+        """Each pair padded to its length bucket: the plan needs the head
+        ids on the host (one [Q, depth] read-back per batch)."""
+        return self.cross_encoder.rerank_tokens_bucketed(
+            inputs["ce_ids"], inputs["ce_mask"], self.ce_doc_tokens, self.ce_doc_mask,
+            head_ids.cpu().numpy(), self.ce_doc_lens, buckets=self.rerank_buckets,
+            pair_chunk=self.rerank_chunk,
         )
 
     def _packed_rerank_stage(self, inputs: dict, head_ids: torch.Tensor) -> torch.Tensor:
@@ -875,9 +965,14 @@ class HybridSearcher:
             yield self._prepare_inputs(chunk), real
 
     def search(
-        self, queries: Sequence[str], batch_size: int = 32, external_ids: bool = True
+        self,
+        queries: Sequence[str],
+        batch_size: int = 32,
+        use_pallas: bool | None = None,
+        external_ids: bool = True,
     ) -> tuple[RankedLists, float]:
         """Batched hybrid search. Returns (ranked lists on the host, ms/query)."""
+        check_use_pallas(use_pallas)
         out_ids, out_scores = [], []
 
         def fetch(pending):
@@ -905,9 +1000,14 @@ class HybridSearcher:
         return ranked, elapsed / max(len(queries), 1) * 1000
 
     def search_systems(
-        self, queries: Sequence[str], batch_size: int = 32, external_ids: bool = True
+        self,
+        queries: Sequence[str],
+        batch_size: int = 32,
+        use_pallas: bool | None = None,
+        external_ids: bool = True,
     ) -> dict[str, RankedLists]:
         """Per-system ranked lists (on the host) with no fusion or rerank."""
+        check_use_pallas(use_pallas)
         parts: dict[str, list[RankedLists]] = {}
         for inputs, real in self._batches(queries, batch_size):
             for system, ranked in self._search_batch(inputs).items():

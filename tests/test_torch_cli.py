@@ -22,14 +22,16 @@ import os
 import numpy as np
 import pytest
 import torch
-from torch_parity import DEVICE
+from torch_parity import DEVICE, assert_ranked_match
 
 from fusion_tpu.cli.main import main as jax_main
 from fusion_tpu.models.biencoder import BiEncoder as JaxBiEncoder
 from fusion_tpu.models.colbert import ColBERT as JaxColBERT
 from fusion_tpu.models.crossencoder import CrossEncoder as JaxCrossEncoder
 from fusion_tpu.models.encoder import EncoderConfig as JaxConfig
+from fusion_tpu.models.t5 import T5CrossEncoder as JaxT5CrossEncoder
 from fusion_tpu_torch.cli.main import main
+from fusion_tpu_torch.models.t5 import T5CrossEncoder
 
 WORDS = (
     "chat chien tribunal jugement contrat travail loi consommateur voiture route oiseau forêt tapis "
@@ -201,6 +203,9 @@ def test_hybrid_analyze_distributions_matches_jax(setup):
 # ----------------------------------------------------------------------
 # serve
 # ----------------------------------------------------------------------
+# the int8 views' bound (test_torch_int8_views.py): an activation one f32
+# bit off JAX's may move its int8 code by one step
+INT8_TOL = 1e-3
 SERVE = {
     "default": ["--run_bm25", "--run_dpr", "--run_splade", "--run_colbert", "--run_monobert",
                 "--rerank_depth", "10", "--ce_attention", "einsum"],
@@ -246,6 +251,21 @@ def _assert_tsv_equal(got_dir, want_dir, head=10):
         assert overlap >= 0.9, (qid, overlap)
 
 
+def _assert_tsv_close(got_dir, want_dir, atol, head=10):
+    """The reranked head of every query with scores within ``atol`` and
+    ids equal up to the order of near-ties (``assert_ranked_match``)."""
+    lists = {}
+    for label, d in (("got", got_dir), ("want", want_dir)):
+        rows, scores = _tsv(f"{d}/serve_ranking.tsv")
+        for (qid, pid, rank), score in zip(rows, scores):
+            lists.setdefault(qid, {"got": [], "want": []})[label].append((rank, pid, score))
+    for qid, both in lists.items():
+        got, want = sorted(both["got"])[:head], sorted(both["want"])[:head]
+        assert len(got) == len(want) > 0, qid
+        assert_ranked_match([[r[1] for r in got]], [[r[2] for r in got]], [[r[1] for r in want]],
+                            [[r[2] for r in want]], atol=atol)
+
+
 def test_serve_search_matches_jax(serve_runs):
     """The port serving its own directory ranks as JAX serving its own."""
     _, _, out = serve_runs
@@ -271,22 +291,66 @@ def test_serve_build_writes_the_jax_layout(serve_runs):
 
 
 # ----------------------------------------------------------------------
-# what the port does not serve yet, and the device
+# the options each slice brought, what still raises, and the device
 # ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def options_index(setup):
+    """A JAX-built index directory with every system and the rerank, which
+    both packages' ``serve --task search`` read with an option each."""
+    index = str(setup[0] / "index_options")
+    _run(setup, "jax", "build_options", ["serve", "--task", "build", "--index_dir", index] + SERVE["default"]
+         + _model_flags(setup))
+    return index
+
+
+# The ids name the cases as they stood while the options raised (the
+# dataset ones still do, with their ROADMAP.md item).
 @pytest.mark.parametrize("argv, match", [
-    (["monobert", "--task", "train", "--backbone", "t5"], "item 17"),
+    (["monobert", "--task", "train", "--backbone", "t5"], None),
     (["dpr", "--task", "test", "--dataset", "mrtydi-en"], "item 15"),
     (["bm25", "--dataset", "mmarco-fr"], "item 15"),
-    (["hybrid", "--run_dpr", "--attention_impl", "flash"], "item 2"),
-    (["serve", "--task", "search", "--index_dir", "x", "--ce_int8"], "item 17"),
-    (["serve", "--task", "search", "--index_dir", "x", "--encoders_int8"], "item 17"),
-    (["serve", "--task", "search", "--index_dir", "x", "--rerank_buckets", "64", "128"], "item 9"),
-    (["serve", "--task", "search", "--index_dir", "x", "--rerank_cascade", "10", "64"], "item 9"),
-    (["serve", "--task", "search", "--index_dir", "x", "--ce_attention", "einsum_bf16"], "item 2"),
-])
-def test_unported_options_raise(setup, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _run(setup, "port", "unported", argv)
+    (["hybrid", "--run_dpr", "--attention_impl", "flash"], None),
+    (["serve", "--task", "search", "--ce_int8"], None),
+    (["serve", "--task", "search", "--encoders_int8"], None),
+    (["serve", "--task", "search", "--rerank_buckets", "64", "128"], None),
+    (["serve", "--task", "search", "--rerank_cascade", "10", "64"], None),
+    (["serve", "--task", "search", "--ce_attention", "einsum_bf16"], None),
+], ids=["argv0-item 17", "argv1-item 15", "argv2-item 15", "argv3-item 2", "argv4-item 17", "argv5-item 17",
+        "argv6-item 9", "argv7-item 9", "argv8-item 2"])
+def test_unported_options_raise(setup, options_index, request, argv, match):
+    """The datasets still raise.  Every other option runs in both packages
+    and ranks alike: the T5 backbone trains and the JAX package scores its
+    final/ as the port does; ``hybrid --attention_impl`` (which ``--tiny``
+    leaves at the tiny config's form, in both) gives JAX's metrics; each
+    ``serve`` option searching one JAX-built directory gives JAX's TSV."""
+    label = "option_" + request.node.callspec.id.split("-")[0]
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            _run(setup, "port", label, argv)
+        return
+    if argv[0] == "monobert":
+        out = _run(setup, "port", label, argv + ["--steps", "2", "--train_batch_size", "2"])
+        final = os.path.join(out, "final")
+        pairs = [("chat tribunal", "le chat noir"), ("loi", "un contrat de travail")]
+        np.testing.assert_allclose(T5CrossEncoder.load(final, device=DEVICE).predict(pairs),
+                                   JaxT5CrossEncoder.load(final).predict(pairs), atol=1e-5)
+        return
+    if argv[0] == "hybrid":
+        j, p = _both(setup, label, argv + _model_flags(setup, ("dpr",)))
+        want, got = _json(f"{j}/performance_hybrid.json"), _json(f"{p}/performance_hybrid.json")
+        assert {k: v for k, v in got.items() if "latency" not in k} == pytest.approx(
+            {k: v for k, v in want.items() if "latency" not in k}, abs=1e-9)
+        return
+    flags = argv + ["--index_dir", options_index, "--batch_size", "4"] + SERVE["default"][:-2] + _model_flags(setup)
+    if "--ce_attention" not in argv:
+        flags += ["--ce_attention", "einsum"]
+    j, p = _both(setup, label, flags)
+    if "--ce_attention" in argv:
+        _assert_tsv_close(p, j, atol=1e-2)  # test_torch_attention_forms.py's einsum_bf16 bound
+    elif "--ce_int8" in argv or "--encoders_int8" in argv:
+        _assert_tsv_close(p, j, atol=INT8_TOL)
+    else:
+        _assert_tsv_equal(p, j)
 
 
 def test_default_device_needs_the_card(setup):

@@ -26,11 +26,13 @@ from fusion_tpu.cli.main import main as jax_main
 from fusion_tpu.models.biencoder import BiEncoder as JaxBiEncoder
 from fusion_tpu.models.colbert import ColBERT as JaxColBERT
 from fusion_tpu.models.crossencoder import CrossEncoder as JaxCrossEncoder
+from fusion_tpu.models.t5 import T5CrossEncoder as JaxT5CrossEncoder
 from fusion_tpu_torch.cli.main import main
 from fusion_tpu_torch.models.biencoder import BiEncoder
 from fusion_tpu_torch.models.colbert import ColBERT
 from fusion_tpu_torch.models.crossencoder import CrossEncoder
 from fusion_tpu_torch.models.encoder import token_tensors
+from fusion_tpu_torch.models.t5 import T5CrossEncoder
 
 COMMANDS = ("dpr", "splade", "colbert", "monobert")
 TRAIN = ["--task", "train", "--steps", "3", "--train_batch_size", "2"]
@@ -131,14 +133,33 @@ def test_freeze_and_optimizer_flags(trained):
         assert torch.equal(trained_sd[k], v) == frozen, k
 
 
-@pytest.mark.parametrize("argv,err,match", [
-    (["monobert", "--task", "train", "--backbone", "t5"], NotImplementedError, "item 17"),
-    (["dpr", "--task", "train", "--attention_impl", "flash"], NotImplementedError, "item 2"),
-])
-def test_unported_options_raise(trained, argv, err, match):
+# the ids name the cases as they stood while the options raised
+@pytest.mark.parametrize("argv", [
+    ["monobert", "--task", "train", "--backbone", "t5"],
+    ["dpr", "--task", "train", "--attention_impl", "flash"],
+], ids=["argv0-NotImplementedError-item 17", "argv1-NotImplementedError-item 2"])
+def test_unported_options_raise(trained, argv):
+    """Both train now: the T5 backbone into a ``t5_crossencoder`` final/ that
+    the JAX package scores as the port does; ``--attention_impl`` left at the
+    tiny config's form by ``--tiny`` (as the JAX CLI leaves it), the final/
+    saying so and encoding in JAX as in the port."""
     root, fx = trained
-    with pytest.raises(err, match=match):
-        main(argv + ["--fixture", fx, "--output_dir", str(root / "unported"), "--tiny", "--device", DEVICE])
+    out = root / f"option_{argv[0]}"
+    main(argv + TRAIN[2:] + ["--fixture", fx, "--output_dir", str(out), "--tiny", "--device", DEVICE])
+    final = str(out / "final")
+    with open(os.path.join(final, "config_fusion_tpu.json")) as f:
+        config = json.load(f)
+    if argv[0] == "monobert":
+        assert config["model_type"] == "t5_crossencoder"
+        pairs = [(t, TEXTS[-1]) for t in TEXTS]
+        np.testing.assert_allclose(T5CrossEncoder.load(final, device=DEVICE).predict(pairs, apply_sigmoid=False),
+                                   JaxT5CrossEncoder.load(final).predict(pairs, apply_sigmoid=False), atol=1e-5)
+        return
+    assert config["encoder"]["attention_impl"] == "einsum"
+    jm, tm = JaxBiEncoder.load(final), BiEncoder.load(final, device=DEVICE)
+    ids, mask = tm.text_encoder.encode(TEXTS, query_mode=True)
+    np.testing.assert_allclose(tm.embed_tokens(*token_tensors(ids, mask, DEVICE)).numpy(),
+                               np.asarray(jm.embed_tokens(jm.params, jnp.asarray(ids), jnp.asarray(mask))), atol=1e-5)
 
 
 def test_training_needs_the_card_unless_asked_for_the_cpu(trained, monkeypatch):

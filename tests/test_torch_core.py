@@ -78,8 +78,12 @@ def test_blockwise_topk_matches_jax(rng, local_topk):
 
 
 def test_approx_local_topk_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        torch_topk.blockwise_topk(lambda bi: None, 1, 1, 1, local_topk="approx")
+    """``local_topk='approx'`` is served now, by the exact select."""
+    scores = torch.arange(40, dtype=torch.float32).reshape(2, 20).flip(-1)
+    block = lambda bi: (scores[:, bi * 5 : bi * 5 + 5], torch.arange(bi * 5, bi * 5 + 5).expand(2, 5))  # noqa: E731
+    got = torch_topk.blockwise_topk(block, 4, 2, 2, local_topk="approx")
+    want = torch_topk.blockwise_topk(block, 4, 2, 2, local_topk="exact")
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.scores, want.scores)
 
 
 def test_remap_ids_keeps_pads():

@@ -231,8 +231,16 @@ def test_predict_rank_and_rerank_match(pair):
 
 
 def test_unported_views_raise(pair):
-    _, got = pair
-    with pytest.raises(NotImplementedError, match="item 17"):
-        got.quantized()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        got.with_attention("einsum_bf16")
+    """The views are ported: ``quantized()`` and ``with_attention`` hold the
+    same parameters and score as JAX's views (within 1e-3 for int8, where an
+    activation one f32 bit off may move a code, and 1e-2 for einsum_bf16,
+    the bounds of test_torch_int8_views.py and test_torch_attention_forms.py)."""
+    want, got = pair
+    pairs = [(q, d) for q in QUERIES for d in DOCS[:4]]
+    for view, jax_view, tol in ((got.quantized(), want.quantized(), 1e-3),
+                                (got.with_attention("einsum_bf16"), want.with_attention("einsum_bf16"), 1e-2),
+                                (got.with_attention("flash"), want.with_attention("flash"), ATOL)):
+        assert view.module.head.classifier.weight.data_ptr() == got.module.head.classifier.weight.data_ptr()
+        np.testing.assert_allclose(view.predict(pairs, apply_sigmoid=False),
+                                   jax_view.predict(pairs, apply_sigmoid=False), atol=tol, rtol=0)
+    assert got.with_attention("einsum") is got

@@ -79,8 +79,16 @@ def test_search_systems_leg_matches_jax(searchers, system):
     ],
 )
 def test_unported_build_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        HybridSearcher.build(CORPUS, device=DEVICE, bm25_docs=list(CORPUS.values()), **option)
+    """The three build options are served now (the stages themselves are
+    held in test_torch_rerank_stages.py and test_torch_int8_views.py):
+    without a cross-encoder or encoders to act on, a BM25 searcher built
+    with each ranks as the JAX searcher built with it."""
+    want_s = JaxSearcher.build(CORPUS, bm25_docs=list(CORPUS.values()), **option)
+    got_s = HybridSearcher.build(CORPUS, device=DEVICE, bm25_docs=list(CORPUS.values()), **option)
+    assert got_s.rerank_cascade == want_s.rerank_cascade and got_s.rerank_buckets == want_s.rerank_buckets
+    want, _ = want_s.search(SEARCH_QUERIES, batch_size=4, use_pallas=False)
+    got, _ = got_s.search(SEARCH_QUERIES, batch_size=4)
+    assert_ranked_match(got.ids, got.scores, want.ids, want.scores, atol=ATOL)
 
 
 def test_persistence_is_not_ported(searchers, tmp_path):

@@ -106,6 +106,12 @@ def test_packed_with_buckets_or_cascade_is_mutually_exclusive(models):
 
 @pytest.mark.parametrize("option", [dict(rerank_buckets=(8, 16)), dict(rerank_cascade=(2, 8))])
 def test_bucketed_and_cascade_stages_are_not_ported(models, option):
-    _, (td, _, tce) = models
-    with pytest.raises(NotImplementedError, match="item 9"):
-        HybridSearcher.build(CORPUS, device=DEVICE, dense_model=td, cross_encoder=tce, batch_size=4, **option)
+    """Both stages are ported: the searcher with each ranks as JAX's (more
+    settings in test_torch_rerank_stages.py)."""
+    want_s, got_s = _build(models, None, **option)
+    assert not got_s.rerank_packed and not want_s.rerank_packed
+    assert got_s.rerank_buckets == want_s.rerank_buckets and got_s.rerank_cascade == want_s.rerank_cascade
+    want, _ = want_s.search(SEARCH_QUERIES, batch_size=4, use_pallas=False)
+    got, _ = got_s.search(SEARCH_QUERIES, batch_size=4)
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=1e-4, atol=1e-5)

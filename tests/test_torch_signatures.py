@@ -1,0 +1,225 @@
+"""The port's public signatures against the JAX package's.
+
+A positional call written for the JAX package binds the same way in the
+port: each public function or method that both packages define (same
+module path, same name) takes the JAX parameters, in the JAX order, as far
+as both go; the port's own parameters (``device``, ``dead_rows``,
+``outer_block``, ``timings``) come after them or are keyword-only, and the
+JAX package's TPU knobs (``use_pallas``, ``recall_target``,
+``query_chunk``, ``convert_to_numpy``, ``use_onehot``) are accepted,
+checked and dropped.  ``test_shared_positional_prefixes_agree`` reads both
+source trees with ``ast`` (no import) and names its exceptions.  The
+positional calls below equal the keyword calls exactly (the same
+computation).  ``local_topk='approx'`` is served by the exact select.
+"""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+from test_serving import CORPUS, QUERIES
+from torch_parity import DEVICE
+
+from fusion_tpu_torch.index import dense_quant, sparse
+from fusion_tpu_torch.models.biencoder import BiEncoder
+from fusion_tpu_torch.models.crossencoder import CrossEncoder
+from fusion_tpu_torch.models.encoder import EncoderConfig
+from fusion_tpu_torch.ops import dense_topk, maxsim, topk
+from fusion_tpu_torch.serving import HybridSearcher
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# qualified name → ({JAX parameter: the port's in its place}, why).  After
+# the renames, a JAX ``params`` (the Flax parameter tree of a functional
+# model method) is dropped: the port's models hold their parameters.
+RENAMED = {
+    "train/trainer.py:biencoder_loss": ({"rngs": "seed"}, "dropout masks from a seed, not a Flax PRNG dict"),
+    "train/optim.py:adamw": ({"params": "mask"}, "the decay mask by path, not the tree it is derived from"),
+    "train/optim.py:get_optimizer": ({"params": "mask"}, "the decay mask by path, not the tree"),
+    "train/trainer.py:build_optimizer": ({"params": "paths"}, "the trainable parameters' paths, not the tree"),
+    "train/trainer.py:freeze_labels": ({"params": "paths"}, "the parameters' paths, not the tree"),
+    "utils/common.py:count_parameters": ({"params": "module"}, "a module in place of a Flax tree"),
+}
+
+
+def _signatures(path: str) -> dict[str, list[str]]:
+    """Public module-level functions and public class methods (and
+    ``__init__``) → their positional parameter names, ``self`` / ``cls``
+    dropped."""
+    tree = ast.parse(open(path).read())
+    out = {}
+
+    def positional(fn, method):
+        names = [a.arg for a in fn.args.posonlyargs + fn.args.args]
+        static = any(isinstance(d, ast.Name) and d.id == "staticmethod" for d in fn.decorator_list)
+        return names[1:] if method and not static and names[:1] in (["self"], ["cls"]) else names
+
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = positional(node, False)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef) and (not sub.name.startswith("_") or sub.name == "__init__"):
+                    out[f"{node.name}.{sub.name}"] = positional(sub, True)
+    return out
+
+
+def _shared():
+    """(qualified name, JAX positional names, the port's) for every public
+    function both packages define."""
+    port_root = os.path.join(ROOT, "fusion_tpu_torch")
+    for dirpath, _, files in os.walk(port_root):
+        for name in sorted(files):
+            if not name.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, name), port_root)
+            jax_path = os.path.join(ROOT, "fusion_tpu", rel)
+            if not os.path.exists(jax_path):
+                continue
+            port, jax = _signatures(os.path.join(port_root, rel)), _signatures(jax_path)
+            for fn in sorted(set(port) & set(jax)):
+                yield f"{rel}:{fn}", jax[fn], port[fn]
+
+
+def test_shared_positional_prefixes_agree():
+    shared = list(_shared())
+    assert len(shared) > 150  # both trees were read
+    bad, used = [], set()
+    for qual, jax, port in shared:
+        renames = RENAMED.get(qual, ({}, ""))[0]
+        if renames:
+            used.add(qual)
+        jax = [renames.get(p, p) for p in jax]
+        if "params" not in port:
+            jax = [p for p in jax if p != "params"]
+        n = min(len(jax), len(port))
+        if jax[:n] != port[:n]:
+            bad.append((qual, jax, port))
+    assert not bad, "\n".join(f"{q}: jax {j} port {p}" for q, j, p in bad)
+    assert used == set(RENAMED), f"stale exceptions: {set(RENAMED) - used}"
+
+
+def test_port_parameters_are_keyword_only_or_last():
+    """The port's own parameters on the functions F1 named."""
+    import inspect
+
+    from fusion_tpu_torch.index.compression import CompressedTokenIndex, compress_token_index
+    from fusion_tpu_torch.models.bm25 import BM25Index
+    from fusion_tpu_torch.models.colbert import ColBERT
+
+    kw_only = inspect.Parameter.KEYWORD_ONLY
+    for fn, name in ((HybridSearcher.build, "device"), (dense_topk.fused_dense_topk, "dead_rows"),
+                     (maxsim.maxsim_search, "outer_block"), (maxsim.maxsim_search_tm, "outer_block"),
+                     (BM25Index.build, "device"), (ColBERT.index_compressed, "timings"),
+                     (compress_token_index, "timings"), (CompressedTokenIndex.load, "device")):
+        assert inspect.signature(fn).parameters[name].kind == kw_only, (fn, name)
+
+
+@pytest.fixture(scope="module")
+def searcher():
+    cfg = EncoderConfig.tiny(vocab_size=512)
+    dense = BiEncoder(cfg, head="dense", max_query_length=8, max_doc_length=16, device=DEVICE)
+    ce = CrossEncoder(cfg, max_length=48, device=DEVICE)
+    # the JAX positional order: corpus, bm25_docs, dense, splade, colbert,
+    # cross_encoder, rerank_depth, ce_max_doc_tokens, colbert_compressed,
+    # colbert_nbits, batch_size
+    positional = HybridSearcher.build(CORPUS, list(CORPUS.values()), dense, None, None, ce, 5, 20, False, 2, 4,
+                                      device=DEVICE)
+    keyword = HybridSearcher.build(CORPUS, bm25_docs=list(CORPUS.values()), dense_model=dense, cross_encoder=ce,
+                                   rerank_depth=5, ce_max_doc_tokens=20, batch_size=4, device=DEVICE)
+    assert positional.rerank_depth == keyword.rerank_depth == 5
+    assert positional.ce_doc_tokens.shape == keyword.ce_doc_tokens.shape == (len(CORPUS), 20)
+    return positional, keyword
+
+
+def test_search_positional_use_pallas(searcher):
+    """``search(q, 4, False)`` is batch 4 without Pallas, external ids — as
+    in JAX — and the fourth positional is ``external_ids``."""
+    s, keyword = searcher
+    got, _ = s.search(QUERIES, 4, False)
+    want, _ = keyword.search(QUERIES, batch_size=4, use_pallas=False, external_ids=True)
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.scores, want.scores)
+    assert set(got.ids.numpy().ravel()) <= set(CORPUS) | {-1}
+    internal, _ = s.search(QUERIES, 4, False, False)
+    assert not torch.equal(internal.ids, got.ids)
+    assert torch.equal(internal.remap_ids(s.corpus_ids).ids, got.ids)
+    with pytest.raises(ValueError, match="use_pallas"):
+        s.search(QUERIES, 4, "yes")
+
+
+def test_search_systems_positional_use_pallas(searcher):
+    s, _ = searcher
+    got = s.search_systems(QUERIES, 4, True)
+    want = s.search_systems(QUERIES, batch_size=4, external_ids=True)
+    for system in want:
+        assert torch.equal(got[system].ids, want[system].ids)
+    assert set(got["dpr"].ids.numpy().ravel()) <= set(CORPUS) | {-1}
+    assert s.build_percentile_distributions(QUERIES, 100, 4, False).keys() == {"bm25", "dpr"}
+
+
+def test_fused_dense_topk_positional(rng):
+    x = torch.from_numpy(rng.normal(size=(300, 32)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(3, 32)).astype(np.float32))
+    index = dense_quant.quantize_dense_index(x, "cos_sim")
+    got = dense_topk.fused_dense_topk(q, index, 20, 64, 0.99, False, 250)
+    want = dense_topk.fused_dense_topk(q, index, k=20, doc_block=64, n_docs=250)
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.scores, want.scores)
+    assert (got.ids < 250).all()
+    with pytest.raises(ValueError, match="recall_target"):
+        dense_topk.fused_dense_topk(q, index, 20, 64, 1.5)
+
+
+def test_maxsim_search_positional(rng):
+    qt = torch.from_numpy(rng.normal(size=(2, 4, 8)).astype(np.float32))
+    qm = torch.ones(2, 4)
+    dt = torch.from_numpy(rng.normal(size=(9, 5, 8)).astype(np.float32))
+    dm = torch.ones(9, 5)
+    got = maxsim.maxsim_search(qt, qm, dt, dm, 4, 3, False)
+    want = maxsim.maxsim_search(qt, qm, dt, dm, k=4, doc_block=3)
+    assert torch.equal(got.ids, want.ids)
+    corpus_tm, valid = maxsim.prepare_token_corpus(dt, dm)
+    got = maxsim.maxsim_search_tm(qt, qm, corpus_tm, valid, 4, False)
+    want = maxsim.maxsim_search_tm(qt, qm, corpus_tm, valid, k=4)
+    assert torch.equal(got.ids, want.ids)
+
+
+def test_sparse_search_positional(rng):
+    n, kk, v = 37, 6, 50
+    term = torch.from_numpy(np.sort(rng.choice(v + 1, size=(n, kk)), axis=1).astype(np.int32))
+    weight = torch.where(term < v, torch.rand(n, kk), 0.0)
+    index = sparse.SparseIndex(term, weight, n, v, int((term < v).sum()))
+    qa = torch.from_numpy(np.where(rng.random((5, v)) < 0.3, rng.random((5, v)), 0.0).astype(np.float32))
+    want = sparse.sparse_search(qa, index, k=10, doc_block=8)
+    for local_topk in (None, "exact", "approx"):
+        got = sparse.sparse_search(qa, index, 10, 0, 8, local_topk)
+        assert torch.equal(got.ids, want.ids) and torch.equal(got.scores, want.scores)
+
+
+def test_encode_positional_convert_to_numpy():
+    model = BiEncoder(EncoderConfig.tiny(vocab_size=512), head="dense", device=DEVICE)
+    texts = ["le chat noir dort", "un contrat", "la loi protège les consommateurs du pays", "x"]
+    got = model.encode(texts, False, 2, False, True)
+    want = model.encode(texts, query_mode=False, batch_size=2, sort_by_length=True)
+    assert isinstance(got, torch.Tensor) and torch.equal(got, want)
+    with pytest.raises(ValueError, match="convert_to_numpy"):
+        model.encode(texts, True, 2, "yes")
+
+
+@pytest.mark.parametrize("block", [4, 40])
+def test_approx_local_topk_is_the_exact_select(rng, block):
+    """F2: ``local_topk='approx'`` is served, by the exact select."""
+    scores = torch.from_numpy(rng.normal(size=(3, 200)).astype(np.float32))
+
+    def score_block(bi):
+        return scores[:, bi * block : (bi + 1) * block], torch.arange(bi * block, (bi + 1) * block).expand(3, block)
+
+    want = topk.blockwise_topk(score_block, 200 // block, 3, 7, local_topk="exact")
+    got = topk.blockwise_topk(score_block, 200 // block, 3, 7, local_topk="approx")
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.scores, want.scores)
+    off = topk.blockwise_topk_offset(lambda bi: (scores[:, bi * block : (bi + 1) * block], bi * block),
+                                     200 // block, 3, 7, local_topk="approx")
+    assert torch.equal(off.ids, want.ids)
+    with pytest.raises(ValueError, match="local_topk"):
+        topk.blockwise_topk(score_block, 1, 3, 7, local_topk="binned")
