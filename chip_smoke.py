@@ -8,7 +8,8 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 K1-v2 and K1-v1, dense_topk.cu with K2 and P3 at three doc
                 blocks, scatter_score.cu with K3, P4 and P5, gather_rows.cu,
                 attention.cu with the masked-attention kernel FA of the
-                flash form; all but gather_rows.cu include the shared
+                flash form, its residual mode and its backward FA-bwd (the
+                dK/dV and dQ kernels); all but gather_rows.cu include the shared
                 csrc/hopper.cuh), one nvcc each, all at once; prints their
                 ptxas reports (registers, spills, shared memory, and the
                 wgmma waits ptxas inserted);
@@ -37,6 +38,35 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 loss after 20 steps below step 1's, per family; the first
                 step with dropout 0.1, remat on and off: equal losses,
                 gradients within 2^-8 per leaf;
+     attention_bwd — FA's residual mode and FA-bwd against their plain
+                versions: one layer's doc call of the ColBERT bench step
+                ([1024, 256, 12, 64] bf16), the packed rerank shape
+                ([128, 256, 12, 64] with segments), a ragged L 37 with an
+                all-pad row (bf16, f32) and packed f32 rows: the residual
+                call's output bit-equal to the inference call's, m and l
+                within 1e-5, dq / dk / dv within ATTN_BWD_TOL and
+                bit-identical over 10 more launches; at the bench shape FA
+                inference vs residual mode and FA-bwd vs plain in CUDA-event
+                turns, scaled_dot_product_attention's backward (memory-
+                efficient, the same boolean mask) and the bound;
+     train_flash — the main path of this slice: tools/bench_colbert_train.py's
+                step at full width (batch 128, 8-way, query 32, doc 256,
+                CamemBERT-base, dropout 0, bf16 over f32 masters, remat,
+                AdamW 5e-6) in the flash form, FA's and FA-bwd's counts set
+                to 0 just before and read just after (72 and 36 a step), and
+                in einsum_bf16: one warm-up, 3 timed steps and a traced one
+                each, ms/step, useful and hardware MFU, peak memory, top
+                device operations, every loss finite;
+     train_agreement_flash — [train_agreement] in the flash form: the card
+                runs FA and FA-bwd on their f32 path, the CPU their plain
+                versions, under the same gates;
+     hf_train — HF checkpoint directories written without transformers at
+                CamemBERT-base width (a CamemBERT masked LM as
+                model.safetensors, an X-MOD trunk with fr_XX / de_DE
+                adapters as pytorch_model.bin; seeded random weights),
+                loaded by ColBERT.from_pretrained_hf / from_xmod, taken to
+                the flash form and trained 3 steps: losses finite, FA and
+                FA-bwd launched once a layer a forward;
      cli_train — the CLI's dpr / splade / colbert / monobert (and monobert
                 --backbone t5) at --tiny on a fixture it writes: --task
                 train then --task test (ColBERT's through K1, its launches
@@ -314,12 +344,13 @@ Before them, each maxsim_variants run and each probe tool prints its own
 JSON record.  The line before the last is the kernels' JSON record
 (launches from the slice's search for K1, the four-leg mMARCO search for
 K2, K3 and K4, the two bench runs for K1-v1 and K1-v2, the probe tools'
-runs for P3, P4 and P5, and the packed flash search of [rerank_forms] for
-FA; ms are CUDA-event medians for K1-K3, K1-v1, K1-v2, P3-P5 and FA and
-queued device times for K4; bound_ms is the least time an H100 SXM could
-take for the same work, from this run's shapes and data; library_ms is
-index_select's time for K4, scaled_dot_product_attention's for FA and null
-elsewhere: no one PyTorch call computes the others' functions); the last line is
+runs for P3, P4 and P5, the packed flash search of [rerank_forms] for FA
+and [train_flash]'s flash run for FA-bwd; ms are CUDA-event medians for
+K1-K3, K1-v1, K1-v2, P3-P5, FA and FA-bwd and queued device times for K4;
+bound_ms is the least time an H100 SXM could take for the same work, from
+this run's shapes and data; library_ms is index_select's time for K4,
+scaled_dot_product_attention's for FA and its backward's for FA-bwd, and
+null elsewhere: no one PyTorch call computes the others' functions); the last line is
 {"ok": true, "device": {...}}.  Matmul precision on the card: TF32 off for
 matmuls and cuDNN, bf16 reduced-precision reductions off.
 """
@@ -852,24 +883,9 @@ def stage_profile(torch, fn, top: int = 6) -> dict:
     """One traced call of ``fn``: its device time, the share of its stream
     time the device was busy, and the device operations that took most of
     it (name, ms, calls)."""
-    from torch.profiler import ProfilerActivity, profile
+    from fusion_tpu_torch.tools.bench_colbert_train import traced_step
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - w0) * 1000
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
-    ]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1000
-    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
-    return {
-        "device_ms": dev_ms, "wall_ms": wall_ms, "busy_share": dev_ms / wall_ms if wall_ms else None,
-        "top": [(e.key[:50], round(e.self_device_time_total / 1000, 2), e.count) for e in ranked],
-    }
+    return traced_step(fn, top)
 
 
 def rerank_check(torch, np, searcher, queries, smi, kernels) -> dict:
@@ -2373,16 +2389,20 @@ def _max_rel(a: dict, b: dict) -> float:
     return max(float((a[k] - b[k]).norm() / max(float(b[k].norm()), 1e-30)) for k in b)
 
 
-def train_agreement(torch, np, device="cuda") -> dict:
+def train_agreement(torch, np, device="cuda", attention_impl="einsum") -> dict:
     """[train_agreement]: the f32 train step on the card against the CPU,
-    CamemBERT-base width at 2 layers, batch 4 (query 32, doc 64), dropout 0:
-    the loss and every gradient at step 4, then the update of 3 AdamW
-    steps (lr 1e-3, linear warmup over 3 of 10 steps), each held to its
-    family's ``AGREE_GATES``."""
+    CamemBERT-base width at 2 layers, batch 4 (query 32, doc 64), dropout 0,
+    attention in the form ``attention_impl``: the loss and every gradient at
+    step 4, then the update of 3 AdamW steps (lr 1e-3, linear warmup over 3
+    of 10 steps), each held to its family's ``AGREE_GATES``.  In the flash
+    form the card runs FA and FA-bwd on their f32 path (their launches
+    counted, both > 0) and the CPU their plain versions."""
     from fusion_tpu_torch.models.encoder import EncoderConfig
+    from fusion_tpu_torch.ops.attention import masked_attention_backward_cuda, masked_attention_cuda
     from fusion_tpu_torch.train import trainer
 
-    cfg = EncoderConfig(num_layers=2, dropout=0.0)
+    cfg = EncoderConfig(num_layers=2, dropout=0.0, attention_impl=attention_impl)
+    masked_attention_cuda.launches = masked_attention_backward_cuda.launches = 0
     out = {}
     for seed, family in enumerate(TRAIN_SHAPES):
         host = train_batch(np, family, 4, 32, 64, 1, cfg.vocab_size, 50 + seed)
@@ -2411,7 +2431,10 @@ def train_agreement(torch, np, device="cuda") -> dict:
         }
         r = out[family]
         check(r["loss_rel"] <= AGREE_LOSS_RTOL and all(r[k] <= lim for k, lim in AGREE_GATES[family].items()),
-              f"train_agreement {family}: {r} against {AGREE_GATES[family]}")
+              f"train_agreement {attention_impl} {family}: {r} against {AGREE_GATES[family]}")
+    out["launches"] = {"FA": masked_attention_cuda.launches, "FA-bwd": masked_attention_backward_cuda.launches}
+    check((min(out["launches"].values()) > 0) == (attention_impl == "flash"),
+          f"train_agreement {attention_impl}: attention kernel launches {out['launches']}")
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2452,6 +2475,281 @@ def train_fit(torch, np, device="cuda") -> dict:
         r = out[family]
         check(all(np.isfinite(losses)) and losses[20] < losses[0], f"train_fit {family}: losses {losses}")
         check(first[0] == first[1] and r["remat_grad_max_rel"] <= REMAT_GRAD_TOL, f"train_fit {family} remat: {r}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
+# training through flash: FA-bwd, the ColBERT bench step, HF imports
+# ----------------------------------------------------------------------
+# [attention_bwd] dq, dk, dv against the plain backward: atol, rtol.  bf16:
+# both round P and dS to bf16 as product operands, in another summation
+# order (the kernel's wmma tiles against the CPU-style einsum), so a value
+# can land one bf16 ulp (2^-8 relative) apart; f32: f32 sums in another order
+ATTN_BWD_TOL = {"bf16": (3e-2, 1e-2), "f32": (1e-5, 1e-5)}
+BENCH_DOC_SHAPE = (1024, 256, 12, 64)  # one layer's doc call of the ColBERT bench step
+FLASH_TRAIN_STEPS = 3
+
+
+def attention_bwd_work(torch, q, mask, seg) -> tuple[float, float]:
+    """(operations, bytes) of the attention backward on these operands: five
+    products (S, dP, dV, dK, dQ) of 2 hd operations per head for each
+    (query, allowed key) pair, a query with no allowed key counting every
+    key of its row; q, k, v, out, dO read and dq, dk, dv written once, the
+    f32 residuals m, l and the int32 masks read once."""
+    from fusion_tpu_torch.ops.attention import allowed_keys
+
+    b, length, heads, hd = q.shape
+    n = allowed_keys(mask, seg).expand(b, 1, length, length).sum(-1)
+    pairs = torch.where(n > 0, n, length).sum().item()
+    masks = 1 if seg is None else 2
+    return (10.0 * hd * heads * pairs,
+            8.0 * q.numel() * q.element_size() + 8.0 * b * heads * length + 4.0 * masks * b * length)
+
+
+def attention_bwd_check(torch, runs, device="cuda") -> dict:
+    """[attention_bwd]: FA's residual mode and FA-bwd (``csrc/attention.cu``)
+    against their plain versions: one layer's doc call of the ColBERT bench
+    step ([1024, 256, 12, 64] bf16, every token real), the packed rerank
+    shape ([128, 256, 12, 64] bf16 with segments), a ragged L 37 with an
+    all-pad row in bf16 and f32, and packed rows in f32 ([16, 256, 12, 64]):
+    the residual mode's output bit-equal to the inference call's, its m
+    within 1e-5 and l within 1e-5 relative of the plain log-sum-exp parts;
+    dq, dk, dv within ATTN_BWD_TOL and bit-identical over REPEATS more
+    launches.  At the bench shape: FA inference against residual mode and
+    FA-bwd against its plain version in CUDA-event turns, the library
+    backward (scaled_dot_product_attention's, memory-efficient backend, the
+    same boolean mask) and the bound."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from fusion_tpu_torch.ops.attention import (
+        allowed_keys,
+        masked_attention_backward_cuda,
+        masked_attention_backward_plain,
+        masked_attention_cuda,
+        masked_attention_plain,
+    )
+    from fusion_tpu_torch.tools import bench_maxsim
+    from fusion_tpu_torch.tools.attention_ab import packed_rows
+
+    gen = torch.Generator(device=device).manual_seed(43)
+    b, length, heads, hd = BENCH_DOC_SHAPE
+    ragged_mask = (torch.arange(37, device=device)[None] < torch.tensor([[37], [20], [0]], device=device)).int()
+    ragged_seg = torch.where(torch.arange(37, device=device) < 15, 1, 2)[None].expand(3, 37) * ragged_mask
+    cases = {
+        "bench_doc": (BENCH_DOC_SHAPE, torch.bfloat16, torch.ones((b, length), dtype=torch.int32, device=device),
+                      None),
+        "packed": ((128, 256, heads, hd), torch.bfloat16, *packed_rows(128, 256, 5, device)),
+        "ragged_bf16": ((3, 37, 2, hd), torch.bfloat16, ragged_mask, ragged_seg),
+        "ragged_f32": ((3, 37, 2, hd), torch.float32, ragged_mask, ragged_seg),
+        "packed_f32": ((16, 256, heads, hd), torch.float32, *packed_rows(16, 256, 6, device)),
+    }
+    out, err_max = {}, 0.0
+    for name, ((nb, nl, nh, nd), dtype, mask, seg) in cases.items():
+        qkv = torch.randn((nb, nl, 3, nh, nd), generator=gen, device=device).to(dtype)
+        d_out = torch.randn((nb, nl, nh, nd), generator=gen, device=device).to(dtype)
+        q, k, v = qkv.unbind(2)
+        atol, rtol = ATTN_BWD_TOL["bf16" if dtype == torch.bfloat16 else "f32"]
+        with torch.no_grad():
+            o, m, l = masked_attention_cuda(q, k, v, mask, seg, 0.125, residuals=True)
+            check(torch.equal(o, masked_attention_cuda(q, k, v, mask, seg, 0.125)),
+                  f"attention_bwd {name}: the residual mode's output differs from the inference call's")
+            _, pm, pl = masked_attention_plain(q, k, v, mask, seg, 0.125, residuals=True)
+            m_err = ((m - pm).abs() / (1 + pm.abs())).max().item()
+            l_err = ((l - pl).abs() / pl).max().item()
+            check(m_err <= 1e-5 and l_err <= 1e-5, f"attention_bwd {name}: residuals off by {m_err}, {l_err}")
+            del pm, pl
+            bwd = lambda: masked_attention_backward_cuda(q, k, v, o, m, l, d_out, mask, seg, 0.125)  # noqa: E731
+            plain = lambda: masked_attention_backward_plain(q, k, v, o, m, l, d_out, mask, seg, 0.125)  # noqa: E731
+            got, want = bwd(), plain()
+            res = {"shape": [nb, nl, nh, nd], "dtype": str(dtype), "segments": seg is not None,
+                   "residual_m_rel_err": m_err, "residual_l_rel_err": l_err, "tol": [atol, rtol]}
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w.float()).abs()
+                res[f"{gname}_max_abs_err"] = err.max().item()
+                check(bool((err <= atol + rtol * w.float().abs()).all()),
+                      f"attention_bwd {name}: {gname} off its plain version by {res[f'{gname}_max_abs_err']}")
+            del want
+            res["max_abs_err"] = max(res[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv"))
+            check(all(all(torch.equal(a, c) for a, c in zip(got, bwd())) for _ in range(REPEATS)),
+                  f"attention_bwd {name}: repeated launches differ")
+            res["bit_identical_launches"] = REPEATS + 1
+            if dtype == torch.bfloat16:
+                err_max = max(err_max, res["max_abs_err"])
+            if name == "bench_doc":
+                res["fa_ms"], res["fa_residual_ms"] = alternating_ms(
+                    torch, lambda: masked_attention_cuda(q, k, v, mask, seg, 0.125),
+                    lambda: masked_attention_cuda(q, k, v, mask, seg, 0.125, residuals=True), runs)
+                res["ms"], res["plain_ms"] = alternating_ms(torch, bwd, plain, runs)
+                flops, nbytes = attention_bwd_work(torch, q, mask, seg)
+                res["bound_ms"], res["bound_by"] = bench_maxsim.bound(flops, nbytes)
+                res["tflops_per_s"] = flops / res["ms"] / 1e9
+                res["gb_moved"] = nbytes / 1e9
+        if name == "bench_doc":
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed_keys(mask, seg), scale=0.125)
+                g_lib = d_out.transpose(1, 2)
+                lib = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib, retain_graph=True)  # noqa: E731
+                lib()
+                res["library_ms"] = statistics.median(timed_ms(torch, lib, runs))
+            del o_lib, qt, kt, vt
+        out[name] = res
+        del qkv, d_out, got, o, m, l
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = err_max
+    return out
+
+
+def train_flash_check(torch, np, device="cuda") -> dict:
+    """[train_flash]: ``tools/bench_colbert_train.py``'s step at full width
+    (batch 128, 8-way, query 32, doc 256, CamemBERT-base, dropout 0, bf16
+    over f32 masters, remat, AdamW 5e-6) in the flash form and in
+    einsum_bf16 (the form JAX trains with): one warm-up step,
+    FLASH_TRAIN_STEPS timed ones and a traced one each (ms/step, useful and
+    hardware MFU, peak memory, the top device operations), every loss
+    finite.  The flash run is this slice's main path: FA's and FA-bwd's
+    counts are set to 0 just before it and read just after; per step FA
+    must launch 72 times (36 layer forwards, 36 remat recomputes) and FA-bwd
+    36."""
+    from fusion_tpu_torch.ops.attention import masked_attention_backward_cuda, masked_attention_cuda
+    from fusion_tpu_torch.tools import bench_colbert_train
+
+    out = {}
+    for form in ("flash", "einsum_bf16"):
+        args = bench_colbert_train.parse_args(["--attention", form, "--steps", str(FLASH_TRAIN_STEPS),
+                                               "--device", device])
+        masked_attention_cuda.launches = masked_attention_backward_cuda.launches = 0
+        record = bench_colbert_train.run(args, trace=True)
+        launches = {"FA": masked_attention_cuda.launches, "FA-bwd": masked_attention_backward_cuda.launches}
+        print(json.dumps(record), flush=True)
+        d = record["detail"]
+        out[form] = {"ms_per_step": record["value"], "examples_per_s": d["examples_per_s"],
+                     "useful_mfu": d["useful_mfu"], "mfu_hw": d["mfu_hw"], "peak_mem_gib": d["peak_mem_gib"],
+                     "launches": launches, "fa_per_step": d["fa_launches_per_step"],
+                     "fa_bwd_per_step": d["fa_bwd_launches_per_step"], "traced_step": d["traced_step"]}
+        steps = FLASH_TRAIN_STEPS + 1 + (d["traced_step"] is not None)  # warm-up, timed, traced
+        if form == "flash":
+            check(d["fa_launches_per_step"] == 72 and d["fa_bwd_launches_per_step"] == 36
+                  and launches["FA"] == 72 * steps and launches["FA-bwd"] == 36 * steps,
+                  f"train_flash: FA / FA-bwd launched {launches}, per step {d['fa_launches_per_step']} / "
+                  f"{d['fa_bwd_launches_per_step']} (want 72 / 36 per step)")
+        else:
+            check(launches == {"FA": 0, "FA-bwd": 0}, f"train_flash einsum_bf16 launched the kernels: {launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["flash_over_einsum_bf16"] = out["flash"]["ms_per_step"] / out["einsum_bf16"]["ms_per_step"]
+    return out
+
+
+def hf_roberta_state(torch, hf: dict, seed: int, prefix: str = "roberta.", languages=()) -> dict:
+    """Seeded HF-named weights of a RoBERTa-family masked LM (``prefix``
+    trunk + ``lm_head``) or, with ``languages``, an X-MOD trunk with those
+    adapters: normal(0, 0.02) matrices, unit LayerNorm weights, small
+    biases."""
+    gen = torch.Generator().manual_seed(seed)
+    h, inter, v = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen) * 0.02
+
+    out = {f"{prefix}embeddings.word_embeddings.weight": w(v, h),
+           f"{prefix}embeddings.position_embeddings.weight": w(hf["max_position_embeddings"], h),
+           f"{prefix}embeddings.token_type_embeddings.weight": w(hf["type_vocab_size"], h)}
+
+    def ln(name):
+        out[f"{name}.weight"], out[f"{name}.bias"] = 1 + w(h), w(h)
+
+    ln(f"{prefix}embeddings.LayerNorm")
+    for i in range(hf["num_hidden_layers"]):
+        lp = f"{prefix}encoder.layer.{i}"
+        for n in ("query", "key", "value"):
+            out[f"{lp}.attention.self.{n}.weight"], out[f"{lp}.attention.self.{n}.bias"] = w(h, h), w(h)
+        out[f"{lp}.attention.output.dense.weight"], out[f"{lp}.attention.output.dense.bias"] = w(h, h), w(h)
+        ln(f"{lp}.attention.output.LayerNorm")
+        out[f"{lp}.intermediate.dense.weight"], out[f"{lp}.intermediate.dense.bias"] = w(inter, h), w(inter)
+        out[f"{lp}.output.dense.weight"], out[f"{lp}.output.dense.bias"] = w(h, inter), w(h)
+        ln(f"{lp}.output.LayerNorm")
+        for lang in languages:
+            ap = f"{lp}.output.adapter_modules.{lang}"
+            b = h // hf["adapter_reduction_factor"]
+            out[f"{ap}.dense1.weight"], out[f"{ap}.dense1.bias"] = w(b, h), w(b)
+            out[f"{ap}.dense2.weight"], out[f"{ap}.dense2.bias"] = w(h, b), w(h)
+    if not languages:
+        out["lm_head.dense.weight"], out["lm_head.dense.bias"] = w(h, h), w(h)
+        ln("lm_head.layer_norm")
+        out["lm_head.bias"] = w(v)
+    return out
+
+
+def hf_train_check(torch, np, root, device="cuda", layers=12, batch=16) -> dict:
+    """[hf_train]: HF checkpoint directories written here without
+    ``transformers`` at CamemBERT-base width (12 layers, vocab 32,005,
+    seeded random weights under HF's names): a CamemBERT masked LM as
+    ``model.safetensors`` and an X-MOD trunk with two language adapters
+    (fr_XX, de_DE; the same vocabulary) as ``pytorch_model.bin``.  Each
+    loads through ``ColBERT.from_pretrained_hf`` / ``ColBERT.from_xmod``
+    (bf16 over f32 masters; the word embeddings bit-equal to the written
+    ones), takes ``with_attention("flash")`` and trains 3 AdamW steps on a
+    random batch of 16 (8-way, query 32, doc 128): every loss finite, FA and
+    FA-bwd launched (counts set to 0 just before, read just after: 3 steps x
+    3 forwards x 12 layers each, no remat)."""
+    from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.ops.attention import masked_attention_backward_cuda, masked_attention_cuda
+    from fusion_tpu_torch.train import trainer
+    from fusion_tpu_torch.utils import hf_weights
+
+    base = {"vocab_size": 32_005, "hidden_size": 768, "num_hidden_layers": layers, "num_attention_heads": 12,
+            "intermediate_size": 3072, "max_position_embeddings": 514, "type_vocab_size": 1, "pad_token_id": 1,
+            "bos_token_id": 0, "eos_token_id": 2, "layer_norm_eps": 1e-5, "hidden_act": "gelu"}
+    dirs = {
+        "camembert": ({**base, "model_type": "camembert", "architectures": ["CamembertForMaskedLM"]},
+                      "model.safetensors", ()),
+        "xmod": ({**base, "model_type": "xmod", "architectures": ["XmodModel"], "languages": ["fr_XX", "de_DE"],
+                  "adapter_reduction_factor": 2, "ln_before_adapter": True, "adapter_reuse_layer_norm": True,
+                  "adapter_layer_norm": False, "pre_norm": False}, "pytorch_model.bin", ("fr_XX", "de_DE")),
+    }
+    host = train_batch(np, "colbert", batch, 32, 128, 7, base["vocab_size"], 90)
+    want = 3 * 3 * layers  # 3 steps x 3 forwards, one launch a layer
+    out = {}
+    for seed, (name, (hf, weights, languages)) in enumerate(dirs.items()):
+        t0 = time.perf_counter()
+        path = os.path.join(root, name)
+        os.makedirs(path)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(hf, f)
+        state = hf_roberta_state(torch, hf, 80 + seed, prefix="" if languages else "roberta.", languages=languages)
+        if weights.endswith(".safetensors"):
+            hf_weights.write_safetensors(state, os.path.join(path, weights))
+        else:
+            torch.save(state, os.path.join(path, weights))
+        write_s = time.perf_counter() - t0
+        kw = dict(dim=DIM, device=device, dtype=torch.bfloat16, param_dtype=torch.float32)
+        model = (ColBERT.from_xmod(path, lang="de", **kw) if languages else ColBERT.from_pretrained_hf(path, **kw))
+        word = state[("" if languages else "roberta.") + "embeddings.word_embeddings.weight"]
+        check(torch.equal(model.module.encoder.embeddings.word.weight.cpu(), word),
+              f"hf_train {name}: the loaded word embeddings differ from the written ones")
+        check(model.cfg.dropout == 0.0 and not model.cfg.remat, f"hf_train {name}: {model.cfg}")
+        model = model.with_attention("flash")
+        batch = trainer._to_device(host, model.device)
+        state_t, tx, _ = trainer.init_train_state(model, trainer.FitConfig(steps=3, learning_rate=5e-6,
+                                                                           scheduler="constant"))
+        step = trainer.make_colbert_train_step(model, tx, "ce")
+        masked_attention_cuda.launches = masked_attention_backward_cuda.launches = 0
+        losses = []
+        for _ in range(3):
+            state_t, metrics = step(state_t, batch)
+            losses.append(float(metrics["loss"]))
+        launches = {"FA": masked_attention_cuda.launches, "FA-bwd": masked_attention_backward_cuda.launches}
+        check(all(np.isfinite(losses)), f"hf_train {name}: losses {losses}")
+        check(launches == {"FA": want, "FA-bwd": want}, f"hf_train {name}: launches {launches} (want {want} each)")
+        out[name] = {"weights": weights, "write_s": write_s, "load_and_train_s": time.perf_counter() - t0 - write_s,
+                     "losses": losses, "launches": launches,
+                     "languages": list(getattr(model.cfg, "languages", ()))}
+        del model, state_t, tx, step, batch, state
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2571,6 +2869,18 @@ def main() -> int:
     phase("train_agreement", t0, **train_agreement(torch, np))
     t0 = time.perf_counter()
     phase("train_fit", t0, **train_fit(torch, np))
+    # this slice's path: training through the flash form's kernels
+    t0 = time.perf_counter()
+    attn_bwd = attention_bwd_check(torch, RUNS)
+    phase("attention_bwd", t0, gpu=repr(smi), **attn_bwd)
+    t0 = time.perf_counter()
+    train_flash = train_flash_check(torch, np)
+    phase("train_flash", t0, gpu=repr(smi), **train_flash)
+    t0 = time.perf_counter()
+    phase("train_agreement_flash", t0, **train_agreement(torch, np, attention_impl="flash"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as root:
+        t0 = time.perf_counter()
+        phase("hf_train", t0, gpu=repr(smi), **hf_train_check(torch, np, root))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         t0 = time.perf_counter()
         phase("cli_train", t0, gpu=repr(smi), **cli_train_check(torch, np, root, kernels))
@@ -3106,6 +3416,17 @@ def main() -> int:
               "forward pallas_call at flash_attention.py:758)",
               forms["packed_flash"]["kernel_launches_search"], attn["max_abs_err"], attn["packed"]["ms"],
               attn["packed"]["plain_ms"], attn["packed"]["bound_ms"], library_ms=attn["packed"]["library_ms"]),
+        # FA's backward (dK/dV and dQ kernels): launches in [train_flash]'s
+        # flash run (this slice's path), times at one layer's doc call of
+        # that step, the library call scaled_dot_product_attention's
+        # backward (memory-efficient)
+        entry("attention_backward", "attention.cu",
+              "jax flash_attention.py:1121 (dK, dV pallas_call), :1456 (dQ pallas_call), via "
+              "_flash_attention_bwd :254-318 (fusion_tpu/models/encoder.py:225)",
+              train_flash["flash"]["launches"]["FA-bwd"], attn_bwd["max_abs_err"], attn_bwd["bench_doc"]["ms"],
+              attn_bwd["bench_doc"]["plain_ms"],
+              (attn_bwd["bench_doc"]["bound_ms"], attn_bwd["bench_doc"]["bound_by"]),
+              library_ms=attn_bwd["bench_doc"]["library_ms"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

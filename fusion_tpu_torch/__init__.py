@@ -25,7 +25,11 @@ commands (``cli/``, the ``fusion-tpu-torch`` script); and training
 (``train/``: losses, schedules, AdamW / Adafactor / blocked Shampoo, the
 four families' train steps with dropout and per-layer remat, ``fit``), the
 evaluators (``eval/evaluators.py``) and the CLI's ``dpr`` / ``splade`` /
-``colbert`` / ``monobert`` commands.
+``colbert`` / ``monobert`` commands; training through the ``flash`` form's
+kernels (the attention backward); and the way in from HuggingFace
+checkpoints, read without ``transformers`` (``utils/hf_weights.py``; the
+models' ``from_pretrained_hf``, the T5 loader, ``HFTokenizer``) and the X-MOD
+trunk with per-language adapters (``models/xmod.py``, ``from_xmod``).
 """
 
 __version__ = "0.1.0"
@@ -45,6 +49,8 @@ _LAZY = {
     "Metrics": "fusion_tpu_torch.eval.metrics",
     "SearchServer": "fusion_tpu_torch.server",
     "T5CrossEncoder": "fusion_tpu_torch.models.t5",
+    "XmodConfig": "fusion_tpu_torch.models.xmod",
+    "XmodEncoder": "fusion_tpu_torch.models.xmod",
 }
 
 

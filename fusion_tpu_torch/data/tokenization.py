@@ -1,10 +1,13 @@
 """Host-side tokenization feeding fixed-shape batches (numpy only).
 
 ``WordHashTokenizer`` is the dependency-free tokenizer: whitespace+punct
-split, stable FNV-1a hash into a fixed vocab.  ``TextEncoder`` carries the
-query/doc asymmetry (max lengths, prefixes, mask-token augmentation);
-``pair_encode_simple`` lays out cross-encoder pairs.  All give the same ids
-as ``fusion_tpu.data.tokenization``, so one corpus indexes identically in
+split, stable FNV-1a hash into a fixed vocab.  ``HFTokenizer`` wraps a
+HuggingFace tokenizer from a local directory with the same call contract
+(it imports ``transformers`` when it is built, so this module imports
+without it).  ``TextEncoder`` carries the query/doc asymmetry (max
+lengths, prefixes, mask-token augmentation); ``pair_encode_simple`` lays
+out cross-encoder pairs.  All give the same ids as
+``fusion_tpu.data.tokenization``, so one corpus indexes identically in
 either package.
 """
 
@@ -72,6 +75,54 @@ class WordHashTokenizer:
             out[i, : len(r)] = r
             mask[i, : len(r)] = 1
         return out, mask
+
+
+class HFTokenizer:
+    """HuggingFace tokenizer adapter with ``WordHashTokenizer``'s call
+    contract: ``__call__`` pads to ``max_length`` (or the longest row) and
+    ``pair`` lays out (query, doc) pairs as the tokenizer's own pair
+    template does, both truncating, → int32 (ids, mask)."""
+
+    def __init__(self, model_name_or_path: str):
+        from transformers import AutoTokenizer
+
+        self.name_or_path = str(model_name_or_path)  # persisted by save()
+        self.tok = AutoTokenizer.from_pretrained(model_name_or_path)
+        self.pad_token_id = self.tok.pad_token_id
+        self.cls_token_id = self.tok.cls_token_id
+        self.sep_token_id = self.tok.sep_token_id
+        self.mask_token_id = self.tok.mask_token_id
+        self.vocab_size = len(self.tok)
+
+    def __call__(
+        self,
+        texts: Sequence[str],
+        max_length: int,
+        add_special_tokens: bool = True,
+        pad_to_max: bool = True,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        enc = self.tok(
+            list(texts),
+            padding="max_length" if pad_to_max else "longest",
+            truncation=True,
+            max_length=max_length,
+            add_special_tokens=add_special_tokens,
+            return_attention_mask=True,
+            return_tensors="np",
+        )
+        return enc["input_ids"].astype(np.int32), enc["attention_mask"].astype(np.int32)
+
+    def pair(self, queries: Sequence[str], docs: Sequence[str], max_length: int) -> tuple[np.ndarray, np.ndarray]:
+        enc = self.tok(
+            list(queries),
+            list(docs),
+            padding="max_length",
+            truncation=True,
+            max_length=max_length,
+            return_attention_mask=True,
+            return_tensors="np",
+        )
+        return enc["input_ids"].astype(np.int32), enc["attention_mask"].astype(np.int32)
 
 
 def pair_encode_simple(
@@ -154,17 +205,17 @@ def tokenizer_config(tokenizer) -> dict:
 
 
 def tokenizer_from_config(tok_cfg):
-    """Inverse of :func:`tokenizer_config`; None for configs without one.
-    A HuggingFace tokenizer raises: ``HFTokenizer`` is not ported (a hash
-    tokenizer in its place would make every token id meaningless)."""
+    """Inverse of :func:`tokenizer_config`; None for configs without one."""
     if tok_cfg is None:
         return None
     if tok_cfg.get("kind") == "hf":
-        raise NotImplementedError(
-            f"the checkpoint's tokenizer is the HuggingFace tokenizer {tok_cfg['name_or_path']!r}: "
-            "HFTokenizer is not ported to fusion_tpu_torch yet (ROADMAP.md Queue 1, item 15); "
-            "pass tokenizer= explicitly"
-        )
+        try:
+            return HFTokenizer(tok_cfg["name_or_path"])
+        except Exception as e:
+            raise RuntimeError(
+                f"checkpoint was trained with the HF tokenizer {tok_cfg['name_or_path']!r}, which could not be "
+                "loaded — pass tokenizer= explicitly (the hash fallback would make token ids meaningless)"
+            ) from e
     if tok_cfg.get("kind") == "wordhash":
         return WordHashTokenizer(
             vocab_size=tok_cfg["vocab_size"], lowercase=tok_cfg.get("lowercase", True)

@@ -31,6 +31,7 @@ import torch
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists
 from fusion_tpu_torch.data.tokenization import (
+    HFTokenizer,
     TextEncoder,
     WordHashTokenizer,
     tokenizer_config,
@@ -46,6 +47,13 @@ from fusion_tpu_torch.models.encoder import (
     init_weights,
     place,
     token_tensors,
+)
+from fusion_tpu_torch.models.xmod import (
+    XmodEncoder,
+    XmodEncoderWithMLM,
+    is_xmod,
+    load_hf_xmod_params,
+    set_module_language,
 )
 from fusion_tpu_torch.ops.mips import dense_search
 
@@ -162,7 +170,16 @@ class BiEncoder(EncoderViews):
         )
 
     def _build_module(self, cfg: EncoderConfig):
+        if is_xmod(cfg):
+            return XmodEncoderWithMLM(cfg) if self.head == "splade" else XmodEncoder(cfg)
         return EncoderWithMLM(cfg) if self.head == "splade" else Encoder(cfg)
+
+    def set_language(self, lang: str) -> "BiEncoder":
+        """Pin the X-MOD language adapter ('fr' or 'fr_XX') of the trunk."""
+        if not is_xmod(self.cfg):
+            raise ValueError("set_language needs an X-MOD trunk")
+        set_module_language(self.module, self.cfg.lang_index(lang))
+        return self
 
     def _embed(self, input_ids, attention_mask, drop: DropoutKey | None = None, train: bool = False):
         if self.head == "splade":
@@ -320,6 +337,53 @@ class BiEncoder(EncoderViews):
         checkpoint.save_step(self, ckpt_dir, step, save_total_limit)
 
     @classmethod
+    def from_pretrained_hf(
+        cls, model_name_or_path: str, head: str = "dense", *, dtype: torch.dtype = torch.float32, **kw
+    ) -> "BiEncoder":
+        """Build from a local HuggingFace checkpoint directory, read without
+        ``transformers`` (``load_hf_encoder_params``), computing in
+        ``dtype``; the tokenizer is the directory's own (``HFTokenizer``).
+        The dense head keeps only the trunk; SPLADE also takes the LM head.
+        ``kw`` go to the constructor (``device``, ``param_dtype``, ...)."""
+        from fusion_tpu_torch.models.encoder import load_hf_encoder_params
+
+        cfg, params = load_hf_encoder_params(model_name_or_path, dtype)
+        tree = params["params"]
+        if head == "splade" and "mlm" not in tree:
+            raise ValueError(f"{model_name_or_path} holds no masked-LM head for SPLADE")
+        sd = convert.encoder_with_mlm_state_dict(tree) if head == "splade" else convert.encoder_state_dict(
+            tree["encoder"])
+        return cls(cfg, params=sd, tokenizer=HFTokenizer(model_name_or_path), head=head, **kw)
+
+    @classmethod
+    def from_xmod(
+        cls,
+        model_name_or_path: str,
+        head: str = "dense",
+        languages: Sequence[str] | None = None,
+        lang: str = "fr",
+        *,
+        dtype: torch.dtype = torch.float32,
+        **kw,
+    ) -> "BiEncoder":
+        """Multilingual DPR / SPLADE on an X-MOD trunk: import the checkpoint
+        (its adapters optionally subset to ``languages``; SPLADE also takes
+        the LM head of an ``XmodForMaskedLM``), pin ``lang``.  Read without
+        ``transformers``; a directory without tokenizer files gets the
+        hashing tokenizer."""
+        cfg, params = load_hf_xmod_params(
+            model_name_or_path, languages=tuple(languages) if languages else None, dtype=dtype,
+            with_mlm=head == "splade",
+        )
+        try:
+            tokenizer = HFTokenizer(model_name_or_path)
+        except Exception:
+            tokenizer = None
+        build = XmodEncoderWithMLM if head == "splade" else XmodEncoder
+        sd = convert.state_dict_of(lambda: build(cfg), cfg.num_heads, params)
+        return cls(cfg, params=sd, tokenizer=tokenizer, head=head, **kw).set_language(lang)
+
+    @classmethod
     def load(
         cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype | None = None,
@@ -332,7 +396,10 @@ class BiEncoder(EncoderViews):
             tokenizer = tokenizer_from_config(config.get("tokenizer"))
         cfg = checkpoint.encoder_config_from_dict(config["encoder"], dtype=dtype)
         variables = checkpoint.read_params(path)
-        if config["head"] == "splade":
+        if is_xmod(cfg):
+            build = XmodEncoderWithMLM if config["head"] == "splade" else XmodEncoder
+            params = convert.state_dict_of(lambda: build(cfg), cfg.num_heads, variables)
+        elif config["head"] == "splade":
             params = convert.encoder_with_mlm_state_dict(variables)
         else:
             params = convert.encoder_state_dict(variables)

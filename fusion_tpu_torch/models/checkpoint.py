@@ -16,10 +16,9 @@ import json
 import os
 import shutil
 
-import numpy as np
 import torch
 
-from fusion_tpu_torch.models.encoder import EncoderConfig
+from fusion_tpu_torch.models.encoder import EncoderConfig, migrate_pre_qkv_params
 from fusion_tpu_torch.utils import flax_msgpack
 
 CONFIG_FILENAME = "config_fusion_tpu.json"
@@ -34,15 +33,14 @@ def encoder_config_dict(cfg) -> dict:
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "dtype"}
 
 
-def encoder_config_from_dict(entry: dict, dtype: torch.dtype = torch.float32) -> EncoderConfig:
-    """A config's ``encoder`` entry → the port's ``EncoderConfig``, its
-    ``attention_impl`` and ``quantize`` honoured.  An X-MOD trunk raises: it
-    is not ported."""
+def encoder_config_from_dict(entry: dict, dtype: torch.dtype = torch.float32):
+    """A config's ``encoder`` entry → the port's ``EncoderConfig``, or an
+    ``XmodConfig`` for an X-MOD trunk (the entry names its ``languages``),
+    its ``attention_impl`` and ``quantize`` honoured."""
     if "languages" in entry:
-        raise NotImplementedError(
-            "the checkpoint's trunk is X-MOD, which is not ported to fusion_tpu_torch yet "
-            "(ROADMAP.md Queue 1, item 15: its only way in is HF weights)"
-        )
+        from fusion_tpu_torch.models.xmod import XmodConfig
+
+        return XmodConfig(**{**entry, "languages": tuple(entry["languages"])}, dtype=dtype)
     return EncoderConfig(**entry, dtype=dtype)
 
 
@@ -81,31 +79,3 @@ def read_params(path: str) -> dict:
     migrated to the fused qkv form."""
     with open(os.path.join(path, PARAMS_FILENAME), "rb") as f:
         return migrate_pre_qkv_params(flax_msgpack.unpackb(f.read()))
-
-
-def migrate_pre_qkv_params(tree):
-    """Convert a param tree with separate attention query/key/value
-    projections to the fused layout (qkv kernel ``[H, 3, heads, hd]``), so
-    checkpoints saved before the fusion load unchanged.  No-op on fused
-    trees."""
-
-    def convert(d):
-        if not isinstance(d, dict):
-            return d
-        if "attention" in d and isinstance(d["attention"], dict) and "query" in d["attention"]:
-            att = dict(d["attention"])
-            qkv = {
-                "kernel": np.stack([_host(att[n]["kernel"]) for n in ("query", "key", "value")], axis=1),
-                "bias": np.stack([_host(att[n]["bias"]) for n in ("query", "key", "value")], axis=0),
-            }
-            for n in ("query", "key", "value"):
-                att.pop(n)
-            att["qkv"] = qkv
-            d = {**d, "attention": att}
-        return {k: convert(v) for k, v in d.items()}
-
-    return convert(tree)
-
-
-def _host(x) -> np.ndarray:
-    return x.to(torch.float32).numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

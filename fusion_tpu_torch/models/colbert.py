@@ -27,6 +27,7 @@ from torch import nn
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists
 from fusion_tpu_torch.data.tokenization import (
+    HFTokenizer,
     TextEncoder,
     WordHashTokenizer,
     tokenizer_config,
@@ -40,21 +41,23 @@ from fusion_tpu_torch.models.encoder import (
     EncoderConfig,
     EncoderViews,
     init_weights,
+    load_hf_encoder_params,
     place,
     token_tensors,
 )
 from fusion_tpu_torch.models.heads import ColBERTHead
+from fusion_tpu_torch.models.xmod import XmodEncoder, is_xmod, load_hf_xmod_params, set_module_language
 from fusion_tpu_torch.ops.maxsim import maxsim_search, maxsim_search_tm, prepare_token_corpus
 
 _PUNCT = set(string.punctuation)
 
 
 class ColBERTModule(nn.Module):
-    """Trunk + projection head."""
+    """Trunk (an ``XmodEncoder`` for an ``XmodConfig``) + projection head."""
 
     def __init__(self, cfg: EncoderConfig, dim: int = 128):
         super().__init__()
-        self.encoder = Encoder(cfg)
+        self.encoder = XmodEncoder(cfg) if is_xmod(cfg) else Encoder(cfg)
         self.colbert = ColBERTHead(cfg.hidden_size, dim)
 
     def forward(
@@ -144,6 +147,13 @@ class ColBERT(EncoderViews):
 
     def _build_module(self, cfg: EncoderConfig) -> ColBERTModule:
         return ColBERTModule(cfg, dim=self.dim)
+
+    def set_language(self, lang: str) -> "ColBERT":
+        """Pin the X-MOD language adapter ('fr' or 'fr_XX') of the trunk."""
+        if not is_xmod(self.cfg):
+            raise ValueError("set_language needs an X-MOD trunk")
+        set_module_language(self.module, self.cfg.lang_index(lang))
+        return self
 
     @staticmethod
     def _punctuation_token_ids(tokenizer) -> set[int]:
@@ -306,6 +316,56 @@ class ColBERT(EncoderViews):
         return convert.flax_tree(self.module, self.cfg.num_heads, tensors)
 
     @classmethod
+    def from_pretrained_hf(
+        cls, model_name_or_path: str, dim: int = 128, seed: int = 42, *, dtype: torch.dtype = torch.float32, **kw
+    ) -> "ColBERT":
+        """Trunk weights from a local HuggingFace checkpoint directory, read
+        without ``transformers`` (``load_hf_encoder_params``: dropout 0, so
+        ``with_attention("flash")`` trains through the attention kernels),
+        computing in ``dtype``; the projection head is freshly seeded (as
+        when starting ColBERT training from a plain LM checkpoint).  A
+        directory without tokenizer files (or a machine without
+        ``transformers``) gets the hashing tokenizer.  ``kw`` go to the
+        constructor (``device``, ``param_dtype``, ...)."""
+        cfg, params = load_hf_encoder_params(model_name_or_path, dtype)
+        try:
+            tokenizer = HFTokenizer(model_name_or_path)
+        except Exception:  # checkpoint without tokenizer files
+            tokenizer = None
+        model = cls(cfg, tokenizer=tokenizer, dim=dim, seed=seed, **kw)
+        model.module.encoder.load_state_dict(convert.encoder_state_dict(params["params"]["encoder"]))
+        return model
+
+    @classmethod
+    def from_xmod(
+        cls,
+        model_name_or_path: str,
+        languages: Sequence[str] | None = None,
+        lang: str = "fr",
+        dim: int = 128,
+        seed: int = 42,
+        *,
+        dtype: torch.dtype = torch.float32,
+        **kw,
+    ) -> "ColBERT":
+        """Multilingual ColBERT on an X-MOD trunk: import the checkpoint (its
+        adapters optionally subset to ``languages``), pin ``lang``, freshly
+        seeded head; dropout 0, so ``with_attention("flash")`` trains
+        through the attention kernels.  Train with
+        ``models.xmod.xmod_finetune_labels`` to freeze embeddings and
+        adapters."""
+        cfg, params = load_hf_xmod_params(model_name_or_path, languages=tuple(languages) if languages else None,
+                                          dtype=dtype)
+        try:
+            tokenizer = HFTokenizer(model_name_or_path)
+        except Exception:
+            tokenizer = None
+        model = cls(cfg, tokenizer=tokenizer, dim=dim, seed=seed, **kw)
+        model.module.encoder.load_state_dict(
+            convert.state_dict_from_flax(model.module.encoder, cfg.num_heads, params))
+        return model.set_language(lang)
+
+    @classmethod
     def load(
         cls, path: str, tokenizer=None, device="cuda", dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype | None = None,
@@ -316,9 +376,15 @@ class ColBERT(EncoderViews):
         config = checkpoint.read_config(path)
         if tokenizer is None:
             tokenizer = tokenizer_from_config(config.get("tokenizer"))
+        cfg = checkpoint.encoder_config_from_dict(config["encoder"], dtype=dtype)
+        variables = checkpoint.read_params(path)
+        if is_xmod(cfg):
+            params = convert.state_dict_of(lambda: ColBERTModule(cfg, dim=config["dim"]), cfg.num_heads, variables)
+        else:
+            params = convert.colbert_state_dict(variables)
         return cls(
-            checkpoint.encoder_config_from_dict(config["encoder"], dtype=dtype),
-            params=convert.colbert_state_dict(checkpoint.read_params(path)),
+            cfg,
+            params=params,
             tokenizer=tokenizer,
             dim=config["dim"],
             max_query_length=config["max_query_length"],

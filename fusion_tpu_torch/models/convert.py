@@ -210,6 +210,15 @@ def state_dict_from_flax(module: nn.Module, num_heads: int, variables: Mapping) 
     return out
 
 
+def state_dict_of(build: Callable[[], nn.Module], num_heads: int, variables: Mapping) -> dict[str, torch.Tensor]:
+    """A Flax tree → the state dict of the module ``build()`` makes (built on
+    the meta device: no weights are allocated), read through
+    ``flax_layouts`` (the X-MOD trunks load that way)."""
+    with torch.device("meta"):
+        module = build()
+    return state_dict_from_flax(module, num_heads, variables)
+
+
 def t5_crossencoder_state_dict(variables: Mapping, cfg) -> dict[str, torch.Tensor]:
     """Flax ``T5EncoderForSequenceClassification`` params (``{"encoder",
     "head_dense", "head_out"}``) → the port's module's state dict for the

@@ -51,6 +51,7 @@ from torch import nn
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores, stable_topk
 from fusion_tpu_torch.data.tokenization import (
+    HFTokenizer,
     WordHashTokenizer,
     pair_encode_simple,
     tokenizer_config,
@@ -63,6 +64,7 @@ from fusion_tpu_torch.models.encoder import (
     EncoderConfig,
     EncoderViews,
     init_weights,
+    load_hf_encoder_params,
     place,
     token_tensors,
 )
@@ -474,6 +476,10 @@ class PairRerankMixin:
             buf[tb[:, 2]] = self.packed_score_tokens(ids[rows], mask[rows], pos[rows], seg[rows], tb[:, 0], tb[:, 1])
         return buf[: qn * kr].reshape(qn, kr)
 
+    def _encode_pairs(self, queries: Sequence[str], docs: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
+        """Host (query, doc) pairs → (ids, mask) [n, max_length]."""
+        return pair_encode_simple(self.tokenizer, queries, docs, self.max_length)
+
     def predict(
         self, pairs: Sequence[tuple[str, str]], batch_size: int = 64, apply_sigmoid: bool = True
     ) -> np.ndarray:
@@ -485,9 +491,7 @@ class PairRerankMixin:
             real = len(chunk)
             while len(chunk) < batch_size and len(pairs) > batch_size:
                 chunk.append(("", ""))
-            ids, mask = pair_encode_simple(
-                self.tokenizer, [q for q, _ in chunk], [d for _, d in chunk], self.max_length
-            )
+            ids, mask = self._encode_pairs([q for q, _ in chunk], [d for _, d in chunk])
             logits = self.score_tokens(*token_tensors(ids, mask, self.device))
             out.append(logits[:real].cpu().numpy())
         logits = np.concatenate(out, axis=0) if out else np.zeros(0, np.float32)
@@ -551,6 +555,13 @@ class CrossEncoder(EncoderViews, PairRerankMixin):
     def _build_module(cfg: EncoderConfig) -> CrossEncoderModule:
         return CrossEncoderModule(cfg)
 
+    def _encode_pairs(self, queries: Sequence[str], docs: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
+        """The tokenizer's own pair template where it has one (``HFTokenizer``),
+        else ``[CLS] q [SEP] d [SEP]``."""
+        if hasattr(self.tokenizer, "pair"):
+            return self.tokenizer.pair(queries, docs, self.max_length)
+        return pair_encode_simple(self.tokenizer, queries, docs, self.max_length)
+
     # -- scoring --------------------------------------------------------
     @torch.inference_mode()
     def score_tokens(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
@@ -589,6 +600,25 @@ class CrossEncoder(EncoderViews, PairRerankMixin):
     def flax_tree(self, tensors) -> dict:
         """A state dict (or gradients keyed like it) → the JAX model's tree."""
         return convert.flax_tree(self.module, self.cfg.num_heads, tensors)
+
+    @classmethod
+    def from_pretrained_hf(
+        cls, model_name_or_path: str, max_length: int = 256, seed: int = 42, *, dtype: torch.dtype = torch.float32,
+        device="cuda", param_dtype: torch.dtype | None = None,
+    ) -> "CrossEncoder":
+        """Trunk weights from a local HuggingFace checkpoint directory, read
+        without ``transformers`` (``load_hf_encoder_params``), computing in
+        ``dtype`` on ``device``; the relevance head starts freshly seeded.
+        A directory without tokenizer files gets the hashing tokenizer."""
+        cfg, params = load_hf_encoder_params(model_name_or_path, dtype)
+        try:
+            tokenizer = HFTokenizer(model_name_or_path)
+        except Exception:  # checkpoint without tokenizer files
+            tokenizer = None
+        model = cls(cfg, tokenizer=tokenizer, max_length=max_length, seed=seed, device=device,
+                    param_dtype=param_dtype)
+        model.module.encoder.load_state_dict(convert.encoder_state_dict(params["params"]["encoder"]))
+        return model
 
     @classmethod
     def load(

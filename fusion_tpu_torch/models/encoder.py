@@ -9,8 +9,9 @@ The same trunk as ``fusion_tpu/models/encoder.py``, layer for layer:
     accumulates and soft-maxes the logits in f32; ``einsum_bf16`` stores the
     f32-accumulated logits as bf16 and scales and biases them in bf16 before
     the f32 softmax; ``flash`` is ``ops/attention.masked_attention``, the
-    hand-written kernel on the card (forward only) and the ``einsum`` form's
-    arithmetic on the CPU.  Padding is an additive -1e9 bias in every form,
+    hand-written kernels on the card (the forward, and under a gradient its
+    residual mode and the backward kernels, through ``MaskedAttention``)
+    and the ``einsum`` form's arithmetic on the CPU.  Padding is an additive -1e9 bias in every form,
     so a row with no attended key softmaxes uniformly instead of giving NaN;
   * positions count non-pad ids (RoBERTa scheme, offset past the pad index),
     read from the ids and not from the attention mask, unless the caller
@@ -43,10 +44,14 @@ parameters.
 One difference from the JAX package is stated: its ``flash`` runs the Pallas
 kernel only on a TPU and at a sequence length that is a multiple of 128, and
 falls back to ``einsum`` otherwise.  Those two are TPU tiling rules, so the
-port's ``flash`` runs at any length on any device; with active dropout it
-computes the ``einsum`` form, as JAX's does.  Its kernel on the card takes a
-head dim of 64 and has no backward pass (JAX's has one): a gradient through
-``flash`` without dropout raises there.
+port's ``flash`` runs at any length on any device (a ragged edge tile in the
+kernels); with active dropout it computes the ``einsum`` form, as JAX's
+does.  Its kernels on the card take a head dim of 64.  Without dropout a
+gradient through ``flash`` runs the forward kernel in residual mode and the
+backward kernels (dK/dV and dQ, as JAX's Pallas backward), and the q, k, v
+gradients reach the fused qkv projection as one contiguous buffer
+(``ops/attention.split_qkv``); under remat the recompute runs the forward
+kernel once more.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fusion_tpu_torch.core.device import resolve_device
-from fusion_tpu_torch.ops.attention import allowed_keys, masked_attention
+from fusion_tpu_torch.ops.attention import allowed_keys, masked_attention, split_qkv
 
 
 ATTENTION_IMPLS = ("einsum", "einsum_bf16", "flash")
@@ -117,6 +122,11 @@ class EncoderConfig:
         )
         defaults.update(kw)
         return cls(**defaults)
+
+    @classmethod
+    def camembert_base(cls, **kw) -> "EncoderConfig":
+        """CamemBERT-base (the defaults), with ``kw`` changed."""
+        return cls(**kw)
 
 
 def roberta_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Tensor:
@@ -308,7 +318,7 @@ class SelfAttention(nn.Module):
         c = self.cfg
         b, length, h = x.shape
         qkv = trunk_linear(self.qkv, x, c).view(b, length, 3, c.num_heads, h // c.num_heads)
-        q, k, v = qkv.unbind(dim=2)  # [B, L, heads, hd]
+        q, k, v = split_qkv(qkv)  # [B, L, heads, hd]
         # segments make the allowed keys block-diagonal: pairs packed into
         # one row never attend across
         ctx = attention(q, k, v, attention_mask, segment_ids, c, drop, layer)
@@ -416,6 +426,8 @@ def init_weights(module: nn.Module, seed: int) -> None:
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * 0.02)
                 if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
+        elif hasattr(m, "reset_parameters_from"):  # X-MOD's stacked adapters
+            m.reset_parameters_from(gen)
 
 
 def place(module: nn.Module, dtype: torch.dtype, device, param_dtype: torch.dtype | None = None) -> nn.Module:
@@ -441,6 +453,9 @@ def config_view(model, build, **changes):
         out.module = build(out.cfg)
     out.module.load_state_dict(model.module.state_dict(), assign=True)
     out.module.train(model.module.training)
+    for old, new in zip(model.module.modules(), out.module.modules()):
+        if hasattr(old, "lang_idx"):  # an X-MOD trunk keeps its pinned language
+            new.lang_idx = old.lang_idx
     return out
 
 
@@ -473,3 +488,164 @@ def init_encoder_params(
     model = EncoderWithMLM(cfg) if with_mlm else Encoder(cfg)
     init_weights(model, seed)
     return place(model, cfg.dtype, resolve_device(device))
+
+
+# ----------------------------------------------------------------------
+# HF checkpoint import (host side, without transformers) and old layouts
+# ----------------------------------------------------------------------
+def hf_value(sd: dict, *keys: str) -> np.ndarray:
+    """The first of ``keys`` that ``sd`` holds, as f32 numpy (tied weights
+    are saved under one of their names)."""
+    for key in keys:
+        if key in sd:
+            return sd[key].detach().to(torch.float32).cpu().numpy()
+    raise KeyError(f"the checkpoint holds none of {keys}")
+
+
+def hf_trunk_tree(g, h: int, heads: int, num_layers: int) -> dict:
+    """The Flax ``Encoder`` tree of an HF BERT-family trunk whose f32 weight
+    of name ``key`` (without the model prefix) is ``g(key)``: embeddings, and
+    per layer the separate q / k / v projections stacked into the fused
+    ``[H, 3, heads, hd]`` kernel (axis 1 = q, k, v)."""
+    hd = h // heads
+
+    def qkv(lp):
+        names = ("query", "key", "value")
+        kernels = [g(f"{lp}.attention.self.{n}.weight").T.reshape(h, heads, hd) for n in names]
+        biases = [g(f"{lp}.attention.self.{n}.bias").reshape(heads, hd) for n in names]
+        return {"kernel": np.stack(kernels, axis=1), "bias": np.stack(biases, axis=0)}
+
+    def ln(prefix):
+        return {"scale": g(f"{prefix}.weight"), "bias": g(f"{prefix}.bias")}
+
+    tree: dict = {"embeddings": {
+        "word": {"embedding": g("embeddings.word_embeddings.weight")},
+        "position": {"embedding": g("embeddings.position_embeddings.weight")},
+        "token_type": {"embedding": g("embeddings.token_type_embeddings.weight")},
+        "ln": ln("embeddings.LayerNorm"),
+    }}
+    for i in range(num_layers):
+        lp = f"encoder.layer.{i}"
+        tree[f"layer_{i}"] = {
+            "attention": {
+                "qkv": qkv(lp),
+                "out": {"kernel": g(f"{lp}.attention.output.dense.weight").T.reshape(heads, hd, h),
+                        "bias": g(f"{lp}.attention.output.dense.bias")},
+            },
+            "attn_ln": ln(f"{lp}.attention.output.LayerNorm"),
+            "ffn_in": {"kernel": g(f"{lp}.intermediate.dense.weight").T, "bias": g(f"{lp}.intermediate.dense.bias")},
+            "ffn_out": {"kernel": g(f"{lp}.output.dense.weight").T, "bias": g(f"{lp}.output.dense.bias")},
+            "ffn_ln": ln(f"{lp}.output.LayerNorm"),
+        }
+    return tree
+
+
+def hf_mlm_tree(sd: dict, word_embeddings: np.ndarray, roberta: bool) -> dict:
+    """The Flax ``MLMHead`` tree of an HF masked-LM head (``lm_head.*`` or
+    BERT's ``cls.predictions.*``); the decoder is tied to the word
+    embeddings."""
+    if roberta:
+        return {
+            "transform": {"kernel": hf_value(sd, "lm_head.dense.weight").T, "bias": hf_value(sd, "lm_head.dense.bias")},
+            "ln": {"scale": hf_value(sd, "lm_head.layer_norm.weight"), "bias": hf_value(sd, "lm_head.layer_norm.bias")},
+            "decoder": {"kernel": word_embeddings.T, "bias": hf_value(sd, "lm_head.bias", "lm_head.decoder.bias")},
+        }
+    head = "cls.predictions"
+    return {
+        "transform": {"kernel": hf_value(sd, f"{head}.transform.dense.weight").T,
+                      "bias": hf_value(sd, f"{head}.transform.dense.bias")},
+        "ln": {"scale": hf_value(sd, f"{head}.transform.LayerNorm.weight"),
+               "bias": hf_value(sd, f"{head}.transform.LayerNorm.bias")},
+        "decoder": {"kernel": word_embeddings.T, "bias": hf_value(sd, f"{head}.bias", f"{head}.decoder.bias")},
+    }
+
+
+def hf_model_prefix(sd: dict) -> str:
+    """The name prefix of a checkpoint's trunk: ``roberta.`` or ``bert.``
+    for a task model (masked LM), none for a bare trunk."""
+    for prefix in ("roberta.", "bert."):
+        if any(k.startswith(prefix) for k in sd):
+            return prefix
+    return ""
+
+
+def load_hf_encoder_params(model_name_or_path: str, dtype: torch.dtype = torch.float32) -> tuple[EncoderConfig, dict]:
+    """An HF masked-LM checkpoint directory → ``(EncoderConfig, {"params":
+    {"encoder", "mlm"}})``: the JAX package's Flax tree (f32 numpy leaves),
+    which ``models/convert.py`` maps onto the port's modules.  The
+    roberta / camembert / xlm-roberta and the bert naming schemes (a bert
+    ``model_type`` takes absolute positions, ``position_offset=0``), task
+    checkpoints (``roberta.`` / ``bert.`` names) and bare trunks; dropout is
+    0, as the JAX loader sets it.  Read by ``utils/hf_weights.py``: no
+    ``transformers``, no hub.  A trunk without an LM head gives no ``mlm``
+    subtree (the JAX loader, through ``AutoModelForMaskedLM``, draws one
+    at random)."""
+    from fusion_tpu_torch.utils import hf_weights
+
+    hf = hf_weights.read_config(model_name_or_path)
+    sd = hf_weights.load_state_dict(model_name_or_path)
+    roberta = hf.get("model_type", "roberta") != "bert"
+    prefix = hf_model_prefix(sd)
+    vocab = hf["vocab_size"]
+    cfg = EncoderConfig(
+        vocab_size=vocab,
+        hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        intermediate_size=hf["intermediate_size"],
+        max_position=hf["max_position_embeddings"],
+        type_vocab_size=hf.get("type_vocab_size", 2),  # the HF configs' defaults where a key is missing
+        pad_token_id=hf["pad_token_id"] if hf.get("pad_token_id") is not None else 1,
+        mask_token_id=hf.get("mask_token_id") or vocab - 1,
+        layer_norm_eps=hf.get("layer_norm_eps", 1e-12),
+        position_offset=2 if roberta else 0,
+        dropout=0.0,
+        dtype=dtype,
+    )
+    encoder = hf_trunk_tree(lambda key: hf_value(sd, prefix + key), cfg.hidden_size, cfg.num_heads, cfg.num_layers)
+    params = {"encoder": encoder}
+    head_keys = ("lm_head.dense.weight",) if roberta else ("cls.predictions.transform.dense.weight",)
+    if head_keys[0] in sd:
+        params["mlm"] = hf_mlm_tree(sd, encoder["embeddings"]["word"]["embedding"], roberta)
+    return cfg, {"params": params}
+
+
+def migrate_pre_qkv_params(tree):
+    """Convert a param tree with separate attention query/key/value
+    projections to the fused layout (qkv kernel ``[H, 3, heads, hd]``), so
+    checkpoints saved before the fusion load unchanged.  No-op on fused
+    trees."""
+
+    def host(x) -> np.ndarray:
+        return x.to(torch.float32).numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    def convert(d):
+        if not isinstance(d, dict):
+            return d
+        if "attention" in d and isinstance(d["attention"], dict) and "query" in d["attention"]:
+            att = dict(d["attention"])
+            qkv = {
+                "kernel": np.stack([host(att[n]["kernel"]) for n in ("query", "key", "value")], axis=1),
+                "bias": np.stack([host(att[n]["bias"]) for n in ("query", "key", "value")], axis=0),
+            }
+            for n in ("query", "key", "value"):
+                att.pop(n)
+            att["qkv"] = qkv
+            d = {**d, "attention": att}
+        return {k: convert(v) for k, v in d.items()}
+
+    return convert(tree)
+
+
+def restore_params_bytes(target: nn.Module, blob: bytes) -> nn.Module:
+    """flax ``from_bytes`` with pre-QKV checkpoint migration: the Flax
+    msgpack ``blob`` (a model's variables as ``flax.serialization.to_bytes``
+    writes them) loaded into the parameters of ``target`` (an encoder
+    module, or a model's module around one), which it returns."""
+    from fusion_tpu_torch.models import convert
+    from fusion_tpu_torch.utils import flax_msgpack
+
+    raw = migrate_pre_qkv_params(flax_msgpack.unpackb(blob))
+    heads = next(m.cfg.num_heads for m in target.modules() if hasattr(getattr(m, "cfg", None), "num_heads"))
+    target.load_state_dict(convert.state_dict_from_flax(target, heads, raw))
+    return target

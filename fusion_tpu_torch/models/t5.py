@@ -43,6 +43,7 @@ from fusion_tpu_torch.models.encoder import (
     Linear,
     QuantizedView,
     dropout,
+    hf_value,
     init_weights,
     place,
     trunk_linear,
@@ -387,3 +388,56 @@ class T5CrossEncoder(QuantizedView, PairRerankMixin):
             device=device,
             param_dtype=param_dtype,
         )
+
+
+def load_hf_t5_encoder_params(model_name_or_path: str, pooling_mode: str = "mean", num_labels: int = 1,
+                              seed: int = 0) -> tuple[T5Config, dict]:
+    """A local HF (m)T5 checkpoint directory → ``(T5Config, {"params":
+    tree})``: the JAX package's Flax tree (f32 numpy leaves) of
+    ``T5EncoderForSequenceClassification``, which
+    ``convert.t5_crossencoder_state_dict`` maps onto the port's module.  Read
+    by ``utils/hf_weights.py`` without ``transformers``; only the encoder's
+    weights are taken (a full encoder-decoder checkpoint serves too).  The
+    classification head is freshly initialized from ``seed`` (the JAX loader
+    draws it from its own PRNG)."""
+    from fusion_tpu_torch.utils import hf_weights
+
+    hf = hf_weights.read_config(model_name_or_path)
+    sd = hf_weights.load_state_dict(model_name_or_path)
+    cfg = T5Config(
+        vocab_size=hf["vocab_size"],
+        d_model=hf["d_model"],
+        d_kv=hf["d_kv"],
+        d_ff=hf["d_ff"],
+        num_layers=hf["num_layers"],
+        num_heads=hf["num_heads"],
+        relative_attention_num_buckets=hf.get("relative_attention_num_buckets", 32),
+        relative_attention_max_distance=hf.get("relative_attention_max_distance", 128),
+        gated_ffn=hf.get("feed_forward_proj", "relu").startswith("gated"),
+        pooling_mode=pooling_mode,
+        num_labels=num_labels,
+    )
+
+    def g(*keys):
+        return hf_value(sd, *keys)
+
+    enc: dict = {"embed": {"embedding": g("shared.weight", "encoder.embed_tokens.weight")}}
+    for i in range(cfg.num_layers):
+        p = f"encoder.block.{i}.layer"
+        blk = {
+            "attn_norm": {"scale": g(f"{p}.0.layer_norm.weight")},
+            "attention": {n: {"kernel": g(f"{p}.0.SelfAttention.{n}.weight").T} for n in ("q", "k", "v", "o")},
+            "ffn_norm": {"scale": g(f"{p}.1.layer_norm.weight")},
+        }
+        if i == 0:
+            blk["attention"]["relative_attention_bias"] = g(f"{p}.0.SelfAttention.relative_attention_bias.weight")
+        ffn = ("wi_0", "wi_1", "wo") if cfg.gated_ffn else ("wi", "wo")
+        for n in ffn:
+            blk[n] = {"kernel": g(f"{p}.1.DenseReluDense.{n}.weight").T}
+        enc[f"block_{i}"] = blk
+    enc["final_norm"] = {"scale": g("encoder.final_layer_norm.weight")}
+
+    module = T5EncoderForSequenceClassification(cfg)
+    init_weights(module, seed)
+    fresh = convert.flax_tree(module, cfg.num_heads, module.state_dict())
+    return cfg, {"params": {**fresh, "encoder": enc}}

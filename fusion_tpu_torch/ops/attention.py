@@ -6,19 +6,36 @@ lie in its own segment.
 
   * ``masked_attention_cuda`` — the hand-written Hopper kernel
     (``csrc/attention.cu``; bf16 on the tensor cores, f32 on scalar FMAs,
-    head dim 64, forward only); ``masked_attention_cuda.launches`` counts its
+    head dim 64); with ``residuals=True`` it also returns each query row's
+    f32 ``m`` (max of its biased logits) and ``l`` (sum of ``exp(logit -
+    m)``), ``[B, heads, L]``; ``masked_attention_cuda.launches`` counts its
     launches;
-  * ``masked_attention_plain`` — the plain PyTorch version, which a tensor
-    on the CPU runs and the kernel is held to on the card: the logits of the
-    compute-dtype ``q``, ``k`` in f32, the f32 bias, the f32 softmax cast to
-    the compute dtype, times ``v``.  That is the encoder's ``einsum`` form,
-    which is also what the JAX package's ``flash`` computes off a TPU;
+  * ``masked_attention_backward_cuda`` — the backward's two hand-written
+    kernels (dK/dV over the query tiles, dQ over the key tiles), writing
+    ``dq``, ``dk``, ``dv`` into one ``[B, L, 3, heads, hd]`` buffer; its
+    ``launches`` counts its calls (each launches both);
+  * ``masked_attention_plain`` / ``masked_attention_backward_plain`` — the
+    plain PyTorch versions, which a tensor on the CPU runs and the kernels
+    are held to on the card.  The forward: the logits of the compute-dtype
+    ``q``, ``k`` in f32, the f32 bias, the f32 softmax cast to the compute
+    dtype, times ``v`` (the encoder's ``einsum`` form, which is also what
+    the JAX package's ``flash`` computes off a TPU).  The backward, from
+    the residuals: ``P = exp(s - m) / l`` in f32, ``D = rowsum(dO∘O)``,
+    ``dV = P·dO``, ``dP = dO·Vᵀ``, ``dS = P∘(dP - D)``, ``dQ = dS·K·scale``,
+    ``dK = dSᵀ·Q·scale``, with ``P`` and ``dS`` in the compute dtype as the
+    products' operands;
+  * ``MaskedAttention`` — the ``torch.autograd.Function`` joining them: on
+    the card its forward runs the kernel in residual mode and its backward
+    the backward kernels, on the CPU the two plain versions;
   * ``masked_attention`` — the entry point: a tensor on the card goes to the
-    kernel, a tensor on the CPU to the plain version.
+    kernel, a tensor on the CPU to the plain version, through
+    ``MaskedAttention`` where a gradient is needed.
 
 ``q``, ``k``, ``v`` are ``[B, L, heads, hd]`` (views of the fused qkv
 projection serve as they are: only the last dim must be contiguous), the
-output is a contiguous ``[B, L, heads, hd]``.
+output is a contiguous ``[B, L, heads, hd]``.  The gradients of ``q``,
+``k``, ``v`` are the three planes of one contiguous ``[B, L, 3, heads, hd]``
+buffer, which ``split_qkv`` hands back whole to the projection.
 """
 
 from __future__ import annotations
@@ -42,80 +59,221 @@ def allowed_keys(attention_mask: torch.Tensor, segment_ids: torch.Tensor | None)
     return ((segment_ids[:, None, :] == segment_ids[:, :, None]) & (attention_mask[:, None, :] > 0))[:, None]
 
 
-def masked_attention_plain(q, k, v, attention_mask, segment_ids, scale: float) -> torch.Tensor:
-    """Plain version: f32 logits, the -1e9 f32 bias off the allowed keys, f32
-    softmax cast to ``q``'s dtype, then ``· v`` → ``[B, L, heads, hd]``."""
+def _biased_logits(q, k, attention_mask, segment_ids, scale: float) -> torch.Tensor:
+    """f32 ``q·kᵀ · scale`` plus the f32 -1e9 bias off the allowed keys →
+    ``[B, heads, L, L]``."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     bias = torch.where(allowed_keys(attention_mask, segment_ids), 0.0, -1e9).to(torch.float32)
-    probs = torch.softmax(logits + bias, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return logits + bias
+
+
+def masked_attention_plain(q, k, v, attention_mask, segment_ids, scale: float, residuals: bool = False):
+    """Plain version: f32 logits, the -1e9 f32 bias off the allowed keys, f32
+    softmax cast to ``q``'s dtype, then ``· v`` → ``[B, L, heads, hd]``; with
+    ``residuals``, ``(out, m, l)``: each query row's max of its biased logits
+    and sum of ``exp(logit - m)``, f32 ``[B, heads, L]``."""
+    z = _biased_logits(q, k, attention_mask, segment_ids, scale)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(z, dim=-1).to(q.dtype), v)
+    if not residuals:
+        return out
+    m = z.amax(dim=-1)
+    return out, m, torch.exp(z - m[..., None]).sum(dim=-1)
+
+
+def masked_attention_backward_plain(q, k, v, out, m, l, d_out, attention_mask, segment_ids, scale: float):
+    """Plain version of the backward from the forward's output and residuals
+    ``m``, ``l`` → ``(dq, dk, dv)`` in ``q``'s dtype, step by step: ``P =
+    exp(s - m) / l`` (f32), ``D = rowsum(dO∘O)`` (f32), ``dV = P·dO`` with
+    ``P`` in the compute dtype, ``dP = dO·Vᵀ`` (f32), ``dS = P∘(dP - D)``,
+    ``dQ = dS·K·scale`` and ``dK = dSᵀ·Q·scale`` with ``dS`` in the compute
+    dtype, summed in f32."""
+    dt = q.dtype
+    p = torch.exp(_biased_logits(q, k, attention_mask, segment_ids, scale) - m[..., None]) / l[..., None]
+    d = (d_out.float() * out.float()).sum(-1).transpose(1, 2)  # [B, heads, L]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt), d_out)
+    dp = torch.einsum("bqhd,bkhd->bhqk", d_out.float(), v.float())
+    ds = (p * (dp - d[..., None])).to(dt).float()
+    dq = (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(dt)
+    dk = (torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale).to(dt)
+    return dq, dk, dv
 
 
 @functools.cache
 def _bind() -> ctypes.CDLL:
     lib = _kernels.load("attention")
-    lib.masked_attention.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-    ]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.masked_attention.argtypes = [i, p, p, p, p, p, p, p, p, p, ll, i, i, i, ctypes.c_float, p]
     lib.masked_attention.restype = ctypes.c_int
+    lib.masked_attention_backward.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, ctypes.c_float, p]
+    lib.masked_attention_backward.restype = ctypes.c_int
     lib.masked_attention_error_string.argtypes = [ctypes.c_int]
     lib.masked_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def masked_attention_cuda(q, k, v, attention_mask, segment_ids, scale: float) -> torch.Tensor:
-    """The Hopper kernel (``csrc/attention.cu``) on the current stream: bf16
-    or f32 ``q``, ``k``, ``v`` of one shape ``[B, L, heads, 64]`` on one CUDA
-    device, each with a contiguous last dim and 16-byte aligned rows; the
-    masks ``[B, L]`` on the same device.  Forward only: it raises where a
-    gradient would be needed."""
-    tensors = (q, k, v, attention_mask) + (() if segment_ids is None else (segment_ids,))
+def _check_operands(name, q, k, v, attention_mask, segment_ids, *more) -> None:
+    """Raise on what the kernels do not take: one CUDA device, bf16 or f32
+    ``q``, ``k``, ``v`` (and ``more``, each of their shape and dtype) of one
+    shape ``[B, L, heads, 64]`` with a contiguous last dim and 16-byte
+    aligned rows, masks ``[B, L]``."""
+    tensors = (q, k, v, attention_mask, *more) + (() if segment_ids is None else (segment_ids,))
     if not q.is_cuda or any(t.device != q.device for t in tensors):
-        raise ValueError("masked_attention_cuda needs every tensor on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"masked_attention_cuda takes bf16 or f32 q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{name} needs every tensor on one CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, *more)):
+        raise ValueError(f"{name} takes bf16 or f32 q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or q.shape[-1] != HEAD_DIM or any(t.shape != q.shape for t in (k, v, *more)):
         raise ValueError(f"q, k, v must share one [B, L, heads, {HEAD_DIM}] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, length, heads, hd = q.shape
+    b, length = q.shape[:2]
     if attention_mask.shape != (b, length) or (segment_ids is not None and segment_ids.shape != (b, length)):
         raise ValueError(f"the masks must be [B, L] = [{b}, {length}]")
     unit = 16 // q.element_size()  # elements in a 16-byte load
-    for t in (q, k, v):
+    for t in (q, k, v, *more):
         if t.stride(-1) != 1 or any(s % unit for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"masked_attention_cuda needs a contiguous last dim and 16-byte aligned rows, "
-                             f"got strides {t.stride()}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("masked_attention_cuda has no backward kernel: train with the einsum forms")
-    out = torch.empty((b, length, heads, hd), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
+            raise ValueError(f"{name} needs a contiguous last dim and 16-byte aligned rows, got strides {t.stride()}")
+
+
+def _masks(attention_mask, segment_ids):
     mask = attention_mask.to(torch.int32).contiguous()
-    seg = None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
+    return mask, None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {lib.masked_attention_error_string(rc).decode()} ({rc})")
+
+
+def masked_attention_cuda(q, k, v, attention_mask, segment_ids, scale: float, residuals: bool = False):
+    """The Hopper kernel (``csrc/attention.cu``) on the current stream: bf16
+    or f32 ``q``, ``k``, ``v`` of one shape ``[B, L, heads, 64]`` on one CUDA
+    device, each with a contiguous last dim and 16-byte aligned rows; the
+    masks ``[B, L]`` on the same device.  With ``residuals``, ``(out, m,
+    l)`` as ``masked_attention_plain`` gives them.  It computes no gradient:
+    ``MaskedAttention`` is the differentiable form, and a call here with a
+    gradient needed raises."""
+    _check_operands("masked_attention_cuda", q, k, v, attention_mask, segment_ids)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("masked_attention_cuda computes no gradient: call masked_attention (MaskedAttention)")
+    b, length, heads, hd = q.shape
+    out = torch.empty((b, length, heads, hd), dtype=q.dtype, device=q.device)
+    stats = torch.empty((2, b, heads, length), dtype=torch.float32, device=q.device) if residuals else None
+    if out.numel() == 0:
+        return (out, *stats) if residuals else out
+    mask, seg = _masks(attention_mask, segment_ids)
     lib = _bind()
     rc = lib.masked_attention(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mask.data_ptr(),
-        None if seg is None else seg.data_ptr(),
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if stats is None else stats[0].data_ptr(), None if stats is None else stats[1].data_ptr(),
+        mask.data_ptr(), None if seg is None else seg.data_ptr(),
         (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]),
         b, length, heads, hd, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"masked_attention kernel launch failed: {lib.masked_attention_error_string(rc).decode()} ({rc})"
-        )
+    _raise_on(lib, rc, "masked_attention")
     masked_attention_cuda.launches += 1
-    return out
+    return (out, *stats) if residuals else out
 
 
 masked_attention_cuda.launches = 0
 
 
+def masked_attention_backward_cuda(q, k, v, out, m, l, d_out, attention_mask, segment_ids, scale: float):
+    """The backward kernels (``csrc/attention.cu``) on the current stream:
+    the operands as ``masked_attention_cuda`` takes them, its output ``out``
+    and residuals ``m``, ``l``, the output's gradient ``d_out`` → ``(dq, dk,
+    dv)``, the three planes of one contiguous ``[B, L, 3, heads, 64]``
+    buffer.  ``D = rowsum(dO∘O)`` is a torch reduction, as JAX computes it
+    outside its kernels."""
+    d_out = d_out if d_out.stride(-1) == 1 and d_out.data_ptr() % 16 == 0 else d_out.contiguous()
+    _check_operands("masked_attention_backward_cuda", q, k, v, attention_mask, segment_ids, out, d_out)
+    b, length, heads, hd = q.shape
+    if m.shape != (b, heads, length) or l.shape != m.shape:
+        raise ValueError(f"the residuals must be [B, heads, L] = [{b}, {heads}, {length}]")
+    dqkv = torch.empty((b, length, 3, heads, hd), dtype=q.dtype, device=q.device)
+    if dqkv.numel() == 0:
+        return dqkv.unbind(2)
+    d = (d_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    m, l = m.float().contiguous(), l.float().contiguous()
+    mask, seg = _masks(attention_mask, segment_ids)
+    lib = _bind()
+    rc = lib.masked_attention_backward(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        d.data_ptr(), mask.data_ptr(), None if seg is None else seg.data_ptr(), dqkv.data_ptr(),
+        (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *d_out.stride()[:3]),
+        b, length, heads, hd, scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(lib, rc, "masked_attention_backward")
+    masked_attention_backward_cuda.launches += 1
+    return dqkv.unbind(2)
+
+
+masked_attention_backward_cuda.launches = 0
+
+
+class MaskedAttention(torch.autograd.Function):
+    """Differentiable masked attention of ``q``, ``k``, ``v`` [B, L, heads,
+    hd]: the forward saves its output and residuals ``m``, ``l``; the
+    backward recomputes ``P`` from them.  The device alone picks the
+    backend: the kernels for tensors on the card (a failed build or launch
+    raises), the plain versions for tensors on the CPU.  Under
+    ``torch.utils.checkpoint`` the recompute runs this forward again and
+    saves the same residuals."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attention_mask, segment_ids, scale: float):
+        fwd = masked_attention_cuda if q.is_cuda else masked_attention_plain
+        out, m, l = fwd(q, k, v, attention_mask, segment_ids, scale, residuals=True)
+        ctx.save_for_backward(q, k, v, out, m, l, attention_mask, segment_ids)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, m, l, attention_mask, segment_ids = ctx.saved_tensors
+        if q.is_cuda:
+            dq, dk, dv = masked_attention_backward_cuda(q, k, v, out, m, l, d_out, attention_mask, segment_ids,
+                                                        ctx.scale)
+        else:  # one [B, L, 3, heads, hd] buffer, as the kernels write it
+            grads = masked_attention_backward_plain(q, k, v, out, m, l, d_out, attention_mask, segment_ids, ctx.scale)
+            dq, dk, dv = torch.stack(grads, dim=2).unbind(2)
+        return dq, dk, dv, None, None, None
+
+
+class _SplitQKV(torch.autograd.Function):
+    """``qkv.unbind(2)`` whose backward hands back the one buffer that the
+    attention backward writes the three gradients into (no copy), and
+    stacks them otherwise."""
+
+    @staticmethod
+    def forward(ctx, qkv):
+        return qkv.unbind(2)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        base = dq._base
+        if (base is not None and dk._base is base and dv._base is base and base.dim() == 5
+                and base.is_contiguous() and base.shape[2] == 3 and base.shape[:2] == dq.shape[:2]
+                and base.shape[3:] == dq.shape[2:]
+                and [t.data_ptr() for t in (dq, dk, dv)] == [base[:, :, i].data_ptr() for i in range(3)]):
+            return base
+        return torch.stack((dq, dk, dv), dim=2)
+
+
+def split_qkv(qkv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``q``, ``k``, ``v`` views of the fused projection ``qkv`` [B, L, 3,
+    heads, hd]; where a gradient is needed, one whose backward passes the
+    attention backward's ``[B, L, 3, heads, hd]`` gradient on whole."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _SplitQKV.apply(qkv)
+    return qkv.unbind(2)
+
+
 def masked_attention(q, k, v, attention_mask, segment_ids, scale: float) -> torch.Tensor:
     """Masked attention of ``q``, ``k``, ``v`` [B, L, heads, hd].  A tensor on
     the card goes to the kernel (which raises on what it does not take); a
-    tensor on the CPU goes to the plain version."""
+    tensor on the CPU goes to the plain version; where a gradient is
+    needed, through ``MaskedAttention``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return MaskedAttention.apply(q, k, v, attention_mask, segment_ids, scale)
     if q.is_cuda:
         return masked_attention_cuda(q, k, v, attention_mask, segment_ids, scale)
     return masked_attention_plain(q, k, v, attention_mask, segment_ids, scale)

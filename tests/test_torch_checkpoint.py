@@ -132,7 +132,10 @@ def test_migrate_pre_qkv_params_matches_jax():
     _assert_leaves_equal(got, {k: v for k, v in want.items()})
 
 
-def test_tokenizer_config_round_trip_and_hf_raises():
+def test_tokenizer_config_round_trip_and_hf_raises(tmp_path):
+    """The hashing tokenizer's config round trip; an ``hf`` tokenizer that
+    cannot be loaded (a local directory without tokenizer files) raises, as
+    in JAX (``test_torch_hf.py`` loads one)."""
     tok = WordHashTokenizer(vocab_size=777, lowercase=False)
     assert tokenizer_config(tok) == {"kind": "wordhash", "vocab_size": 777, "lowercase": False}
     back = tokenizer_from_config(tokenizer_config(tok))
@@ -141,8 +144,8 @@ def test_tokenizer_config_round_trip_and_hf_raises():
     from fusion_tpu.data.tokenization import tokenizer_config as jax_tokenizer_config
 
     assert jax_tokenizer_config(JaxWordHash(vocab_size=777, lowercase=False)) == tokenizer_config(tok)
-    with pytest.raises(NotImplementedError, match="HFTokenizer"):
-        tokenizer_from_config({"kind": "hf", "name_or_path": "camembert-base"})
+    with pytest.raises(RuntimeError, match="could not be loaded"):
+        tokenizer_from_config({"kind": "hf", "name_or_path": str(tmp_path)})
 
 
 MODELS = {
@@ -213,12 +216,13 @@ def test_port_model_saved_from_bf16_loads_bit_equal(tmp_path):
     ({"quantize": "int8"}, "int8"),
 ])
 def test_unported_trunks_raise(entry, match):
-    """An X-MOD trunk still raises; an int8 trunk is ported and loads with
+    """Both trunks are ported now: an X-MOD entry loads as an ``XmodConfig``
+    (test_torch_hf.py holds its models to JAX's), an int8 trunk with
     ``quantize`` set (test_torch_int8_views.py holds its scores to JAX's)."""
     base = checkpoint.encoder_config_dict(__import__(
         "fusion_tpu_torch.models.encoder", fromlist=["EncoderConfig"]).EncoderConfig.tiny())
     if "languages" in entry:
-        with pytest.raises(NotImplementedError, match=match):
-            checkpoint.encoder_config_from_dict({**base, **entry})
+        cfg = checkpoint.encoder_config_from_dict({**base, **entry})
+        assert type(cfg).__name__ == "XmodConfig" and cfg.languages == ("fr",), match
         return
     assert checkpoint.encoder_config_from_dict({**base, **entry}).quantize == match

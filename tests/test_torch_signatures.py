@@ -101,6 +101,31 @@ def test_shared_positional_prefixes_agree():
     assert used == set(RENAMED), f"stale exceptions: {set(RENAMED) - used}"
 
 
+def test_hf_and_xmod_entry_points_are_checked():
+    """The HF and X-MOD import surface is among the shared functions whose
+    positional parameters ``test_shared_positional_prefixes_agree`` holds to
+    JAX's order."""
+    shared = {qual: (jax, port) for qual, jax, port in _shared()}
+    names = [
+        "models/encoder.py:load_hf_encoder_params", "models/encoder.py:migrate_pre_qkv_params",
+        "models/encoder.py:restore_params_bytes", "models/encoder.py:EncoderConfig.camembert_base",
+        "models/t5.py:load_hf_t5_encoder_params", "data/tokenization.py:HFTokenizer.__init__",
+        "data/tokenization.py:HFTokenizer.pair", "data/tokenization.py:tokenizer_from_config",
+        "models/biencoder.py:BiEncoder.from_pretrained_hf", "models/colbert.py:ColBERT.from_pretrained_hf",
+        "models/crossencoder.py:CrossEncoder.from_pretrained_hf", "models/biencoder.py:BiEncoder.from_xmod",
+        "models/colbert.py:ColBERT.from_xmod", "models/biencoder.py:BiEncoder.set_language",
+        "models/colbert.py:ColBERT.set_language", "models/xmod.py:load_hf_xmod_params",
+        "models/xmod.py:XmodConfig.tiny", "models/xmod.py:XmodConfig.lang_index",
+        "models/xmod.py:xmod_finetune_labels", "utils/xmod.py:xmod_language_code",
+        "utils/xmod.py:set_xmod_language", "utils/xmod.py:prepare_xmod_for_finetuning",
+        "utils/xmod.py:detect_language",
+    ]
+    missing = [n for n in names if n not in shared]
+    assert not missing, missing
+    jax, port = shared["models/xmod.py:load_hf_xmod_params"]
+    assert port[: len(jax)] == jax
+
+
 def test_port_parameters_are_keyword_only_or_last():
     """The port's own parameters on the functions F1 named."""
     import inspect
@@ -113,7 +138,10 @@ def test_port_parameters_are_keyword_only_or_last():
     for fn, name in ((HybridSearcher.build, "device"), (dense_topk.fused_dense_topk, "dead_rows"),
                      (maxsim.maxsim_search, "outer_block"), (maxsim.maxsim_search_tm, "outer_block"),
                      (BM25Index.build, "device"), (ColBERT.index_compressed, "timings"),
-                     (compress_token_index, "timings"), (CompressedTokenIndex.load, "device")):
+                     (compress_token_index, "timings"), (CompressedTokenIndex.load, "device"),
+                     (BiEncoder.from_pretrained_hf, "dtype"), (ColBERT.from_pretrained_hf, "dtype"),
+                     (CrossEncoder.from_pretrained_hf, "dtype"), (BiEncoder.from_xmod, "dtype"),
+                     (ColBERT.from_xmod, "dtype")):
         assert inspect.signature(fn).parameters[name].kind == kw_only, (fn, name)
 
 
