@@ -450,6 +450,34 @@ def device_events(prof) -> list:
     ]
 
 
+ATTENTION_KERNELS = ("fa_forward_kernel", "fa_dkv_kernel", "fa_dq_kernel", "rowdot_kernel")
+
+
+def attention_device_ms(torch, fn, runs: int = 5) -> dict:
+    """A torch.profiler trace of ``runs`` warm calls of ``fn``: device ms per
+    call in all and by the bf16 attention kernels' names (a kernel launched
+    through ctypes links to no CPU op, so it is read by name), with the
+    launches the trace holds per call (it may hold only some of them, as it
+    held only some back-to-back K4 calls: ``queued_ms`` gives the device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ops = device_events(prof)
+    out = {"device_ms": sum(e.self_device_time_total for e in ops) / 1000 / runs}
+    for key in ATTENTION_KERNELS:
+        hits = [e.self_device_time_total for e in ops if key in e.name]
+        if hits:
+            out[f"{key}_ms"] = sum(hits) / 1000 / runs
+            out[f"{key}_traced_launches"] = len(hits) / runs
+    return out
+
+
 def queued_ms(torch, fn, runs: int, sleep_cycles=50_000_000) -> tuple[float, bool]:
     """(device time in ms per call of ``fn()``, whether the queue stayed
     full): ``runs`` back-to-back calls between two CUDA events that the host
@@ -1021,12 +1049,15 @@ def attention_check(torch, searcher, queries, runs, device="cuda") -> dict:
     ``csrc/attention.cu``) against its plain version on the operands the
     main path gives it (layer 0 of the flash cross-encoder's first call on
     one batch, packed [128, 256, 12, 64] and flat [512, 256, 12, 64], bf16),
-    on a small ragged case with all-pad rows in bf16 and f32, and on a
-    query-encoder shape: max |kernel - plain| within ATTN_TOL, REPEATS more
-    launches bit-identical; at the packed shape the kernel's and the plain
-    version's CUDA-event times (RUNS in turns), the library call's
-    (scaled_dot_product_attention with the same float bias, pinned to the
-    memory-efficient kernel) and the bound from the allowed pairs."""
+    on one layer's doc call of the ColBERT bench step ([1024, 256, 12, 64]
+    bf16, every token real), on a small ragged case with all-pad rows in
+    bf16 and f32, and on a query-encoder shape: max |kernel - plain| within
+    ATTN_TOL, REPEATS more launches bit-identical; at the packed and the
+    bench doc shapes the kernel's and the plain version's CUDA-event times
+    (RUNS in turns), its device time from queued calls and in a
+    torch.profiler trace, the library call's (scaled_dot_product_attention
+    with the same float bias, pinned to the memory-efficient kernel) and
+    the bound from the allowed pairs."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1045,6 +1076,9 @@ def attention_check(torch, searcher, queries, runs, device="cuda") -> dict:
         "query": (*torch.randn((64, 32, 3, 12, 64), generator=gen, device=device).bfloat16().unbind(2),
                   (torch.arange(32, device=device)[None] < torch.randint(4, 33, (64, 1), generator=gen,
                                                                          device=device)).int(), None),
+        "bench_doc": (*torch.randn((*BENCH_DOC_SHAPE[:2], 3, *BENCH_DOC_SHAPE[2:]), generator=gen,
+                                   device=device).bfloat16().unbind(2),
+                      torch.ones(BENCH_DOC_SHAPE[:2], dtype=torch.int32, device=device), None),
     }
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         qkv = torch.randn((3, 70, 3, 2, 64), generator=gen, device=device).to(dtype)
@@ -1065,7 +1099,7 @@ def attention_check(torch, searcher, queries, runs, device="cuda") -> dict:
                   f"attention {name}: repeated launches differ")
             if q.dtype == torch.bfloat16:
                 err_max = max(err_max, res["max_abs_err"])
-            if name == "packed":
+            if name in ("packed", "bench_doc"):
                 res["ms"], res["plain_ms"] = alternating_ms(
                     torch, lambda: masked_attention_cuda(q, k, v, mask, seg, 0.125),
                     lambda: masked_attention_plain(q, k, v, mask, seg, 0.125), runs)
@@ -1078,7 +1112,17 @@ def attention_check(torch, searcher, queries, runs, device="cuda") -> dict:
                 res["bound_ms"] = bench_maxsim.bound(flops, nbytes)
                 res["allowed_share"] = flops / (4.0 * q.shape[-1] * q.shape[2] * q.shape[0] * q.shape[1] ** 2)
                 res["tflops_per_s"] = flops / res["ms"] / 1e9
+                fa = lambda: masked_attention_cuda(q, k, v, mask, seg, 0.125)  # noqa: E731
+                res["device_ms"], res["queue_full"] = queued_ms(torch, fa, runs)
+                res["traced"] = attention_device_ms(torch, fa)
+                res["share_of_bound"] = res["bound_ms"][0] / res["ms"]
+                res["device_share_of_bound"] = res["bound_ms"][0] / res["device_ms"]
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    res["library_device_ms"] = queued_ms(torch, lib, runs)[0]
             out[name] = res
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
     out["max_abs_err"] = err_max
     return out
 
@@ -2517,8 +2561,13 @@ def attention_bwd_check(torch, runs, device="cuda") -> dict:
     the residual mode's output bit-equal to the inference call's, its m
     within 1e-5 and l within 1e-5 relative of the plain log-sum-exp parts;
     dq, dk, dv within ATTN_BWD_TOL and bit-identical over REPEATS more
-    launches.  At the bench shape: FA inference against residual mode and
-    FA-bwd against its plain version in CUDA-event turns, the library
+    launches; also DPR's length, L 512 bf16 with ragged rows ([32, 512, 12,
+    64]: eight tiles of each kind).  At the bench shape: FA inference
+    against residual mode, and the D pass (``rowdot_cuda``) alone against
+    the torch reduction it replaced, in CUDA-event turns.  At the bench and
+    the packed shapes: FA-bwd against its plain version in CUDA-event
+    turns, its device time from queued calls and by kernel in a
+    torch.profiler trace, the library
     backward (scaled_dot_product_attention's, memory-efficient backend, the
     same boolean mask) and the bound."""
     import torch.nn.functional as F
@@ -2530,6 +2579,7 @@ def attention_bwd_check(torch, runs, device="cuda") -> dict:
         masked_attention_backward_plain,
         masked_attention_cuda,
         masked_attention_plain,
+        rowdot_cuda,
     )
     from fusion_tpu_torch.tools import bench_maxsim
     from fusion_tpu_torch.tools.attention_ab import packed_rows
@@ -2545,6 +2595,9 @@ def attention_bwd_check(torch, runs, device="cuda") -> dict:
         "ragged_bf16": ((3, 37, 2, hd), torch.bfloat16, ragged_mask, ragged_seg),
         "ragged_f32": ((3, 37, 2, hd), torch.float32, ragged_mask, ragged_seg),
         "packed_f32": ((16, 256, heads, hd), torch.float32, *packed_rows(16, 256, 6, device)),
+        "dpr512": ((32, 512, heads, hd), torch.bfloat16,
+                   (torch.arange(512, device=device)[None]
+                    < torch.randint(1, 513, (32, 1), generator=gen, device=device)).int(), None),
     }
     out, err_max = {}, 0.0
     for name, ((nb, nl, nh, nd), dtype, mask, seg) in cases.items():
@@ -2582,12 +2635,27 @@ def attention_bwd_check(torch, runs, device="cuda") -> dict:
                 res["fa_ms"], res["fa_residual_ms"] = alternating_ms(
                     torch, lambda: masked_attention_cuda(q, k, v, mask, seg, 0.125),
                     lambda: masked_attention_cuda(q, k, v, mask, seg, 0.125, residuals=True), runs)
+                # the D pass against the f32 reduction: f32 sums of the same
+                # 64 exact products in another order
+                d_want = (d_out.float() * o.float()).sum(-1).transpose(1, 2)
+                res["rowdot_rel_err"] = ((rowdot_cuda(d_out, o) - d_want).abs() / (1 + d_want.abs())).max().item()
+                check(res["rowdot_rel_err"] <= 1e-5, f"attention_bwd: the D pass off by {res['rowdot_rel_err']}")
+                del d_want
+                res["rowdot_ms"], res["torch_rowdot_ms"] = alternating_ms(
+                    torch, lambda: rowdot_cuda(d_out, o),
+                    lambda: (d_out.float() * o.float()).sum(-1).transpose(1, 2).contiguous(), runs)
+                res["rowdot_device_ms"] = queued_ms(torch, lambda: rowdot_cuda(d_out, o), runs)[0]
+            if name in ("bench_doc", "packed"):
                 res["ms"], res["plain_ms"] = alternating_ms(torch, bwd, plain, runs)
                 flops, nbytes = attention_bwd_work(torch, q, mask, seg)
                 res["bound_ms"], res["bound_by"] = bench_maxsim.bound(flops, nbytes)
                 res["tflops_per_s"] = flops / res["ms"] / 1e9
                 res["gb_moved"] = nbytes / 1e9
-        if name == "bench_doc":
+                res["share_of_bound"] = res["bound_ms"] / res["ms"]
+                res["device_ms"], res["queue_full"] = queued_ms(torch, bwd, runs)
+                res["device_share_of_bound"] = res["bound_ms"] / res["device_ms"]
+                res["traced"] = attention_device_ms(torch, bwd)
+        if name in ("bench_doc", "packed"):
             qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
             with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
                 o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed_keys(mask, seg), scale=0.125)
@@ -2595,6 +2663,7 @@ def attention_bwd_check(torch, runs, device="cuda") -> dict:
                 lib = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib, retain_graph=True)  # noqa: E731
                 lib()
                 res["library_ms"] = statistics.median(timed_ms(torch, lib, runs))
+                res["library_device_ms"] = queued_ms(torch, lib, runs)[0]
             del o_lib, qt, kt, vt
         out[name] = res
         del qkv, d_out, got, o, m, l
@@ -3375,12 +3444,21 @@ def main() -> int:
     if args.profile:
         profile_search(torch, mm, queries, "scale_mmarco4")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None, **more):
         return {
             "name": name, "route": "cuda", "source": f"fusion_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **more,
         }
+
+    def attention_shape(res, kernels):
+        """One shape of FA or FA-bwd for the kernels line: its times (device
+        ms from queued calls; the trace's ms by kernel), bound and library
+        call."""
+        bound = res["bound_ms"] if isinstance(res["bound_ms"], tuple) else (res["bound_ms"], res["bound_by"])
+        return {"shape": res["shape"], "ms": res["ms"], "plain_ms": res["plain_ms"], "device_ms": res["device_ms"],
+                "traced_ms": {k: res["traced"].get(f"{k}_ms") for k in kernels}, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": res["library_ms"], "library_device_ms": res["library_device_ms"]}
 
     record = {"kernels": [
         # K1's launches: the main path's run, the slice with the packed rerank
@@ -3415,10 +3493,11 @@ def main() -> int:
               "fusion_tpu/models/encoder.py:225 (jax.experimental.pallas.ops.tpu.flash_attention, "
               "forward pallas_call at flash_attention.py:758)",
               forms["packed_flash"]["kernel_launches_search"], attn["max_abs_err"], attn["packed"]["ms"],
-              attn["packed"]["plain_ms"], attn["packed"]["bound_ms"], library_ms=attn["packed"]["library_ms"]),
-        # FA's backward (dK/dV and dQ kernels): launches in [train_flash]'s
-        # flash run (this slice's path), times at one layer's doc call of
-        # that step, the library call scaled_dot_product_attention's
+              attn["packed"]["plain_ms"], attn["packed"]["bound_ms"], library_ms=attn["packed"]["library_ms"],
+              shapes={c: attention_shape(attn[c], ATTENTION_KERNELS[:1]) for c in ("packed", "bench_doc")}),
+        # FA's backward (the D pass, dK/dV and dQ kernels): launches in
+        # [train_flash]'s flash run (this slice's path), times at one layer's
+        # doc call of that step, the library call scaled_dot_product_attention's
         # backward (memory-efficient)
         entry("attention_backward", "attention.cu",
               "jax flash_attention.py:1121 (dK, dV pallas_call), :1456 (dQ pallas_call), via "
@@ -3426,7 +3505,8 @@ def main() -> int:
               train_flash["flash"]["launches"]["FA-bwd"], attn_bwd["max_abs_err"], attn_bwd["bench_doc"]["ms"],
               attn_bwd["bench_doc"]["plain_ms"],
               (attn_bwd["bench_doc"]["bound_ms"], attn_bwd["bench_doc"]["bound_by"]),
-              library_ms=attn_bwd["bench_doc"]["library_ms"]),
+              library_ms=attn_bwd["bench_doc"]["library_ms"],
+              shapes={c: attention_shape(attn_bwd[c], ATTENTION_KERNELS[1:]) for c in ("bench_doc", "packed")}),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

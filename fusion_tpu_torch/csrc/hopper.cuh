@@ -1,17 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this package
-// (maxsim.cu, dense_topk.cu, scatter_score.cu), as raw PTX: no CUTLASS/CuTe,
-// so each source builds in seconds.
+// (maxsim.cu, dense_topk.cu, scatter_score.cu, attention.cu), as raw PTX: no
+// CUTLASS/CuTe, so each source builds in seconds.
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a parity wait;
-//   * TMA tile loads (cp.async.bulk.tensor, 2-D and 3-D) completing on an
-//     mbarrier, and the host-side encoding of their CUtensorMap, reached
-//     through cudaGetDriverEntryPoint so a library links the runtime only;
-//     and 1-D bulk copies (cp.async.bulk), which need no tensor map;
-//   * wgmma shared-memory descriptors for K-major tiles under the 128-byte
-//     swizzle, wgmma fence / commit / wait, and the two product shapes the
-//     kernels issue (m64n128k16 from shared memory, m64n64k16 with A from
-//     registers);
+//   * TMA tile loads (cp.async.bulk.tensor, 2-D, 3-D and 4-D) completing on
+//     an mbarrier, 4-D TMA tile stores (bulk groups), and the host-side
+//     encoding of their CUtensorMap, reached through cudaGetDriverEntryPoint
+//     so a library links the runtime only; and 1-D bulk copies
+//     (cp.async.bulk), which need no tensor map;
+//   * wgmma shared-memory descriptors under the 128-byte swizzle for K-major
+//     tiles and for MN-major B tiles, wgmma fence / commit / wait, and the
+//     product shapes the kernels issue (m64n128k16 and m64n64k16 from shared
+//     memory, m64n64k16 with A from registers, with B K-major or MN-major);
 //   * setmaxnreg, to hand the producer's registers to the consumers;
 //   * on the host, the shared-memory limit raised once per kernel and device.
 //
@@ -24,6 +25,14 @@
 // leading byte offset is unused; a k16 step of bf16 (32 bytes) inside the
 // atom advances the start address by 32 bytes, and the hardware applies the
 // swizzle to the advanced address.
+//
+// The same tile read as an MN-major B operand (desc_mn_sw128: the 64 bf16 of
+// a 128-byte row are 64 consecutive N, the rows run along K): a k16 step is
+// 16 rows, so it advances the start address by 2,048 bytes (two whole 8-row
+// groups), the stride byte offset (between 8-row groups along K) is again
+// 1,024, and the leading byte offset would step to the next 64 N (unused at
+// N = 64).  This is how the attention kernels multiply by a [keys, 64] tile
+// whose keys are the reduction dim (P.V, dS.K, P^T.dO, dS^T.Q).
 
 #pragma once
 
@@ -109,6 +118,39 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the box at (c0, c1, c2, c3) of `map` from shared `src` (written by this
+// CTA's threads: fence_proxy_async first) to global memory; elements past a
+// dim are not written.  One bulk group per call of bulk_commit; the source
+// must stay untouched until bulk_wait_read<0> returns.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// returns once at most N of this thread's committed bulk groups still read
+// their shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // `bytes` (a multiple of 16) from global `src` to shared `dst`, both
 // 16-byte aligned, as one 1-D bulk copy completing on `bar`: no tensor map
 __device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
@@ -157,6 +199,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
          | (1ull << 16)                // leading byte offset (unused here)
          | (uint64_t(1024 >> 4) << 32)  // stride byte offset: 8 rows of 128 bytes
          | (1ull << 62);               // layout: 128-byte swizzle
+}
+
+// descriptor of an MN-major B tile under the 128-byte swizzle starting at
+// `p` (p is a swizzle atom's base plus a whole number of 8-row groups: k16
+// step k of a [K, 64] tile is p = base + k * 2,048)
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4)        // start address, 16-byte units
+         | (uint64_t(8192 >> 4) << 16)  // leading byte offset: the next 64 N (unused at N = 64)
+         | (uint64_t(1024 >> 4) << 32)  // stride byte offset: 8 rows (of K) of 128 bytes
+         | (1ull << 62);                // layout: 128-byte swizzle
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -238,6 +291,44 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+#define HOPPER_WGMMA_D32                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d[0:32] (+)= A * B^T over one k16 step: m64n64k16, A and B from shared
+// memory, both K-major (128-byte swizzle), f32 accumulators.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_WGMMA_D32
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0:32] (+)= A * B over one k16 step: m64n64k16, A from registers (as
+// wgmma_m64n64k16_rs), B from shared memory MN-major (desc_mn_sw128: the
+// transpose-B immediate set), f32 accumulators.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float* d, const uint32_t* a, uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+#undef HOPPER_WGMMA_D32
+
 // -------------------------------------------------------------------- host
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -291,7 +382,7 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, int ra
                               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
                         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -5,15 +5,19 @@ query may attend and -1e9 elsewhere.  A query attends the keys whose
 lie in its own segment.
 
   * ``masked_attention_cuda`` — the hand-written Hopper kernel
-    (``csrc/attention.cu``; bf16 on the tensor cores, f32 on scalar FMAs,
-    head dim 64); with ``residuals=True`` it also returns each query row's
-    f32 ``m`` (max of its biased logits) and ``l`` (sum of ``exp(logit -
-    m)``), ``[B, heads, L]``; ``masked_attention_cuda.launches`` counts its
-    launches;
-  * ``masked_attention_backward_cuda`` — the backward's two hand-written
-    kernels (dK/dV over the query tiles, dQ over the key tiles), writing
-    ``dq``, ``dk``, ``dv`` into one ``[B, L, 3, heads, hd]`` buffer; its
-    ``launches`` counts its calls (each launches both);
+    (``csrc/attention.cu``; bf16 by wgmma with TMA staging, f32 on scalar
+    FMAs, head dim 64); with ``residuals=True`` it also returns each query
+    row's f32 ``m`` (max of its biased logits) and ``l`` (sum of
+    ``exp(logit - m)``), ``[B, heads, L]``; ``masked_attention_cuda.launches``
+    counts its launches;
+  * ``masked_attention_backward_cuda`` — the backward's hand-written
+    kernels (the D pass, dK/dV over the query tiles, dQ over the key
+    tiles), writing ``dq``, ``dk``, ``dv`` into one ``[B, L, 3, heads, hd]``
+    buffer; its ``launches`` counts its calls (each launches all three);
+  * ``tensor_map`` and ``grids`` — what the bf16 kernels are launched with,
+    kept here so that the CPU tests reach them: each operand's TMA map
+    (dims, byte strides, box) from its strided view, and each kernel's
+    grid;
   * ``masked_attention_plain`` / ``masked_attention_backward_plain`` — the
     plain PyTorch versions, which a tensor on the CPU runs and the kernels
     are held to on the card.  The forward: the logits of the compute-dtype
@@ -98,24 +102,77 @@ def masked_attention_backward_plain(q, k, v, out, m, l, d_out, attention_mask, s
     return dq, dk, dv
 
 
+TILE = 64  # rows of one TMA box and of a block's own tile, bf16 and f32 (csrc/attention.cu kTile, kRows)
+MAX_BF16_LENGTH = 8192  # the bf16 kernels' bound on L (csrc/attention.cu kMaxLength)
+_ROWDOT_THREADS = 256  # csrc/attention.cu kRowdotThreads
+
+
 @functools.cache
 def _bind() -> ctypes.CDLL:
     lib = _kernels.load("attention")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.masked_attention.argtypes = [i, p, p, p, p, p, p, p, p, p, ll, i, i, i, ctypes.c_float, p]
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.masked_attention.argtypes = [i, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, f, ll, p]
     lib.masked_attention.restype = ctypes.c_int
-    lib.masked_attention_backward.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, ctypes.c_float, p]
+    lib.masked_attention_rowdot.argtypes = [i, p, p, p, p, ll, i, i, ll, p]
+    lib.masked_attention_rowdot.restype = ctypes.c_int
+    lib.masked_attention_backward.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, f, ll, p]
     lib.masked_attention_backward.restype = ctypes.c_int
     lib.masked_attention_error_string.argtypes = [ctypes.c_int]
     lib.masked_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def tensor_map(t: torch.Tensor) -> tuple[tuple[int, ...], tuple[int, ...], tuple[int, ...]]:
+    """The TMA tensor map of a bf16 ``[B, L, heads, 64]`` view, as the bf16
+    kernels encode it: ``(dims, byte strides, box)`` with dims ``(64, heads,
+    L, B)`` innermost first, the byte strides of dims 1..3 (head, position,
+    batch), and a box of one head's ``TILE`` rows.  Rows past L read as
+    zeros and are not written.  A dim of extent 1 is never stepped, so its
+    stride is taken as the extent of the dims inside it.  Raises where TMA
+    cannot take the view: a last dim that is not contiguous, a base address
+    or a stride that is not a multiple of 16 bytes, or a stride of 2^40
+    bytes or more."""
+    b, length, heads, hd = t.shape
+    es = t.element_size()
+    if t.stride(-1) != 1:
+        raise ValueError(f"a tensor map needs a contiguous last dim, got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError("a tensor map needs a 16-byte aligned base address")
+    dims = (hd, heads, length, b)
+    strides, inner = [], hd * es
+    for extent, stride in zip(dims[1:], (t.stride(2), t.stride(1), t.stride(0))):
+        step = inner if extent == 1 else stride * es
+        if step % 16 or not 0 < step < 2**40:
+            raise ValueError(f"TMA takes byte strides that are multiples of 16 below 2^40, got {step} "
+                             f"(element strides {t.stride()})")
+        strides.append(step)
+        inner = step * extent
+    return dims, tuple(strides), (hd, 1, TILE, 1)
+
+
+def _maps(*views) -> ctypes.Array:
+    """The 11 fields of each view's tensor map, back to back."""
+    fields = [x for t in views for part in tensor_map(t) for x in part]
+    return (ctypes.c_longlong * len(fields))(*fields)
+
+
+def grids(dtype: torch.dtype, b: int, length: int, heads: int) -> dict[str, tuple[int, int]]:
+    """(blocks, threads per block) of each kernel of ``csrc/attention.cu`` for
+    ``[b, length, heads, 64]`` operands: the forward, the backward's dQ and
+    dK/dV kernels, and the D pass.  bf16: a block per (row, head, 64 rows),
+    a consumer and a producer warpgroup; f32: a block of four warps per
+    (row, head, 64 rows).  The kernels refuse another grid."""
+    tiles = (b * heads * -(-length // TILE), 256 if dtype == torch.bfloat16 else 128)
+    lanes = HEAD_DIM * torch.finfo(dtype).bits // 8 // 16
+    rowdot = (-(-b * length * heads * lanes // _ROWDOT_THREADS), _ROWDOT_THREADS)
+    return {"forward": tiles, "dq": tiles, "dkv": tiles, "rowdot": rowdot}
+
+
 def _check_operands(name, q, k, v, attention_mask, segment_ids, *more) -> None:
     """Raise on what the kernels do not take: one CUDA device, bf16 or f32
     ``q``, ``k``, ``v`` (and ``more``, each of their shape and dtype) of one
     shape ``[B, L, heads, 64]`` with a contiguous last dim and 16-byte
-    aligned rows, masks ``[B, L]``."""
+    aligned rows, masks ``[B, L]``, and L <= MAX_BF16_LENGTH in bf16."""
     tensors = (q, k, v, attention_mask, *more) + (() if segment_ids is None else (segment_ids,))
     if not q.is_cuda or any(t.device != q.device for t in tensors):
         raise ValueError(f"{name} needs every tensor on one CUDA device")
@@ -127,6 +184,8 @@ def _check_operands(name, q, k, v, attention_mask, segment_ids, *more) -> None:
     b, length = q.shape[:2]
     if attention_mask.shape != (b, length) or (segment_ids is not None and segment_ids.shape != (b, length)):
         raise ValueError(f"the masks must be [B, L] = [{b}, {length}]")
+    if q.dtype == torch.bfloat16 and length > MAX_BF16_LENGTH:
+        raise ValueError(f"{name} takes bf16 rows of at most {MAX_BF16_LENGTH} tokens, got {length}")
     unit = 16 // q.element_size()  # elements in a 16-byte load
     for t in (q, k, v, *more):
         if t.stride(-1) != 1 or any(s % unit for s in t.stride()[:3]) or t.data_ptr() % 16:
@@ -159,14 +218,16 @@ def masked_attention_cuda(q, k, v, attention_mask, segment_ids, scale: float, re
     stats = torch.empty((2, b, heads, length), dtype=torch.float32, device=q.device) if residuals else None
     if out.numel() == 0:
         return (out, *stats) if residuals else out
+    maps = _maps(q, k, v, out) if q.dtype == torch.bfloat16 else None
     mask, seg = _masks(attention_mask, segment_ids)
     lib = _bind()
     rc = lib.masked_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if stats is None else stats[0].data_ptr(), None if stats is None else stats[1].data_ptr(),
         mask.data_ptr(), None if seg is None else seg.data_ptr(),
-        (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]),
-        b, length, heads, hd, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]), maps,
+        b, length, heads, hd, scale, grids(q.dtype, b, length, heads)["forward"][0],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, rc, "masked_attention")
     masked_attention_cuda.launches += 1
@@ -176,13 +237,34 @@ def masked_attention_cuda(q, k, v, attention_mask, segment_ids, scale: float, re
 masked_attention_cuda.launches = 0
 
 
+def rowdot_cuda(d_out: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The backward's D = rowsum(dO∘O) by its kernel (``csrc/attention.cu``
+    ``rowdot_kernel``): ``d_out`` and ``out`` [B, L, heads, 64] of one dtype
+    on the card (``out`` made contiguous, ``d_out`` with a contiguous last
+    dim and 16-byte aligned rows) → f32 ``[B, heads, L]``, the products
+    summed in f32 without the f32 copies of the two tensors."""
+    out = out.contiguous()
+    b, length, heads, hd = out.shape
+    d = torch.empty((b, heads, length), dtype=torch.float32, device=out.device)
+    if d.numel() == 0:
+        return d
+    lib = _bind()
+    rc = lib.masked_attention_rowdot(
+        _DTYPES[out.dtype], d_out.data_ptr(), out.data_ptr(), d.data_ptr(),
+        (ctypes.c_longlong * 3)(*d_out.stride()[:3]), b, length, heads, grids(out.dtype, b, length, heads)["rowdot"][0],
+        torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    _raise_on(lib, rc, "masked_attention_rowdot")
+    return d
+
+
 def masked_attention_backward_cuda(q, k, v, out, m, l, d_out, attention_mask, segment_ids, scale: float):
     """The backward kernels (``csrc/attention.cu``) on the current stream:
     the operands as ``masked_attention_cuda`` takes them, its output ``out``
     and residuals ``m``, ``l``, the output's gradient ``d_out`` → ``(dq, dk,
     dv)``, the three planes of one contiguous ``[B, L, 3, heads, 64]``
-    buffer.  ``D = rowsum(dO∘O)`` is a torch reduction, as JAX computes it
-    outside its kernels."""
+    buffer.  ``D = rowsum(dO∘O)`` is the first of its three launches
+    (``rowdot_cuda``), as JAX computes it outside its two kernels."""
     d_out = d_out if d_out.stride(-1) == 1 and d_out.data_ptr() % 16 == 0 else d_out.contiguous()
     _check_operands("masked_attention_backward_cuda", q, k, v, attention_mask, segment_ids, out, d_out)
     b, length, heads, hd = q.shape
@@ -191,15 +273,17 @@ def masked_attention_backward_cuda(q, k, v, out, m, l, d_out, attention_mask, se
     dqkv = torch.empty((b, length, 3, heads, hd), dtype=q.dtype, device=q.device)
     if dqkv.numel() == 0:
         return dqkv.unbind(2)
-    d = (d_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    maps = _maps(q, k, v, d_out, *dqkv.unbind(2)) if q.dtype == torch.bfloat16 else None
+    d = rowdot_cuda(d_out, out)
     m, l = m.float().contiguous(), l.float().contiguous()
     mask, seg = _masks(attention_mask, segment_ids)
     lib = _bind()
     rc = lib.masked_attention_backward(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), m.data_ptr(), l.data_ptr(),
         d.data_ptr(), mask.data_ptr(), None if seg is None else seg.data_ptr(), dqkv.data_ptr(),
-        (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *d_out.stride()[:3]),
-        b, length, heads, hd, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *d_out.stride()[:3]), maps,
+        b, length, heads, hd, scale, grids(q.dtype, b, length, heads)["dq"][0],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, rc, "masked_attention_backward")
     masked_attention_backward_cuda.launches += 1
