@@ -282,6 +282,41 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 (K1 launches) and hybrid with BM25 and the rerank; each
                 performance_hybrid.json holds every metric of
                 run_evaluation;
+     segmented — streaming updates over the slice: a SegmentedHybridSearcher
+                with [index]'s build kwargs (cross-encoder included) over
+                the first 23,940 docs, the last 4,000 added with their BM25
+                docs (a second neural segment, BM25 rebuilt over all 27,940
+                by the C++ builder, which must compile); against [index]'s
+                searcher over every doc: each system's merged top-100
+                overlap >= 0.99, BM25 scores at shared ids within rtol 1e-5
+                (idf is global), the fused top 1,000 checked, the flat-
+                reranked head a permutation of the fused head; 64 top-1 hits
+                deleted (none comes back, rows non-increasing), then
+                compact (one segment, n_docs 27,876, top-100 overlap >= 0.99
+                with the tombstoned lists); build, add (BM25 rebuild and
+                encoding), delete and compact seconds; ms per 64-query batch
+                with one segment, two, after compact (K1 once per segment a
+                batch, counted) and with the flat rerank; peak memory;
+     segmented_server — that searcher (rerank stage off) behind a
+                SearchServer: 192 single-query requests from 32 client
+                threads (a process of their own) paced over ~9 s, while
+                1,000 new docs are added and 32 served top-1 hits deleted:
+                /healthz reports n_docs after each update, no request
+                fails, no deleted id is served after its delete returned;
+                requests/s, p50 / p99, update seconds;
+     native   — the C++ posting builders (csrc/bm25_builder.cpp,
+                impact_packer.cpp, built by g++) against the numpy builders,
+                byte for byte: BM25 postings over the slice's corpus, the
+                chunked (docs_per_chunk 32,768, cap 64) and flat (cap 4,096)
+                impact packers over a seeded COO of 2^20 docs x 32 postings;
+                both times each;
+     cli_datasets — the CLI in process on an mMARCO-schema fixture of the
+                first 8,192 docs: bm25 --task evaluate --dataset mmarco-fr,
+                colbert --task train / test --dataset mmarco-fr (the test
+                through K1, counted) and dpr --task train / test --dataset
+                mrtydi-ja at --tiny; then [mmarco_reader] times
+                MmarcoReader.sample_from_hard_negatives over 50,000 seeded
+                synthetic records;
  11. scale_build — HybridSearcher.build(scale_mode=True, int8_corpus=True,
                 dense_impl="fused", splade_impl="scatter") over the same
                 corpus and models, all four legs (impact_cap 1024: at 14
@@ -342,7 +377,8 @@ searcher and prints the device busy share and the top kernels.
 
 Before them, each maxsim_variants run and each probe tool prints its own
 JSON record.  The line before the last is the kernels' JSON record
-(launches from the slice's search for K1, the four-leg mMARCO search for
+(launches from the slice's search for K1, with the segmented searcher's
+two-segment search beside them, the four-leg mMARCO search for
 K2, K3 and K4, the two bench runs for K1-v1 and K1-v2, the probe tools'
 runs for P3, P4 and P5, the packed flash search of [rerank_forms] for FA
 and [train_flash]'s flash run for FA-bwd; ms are CUDA-event medians for
@@ -368,6 +404,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = (1e-2, 1e-3)  # K1, K1-v1, K1-v2: atol, rtol
@@ -2264,6 +2301,393 @@ def server_check(torch, np, searcher, queries) -> dict:
 
 
 # ----------------------------------------------------------------------
+# streaming updates, the C++ posting builders, the dataset loaders
+# ----------------------------------------------------------------------
+SEG_DELTA, SEG_DELETES, SEG_SERVER_ADDS, SEG_SERVER_DELETES = 4_000, 64, 1_000, 32
+NATIVE_DOCS, NATIVE_PER_DOC, NATIVE_BLOCK = 1 << 20, 32, 1_024  # [native]'s COO: 2^20 docs x 32 postings
+READER_RECORDS = 50_000
+
+
+def segmented_merged(seg, queries) -> dict:
+    """Each system's merged (tombstone-stripped) list of a segmented
+    searcher, as its search forms them, on the card."""
+    from fusion_tpu_torch import segmented
+
+    per = {}
+    for s in ([seg.bm25_searcher] if seg.bm25_searcher is not None else []) + seg.segments:
+        for name, r in s.search_systems(queries, batch_size=BATCH).items():
+            per.setdefault(name, []).append(type(r)(r.ids.to(seg.device), r.scores.to(seg.device)))
+    return {n: seg._strip_tombstones(segmented._merge_ranked(p, seg.topk)) for n, p in per.items()}
+
+
+def without_rerank(seg, fn):
+    """``fn()`` with the segmented searcher's cross-encoder stage off (as
+    [server] serves the slice without its rerank)."""
+    ce, seg.cross_encoder = seg.cross_encoder, None
+    try:
+        return fn()
+    finally:
+        seg.cross_encoder = ce
+
+
+def segmented_timing(torch, seg, queries, kernels, rerank=False) -> tuple[dict, object]:
+    """ms per 64-query batch of the segmented searcher (median of 3 warm
+    192-query searches; with the flat rerank one) and K1's launches per
+    batch; also the last search's lists."""
+    last = {}
+
+    def search():
+        last["ranked"] = (seg.search(queries, batch_size=BATCH) if rerank else without_rerank(
+            seg, lambda: seg.search(queries, batch_size=BATCH)))[0]
+
+    if not rerank:
+        search()
+    reset_counts(*kernels)
+    times = [t / (len(queries) // BATCH) for t in timed_ms(torch, search, 1 if rerank else 3)]
+    return {"ms_per_batch": statistics.median(times), "runs": times,
+            "K1_per_batch": counts(*kernels)["K1"] / (len(times) * (len(queries) // BATCH))}, last["ranked"]
+
+
+def segmented_check(torch, np, docs, queries, build_kw, full, kernels) -> tuple[dict, object]:
+    """[segmented]: a SegmentedHybridSearcher over the slice's first
+    N - SEG_DELTA docs with [index]'s build kwargs, then the last SEG_DELTA
+    docs added; held against ``full`` (the [index] searcher over every doc,
+    no rerank): per-system merged lists, BM25 scores, the fused lists and the
+    flat-reranked head; SEG_DELETES top-1 hits deleted, then compact."""
+    from fusion_tpu_torch import native
+    from fusion_tpu_torch.segmented import SegmentedHybridSearcher
+
+    # BM25 rebuilds run the C++ builder; one that does not compile fails here
+    t0 = time.perf_counter()
+    check(native.get_library() is not None, "segmented: the C++ posting builders did not compile (see the log)")
+    out: dict = {"native_load_s": time.perf_counter() - t0, "bm25_builder": "C++ (csrc/bm25_builder.cpp)"}
+    n0 = len(docs) - SEG_DELTA
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seg = SegmentedHybridSearcher(dict(enumerate(docs[:n0])), bm25_docs=docs[:n0], **build_kw)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["one_segment"] = segmented_timing(torch, seg, queries, kernels)[0]
+    t0 = time.perf_counter()
+    seg.add_documents({i: docs[i] for i in range(n0, len(docs))}, bm25_docs=docs[n0:])
+    torch.cuda.synchronize()
+    out["add_s"] = time.perf_counter() - t0
+    out["add_bm25_rebuild_s"], out["add_encode_s"] = seg.build_seconds["bm25"], seg.build_seconds["segment"]
+    check(len(seg.segments) == 2 and seg.n_docs == len(docs), f"segmented: {len(seg.segments)} segments")
+
+    # the two-segment searcher against the full one
+    merged = segmented_merged(seg, queries)
+    want = full.search_systems(queries, batch_size=BATCH)
+    check(set(merged) == set(want), f"segmented: systems {sorted(merged)} vs {sorted(want)}")
+    out["top100_overlap_vs_full"] = {s: overlap100(np, merged[s].ids.cpu().numpy(), want[s].ids.numpy())
+                                     for s in want}
+    for s, v in out["top100_overlap_vs_full"].items():
+        check(v >= 0.99, f"segmented: the {s} leg's top-100 overlap with the full searcher {v}")
+    g_ids, g_sc = merged["bm25"].ids.cpu().numpy()[:, :100], merged["bm25"].scores.cpu().numpy()[:, :100]
+    w_ids, w_sc = want["bm25"].ids.numpy()[:, :100], want["bm25"].scores.numpy()[:, :100]
+    worst = 0.0
+    for qi in range(len(queries)):
+        w_at = dict(zip(w_ids[qi].tolist(), w_sc[qi].tolist()))
+        for i, s in zip(g_ids[qi].tolist(), g_sc[qi].tolist()):
+            if i in w_at and np.isfinite(s):
+                worst = max(worst, abs(s - w_at[i]) / max(abs(w_at[i]), 1e-12))
+    out["bm25_max_rel_diff_at_shared_ids"] = worst
+    check(worst <= 1e-5, f"segmented: BM25 scores at shared ids differ by {worst} (idf must be global)")
+    reset_counts(*kernels)
+    fused, _ = without_rerank(seg, lambda: seg.search(queries, batch_size=BATCH))
+    out["search_launches"] = counts(*kernels)
+    check(out["search_launches"]["K1"] == 2 * (len(queries) // BATCH),
+          f"segmented: K1 launched {out['search_launches']['K1']} times for two segments")
+    check_ranked(torch, np, fused, len(queries), TOPK, len(docs))
+    out["two_segments"] = segmented_timing(torch, seg, queries, kernels)[0]
+    out["flat_rerank"], reranked = segmented_timing(torch, seg, queries, kernels, rerank=True)
+    kr = seg.rerank_depth
+    for qi in range(len(queries)):
+        check(set(reranked.ids.numpy()[qi, :kr].tolist()) == set(fused.ids.numpy()[qi, :kr].tolist()),
+              f"segmented: query {qi}'s reranked head is not a permutation of its fused head")
+
+    # deletes: SEG_DELETES distinct top-1 (then top-2, ...) hits
+    victims: list[int] = []
+    for col in range(TOPK):
+        for i in fused.ids.numpy()[:, col].tolist():
+            if i >= 0 and i not in victims and len(victims) < SEG_DELETES:
+                victims.append(i)
+        if len(victims) == SEG_DELETES:
+            break
+    t0 = time.perf_counter()
+    seg.delete_documents(victims)
+    torch.cuda.synchronize()
+    out["delete_s"] = time.perf_counter() - t0
+    after, _ = without_rerank(seg, lambda: seg.search(queries, batch_size=BATCH))
+    a_ids, a_sc = after.ids.numpy(), after.scores.numpy()
+    check(not (set(a_ids.ravel().tolist()) & set(victims)), "segmented: a deleted doc came back")
+    for qi in range(len(queries)):
+        row = a_sc[qi][np.isfinite(a_sc[qi])]
+        check(bool((np.diff(row) <= 0).all()), f"segmented: query {qi}'s scores increase after the delete")
+    t0 = time.perf_counter()
+    seg.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    check(len(seg.segments) == 1 and seg.n_docs == len(docs) - SEG_DELETES,
+          f"segmented: after compact {len(seg.segments)} segments, n_docs {seg.n_docs}")
+    compacted, _ = without_rerank(seg, lambda: seg.search(queries, batch_size=BATCH))
+    out["n_docs_after_compact"] = seg.n_docs
+    out["top100_overlap_compact_vs_tombstoned"] = overlap100(np, compacted.ids.numpy(), a_ids)
+    check(out["top100_overlap_compact_vs_tombstoned"] >= 0.99, f"segmented: compact moved the lists {out}")
+    out["after_compact"] = segmented_timing(torch, seg, queries, kernels)[0]
+    check(out["two_segments"]["K1_per_batch"] == 2 and out["after_compact"]["K1_per_batch"] == 1,
+          f"segmented: K1 per batch {out['two_segments']['K1_per_batch']} / {out['after_compact']['K1_per_batch']}")
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out, seg
+
+
+# the clients of [segmented_server]: argv = base url, a JSON file of queries,
+# the thread count, seconds between a thread's requests; prints one JSON
+# object with (query, answer, ms, wall-clock start) per request
+_PACED_CLIENTS = """
+import concurrent.futures, json, sys, time, urllib.request
+url, path, threads, pause = sys.argv[1], sys.argv[2], int(sys.argv[3]), float(sys.argv[4])
+queries = json.load(open(path))
+def one(qi):
+    t, wall = time.perf_counter(), time.time()
+    req = urllib.request.Request(url + "/search", data=json.dumps({"queries": [queries[qi]], "topk": 10}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        res = json.loads(r.read())["results"][0]
+    return qi, res, (time.perf_counter() - t) * 1000, wall
+def worker(w):
+    got = []
+    for qi in range(w, len(queries), threads):
+        got.append(one(qi))
+        time.sleep(pause)
+    return got
+t0 = time.perf_counter()
+with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+    answers = [a for part in pool.map(worker, range(threads)) for a in part]
+print(json.dumps({"wall_s": time.perf_counter() - t0, "answers": answers}))
+"""
+
+
+def segmented_server_check(torch, np, seg, queries) -> dict:
+    """[segmented_server]: the segmented searcher (its rerank stage off, as
+    [server]) behind a SearchServer; 192 single-query requests from 32
+    client threads, paced over ~9 s, while SEG_SERVER_ADDS new docs are
+    added and SEG_SERVER_DELETES served top-1 hits deleted; /healthz after
+    each update, no failed request, no deleted id in an answer to a
+    request sent after its delete returned."""
+    import urllib.request
+
+    from fusion_tpu_torch.server import SearchServer
+
+    def healthz(url):
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            return json.loads(r.read())
+
+    new_docs, _ = zipf_corpus(np, SEG_SERVER_ADDS, 0, seed=77)
+    start_id = max(max(c) for c in seg._corpora) + 1
+    delta = {start_id + i: d for i, d in enumerate(new_docs)}
+    ce, seg.cross_encoder = seg.cross_encoder, None
+    direct, _ = seg.search(queries, batch_size=BATCH)
+    victims = list(dict.fromkeys(direct.ids.numpy()[:, 0].tolist()))[:SEG_SERVER_DELETES]
+    out: dict = {"segments_before_add": len(seg.segments)}
+    srv = SearchServer(seg, host="127.0.0.1", port=0, max_batch=BATCH, max_wait_ms=5.0)
+    srv.start()
+    host, port = srv.address
+    url = f"http://{host}:{port}"
+    try:
+        with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+            json.dump(list(queries), f)
+        try:
+            clients = subprocess.Popen([sys.executable, "-c", _PACED_CLIENTS, url, f.name, "32", "1.5"],
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            time.sleep(1.0)
+            n0 = healthz(url)["corpus_docs"]
+            t0 = time.perf_counter()
+            seg.add_documents(delta, bm25_docs=new_docs)
+            out["add_s"] = time.perf_counter() - t0
+            out["segments_after_add"] = len(seg.segments)
+            out["healthz_after_add"] = healthz(url)["corpus_docs"]
+            check(out["healthz_after_add"] == n0 + SEG_SERVER_ADDS == seg.n_docs,
+                  f"segmented_server: /healthz {out['healthz_after_add']} after adding to {n0}")
+            t0 = time.perf_counter()
+            seg.delete_documents(victims)
+            deleted_at = time.time()
+            out["delete_s"] = time.perf_counter() - t0
+            out["healthz_after_delete"] = healthz(url)["corpus_docs"]
+            check(out["healthz_after_delete"] == n0 + SEG_SERVER_ADDS - SEG_SERVER_DELETES,
+                  f"segmented_server: /healthz {out['healthz_after_delete']} after the delete")
+            stdout, stderr = clients.communicate(timeout=600)
+        finally:
+            os.unlink(f.name)
+        check(clients.returncode == 0, f"segmented_server: a request failed: {stderr[-2000:]}")
+        answers = json.loads(stdout)["answers"]
+        check(len(answers) == len(queries), f"segmented_server: {len(answers)} answers")
+        later = [res for _, res, _, wall in answers if wall > deleted_at]
+        check(bool(later), "segmented_server: no request was sent after the delete returned")
+        check(not any(set(res["ids"]) & set(victims) for res in later),
+              "segmented_server: a deleted id was served after its delete returned")
+        lat = sorted(a[2] for a in answers)
+        out.update(requests=len(answers), requests_after_delete=len(later), client_threads=32,
+                   wall_s=json.loads(stdout)["wall_s"], p50_request_ms=lat[len(lat) // 2],
+                   p99_request_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                   requests_per_s=len(answers) / json.loads(stdout)["wall_s"])
+        with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        out.update(batches=stats["batches"], errors=stats["errors"])
+        check(stats["errors"] == 0, f"segmented_server: {stats['errors']} errors")
+    finally:
+        srv.stop()
+        seg.cross_encoder = ce
+    return out
+
+
+def native_check(np, docs) -> dict:
+    """[native]: the C++ builders against the numpy ones, byte for byte:
+    BM25 postings over the slice's corpus, and both impact packers on a
+    seeded COO of NATIVE_DOCS docs x NATIVE_PER_DOC postings (slot j of a doc
+    draws a zipf term of block j of NATIVE_BLOCK terms, so (term, doc) pairs
+    are unique; impacts follow a random permutation of the docs, so they are
+    distinct within a term and no tie meets a cap)."""
+    from fusion_tpu_torch import native
+    from fusion_tpu_torch.index import inverted
+    from fusion_tpu_torch.models import bm25 as bm25_mod
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        t0 = time.perf_counter()
+        native.build_library(tmp)
+        out["gxx_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = native.build_bm25_postings(docs)
+    out["bm25_native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = bm25_mod._numpy_postings(docs)
+    out["bm25_numpy_s"] = time.perf_counter() - t0
+    check(got[0] == want[0], "native: BM25 vocabularies differ")
+    for name, g, w in zip(("entry_term", "entry_doc", "entry_tf", "doc_len", "df"), got[1:], want[1:]):
+        check(g.shape == w.shape and np.array_equal(g, w.astype(g.dtype)), f"native: BM25 {name} differs")
+    out["bm25_postings"] = int(got[1].size)
+
+    rng = np.random.default_rng(41)
+    p = 1.0 / np.arange(1, NATIVE_BLOCK + 1)
+    term = (rng.choice(NATIVE_BLOCK, size=(NATIVE_DOCS, NATIVE_PER_DOC), p=p / p.sum())
+            + np.arange(NATIVE_PER_DOC) * NATIVE_BLOCK).ravel()
+    doc = np.repeat(np.arange(NATIVE_DOCS, dtype=np.int64), NATIVE_PER_DOC)
+    imp = ((rng.permutation(NATIVE_DOCS) + 1).astype(np.float32) / NATIVE_DOCS)[doc]
+    vocab = NATIVE_BLOCK * NATIVE_PER_DOC
+    out["postings"] = int(term.size)
+    with warnings.catch_warnings():  # the zipf head terms pass the caps, as intended
+        warnings.simplefilter("ignore", inverted.ImpactCapTruncationWarning)
+        for label, run_native, run_numpy in (
+            ("chunked_dpc32768_capc64",
+             lambda: native.pack_chunked_impact(term, doc, imp, vocab, NATIVE_DOCS, 32_768, 64),
+             lambda: inverted.build_chunked_impact_index(term, doc, imp, vocab, NATIVE_DOCS, 32_768, 64, False,
+                                                         device="cpu")),
+            ("flat_cap4096",
+             lambda: native.pack_flat_impact(term, doc, imp, vocab, NATIVE_DOCS, 4096),
+             lambda: inverted.build_impact_index(term, doc, imp, vocab, NATIVE_DOCS, 4096, False, device="cpu")),
+        ):
+            t0 = time.perf_counter()
+            post_doc, post_imp, kept = run_native()
+            native_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = run_numpy()
+            numpy_s = time.perf_counter() - t0
+            ref_doc = ref.post_doc.numpy()
+            ref_doc = ref_doc.view(np.uint16) if post_doc.dtype == np.uint16 else ref_doc
+            check(kept == ref.nnz_kept and post_doc.tobytes() == ref_doc.tobytes()
+                  and post_imp.tobytes() == ref.post_impact.numpy().tobytes(), f"native: {label} arrays differ")
+            out[label] = {"native_s": native_s, "numpy_s": numpy_s, "speedup": numpy_s / native_s, "kept": kept}
+    return out
+
+
+def reader_check(np) -> dict:
+    """MmarcoReader.sample_from_hard_negatives over READER_RECORDS seeded
+    synthetic records (1-3 positives, 8 negatives over two systems, CE
+    scores for every pid of a record), 4 negatives per query, tuple format."""
+    from fusion_tpu_torch.data.mmarco import MmarcoReader
+
+    rng = np.random.default_rng(17)
+    n_pass = READER_RECORDS * 20
+    pos = rng.integers(0, n_pass, size=(READER_RECORDS, 3))
+    neg = rng.integers(0, n_pass, size=(READER_RECORDS, 8))
+    n_pos = rng.integers(1, 4, size=READER_RECORDS)
+    score = rng.uniform(0.0, 12.0, size=(READER_RECORDS, 8))
+    records, ce = [], {}
+    for q in range(READER_RECORDS):
+        pp, nn = pos[q, :n_pos[q]].tolist(), neg[q].tolist()
+        records.append({"qid": q, "pos": pp, "neg": {"bm25": nn[:4], "msmarco-MiniLM-L-6-v3": nn[4:]}})
+        ce[q] = {**dict(zip(nn, score[q].tolist())), **{p: 15.0 for p in pp}}
+    corpus = {p: f"passage {p}" for p in range(n_pass)}
+    reader = MmarcoReader("fr", corpus, {q: f"question {q}" for q in range(READER_RECORDS)},
+                          max_train_examples=READER_RECORDS, training_sample_format="tuple", negs_type="hard",
+                          negs_per_query=4)
+    t0 = time.perf_counter()
+    samples = reader.sample_from_hard_negatives(records, ce)
+    s = time.perf_counter() - t0
+    check(len(samples) == READER_RECORDS and all(len(x) == 6 for x in samples), "reader: wrong samples")
+    return {"records": READER_RECORDS, "samples": len(samples), "sample_s": s, "records_per_s": READER_RECORDS / s}
+
+
+def cli_datasets_check(torch, np, docs, queries, root, kernels, device="cuda") -> dict:
+    """[cli_datasets]: the CLI in process on a fixture in MmarcoLoader's raw
+    schema written from the slice's first CLI_DOCS docs (consonant words,
+    which the BM25 preprocessing keeps), 128 train and 64 dev questions:
+    bm25 --task evaluate --dataset mmarco-fr; colbert --task train --dataset
+    mmarco-fr --steps 2 then --task test (K1 counted); dpr --task train
+    --dataset mrtydi-ja --steps 2 then --task test; the models at --tiny."""
+    from fusion_tpu_torch.cli.main import main as cli_main
+
+    docs = [letter_text(d) for d in docs[:CLI_DOCS]]
+    qs = [letter_text(q) for q in queries]
+    rng = np.random.default_rng(8)
+    gold = rng.integers(0, len(docs), size=len(qs))
+    train, dev = range(0, 128), range(128, len(qs))
+    fixture = {
+        "corpus": {str(i): d for i, d in enumerate(docs)},
+        "train_queries": {str(q): qs[q] for q in train},
+        "train_qrels": {str(q): [int(gold[q])] for q in train},
+        "dev_queries": {str(q): qs[q] for q in dev},
+        "dev_qrels": {str(q): [int(gold[q])] for q in dev},
+        "negatives": {str(q): rng.integers(0, len(docs), size=3).tolist() for q in train},
+    }
+    fx = os.path.join(root, "mmarco_fixture.json")
+    with open(fx, "w") as f:
+        json.dump(fixture, f)
+    out: dict = {}
+    runs = (
+        ("bm25_mmarco", ["bm25", "--task", "evaluate", "--dataset", "mmarco-fr"], "performance_bm25_mmarco-fr_dev.json"),
+        ("colbert_mmarco_train", ["colbert", "--task", "train", "--dataset", "mmarco-fr", "--steps", "2",
+                                  "--train_batch_size", "8"], None),
+        ("colbert_mmarco_test", ["colbert", "--task", "test", "--dataset", "mmarco-fr", "--split", "dev"],
+         "performance_colbert.json"),
+        ("dpr_mrtydi_train", ["dpr", "--task", "train", "--dataset", "mrtydi-ja", "--steps", "2",
+                              "--train_batch_size", "8"], None),
+        ("dpr_mrtydi_test", ["dpr", "--task", "test", "--dataset", "mrtydi-ja", "--split", "dev"],
+         "ir_eval_results.csv"),
+    )
+    for label, argv, metrics in runs:
+        family = argv[0]
+        out_dir = os.path.join(root, f"{family}_{argv[4]}")
+        extra = ["--model_path", os.path.join(out_dir, "final")] if argv[2] == "test" and family != "bm25" else []
+        reset_counts(*kernels)
+        t0 = time.perf_counter()
+        cli_main(argv + extra + ["--fixture", fx, "--output_dir", out_dir, "--tiny", "--device", device])
+        torch.cuda.synchronize()
+        out[label] = {"s": time.perf_counter() - t0, "K1": counts(*kernels)["K1"]}
+        if metrics:
+            check(os.path.isfile(os.path.join(out_dir, metrics)), f"cli_datasets {label}: no {metrics}")
+        else:
+            check(os.path.isdir(os.path.join(out_dir, "final")), f"cli_datasets {label}: no final/")
+    with open(os.path.join(root, "bm25_mmarco-fr", "performance_bm25_mmarco-fr_dev.json")) as f:
+        out["bm25_mmarco"]["recall@100"] = json.load(f)["recall@100"]
+    check(out["colbert_mmarco_test"]["K1"] > 0, "cli_datasets: colbert --task test never launched K1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
 # training
 # ----------------------------------------------------------------------
 H100_BF16_FLOPS = 989e12  # dense bf16 peak of the H100 SXM data sheet
@@ -3223,11 +3647,9 @@ def main() -> int:
     # the slice with the monoBERT stage (packed, the default): the main
     # path, driven in [rerank]; the phases before it serve the slice without
     # the stage (rerank_depth 0)
-    reranked = HybridSearcher.build(
-        dict(enumerate(docs)), bm25_docs=docs, dense_model=dense, splade_model=splade,
-        colbert_model=colbert, cross_encoder=ce, rerank_depth=100, topk=TOPK, batch_size=256,
-        fusion_method="rrf", device="cuda",
-    )
+    index_kw = dict(dense_model=dense, splade_model=splade, colbert_model=colbert, cross_encoder=ce,
+                    rerank_depth=100, topk=TOPK, batch_size=256, fusion_method="rrf", device="cuda")
+    reranked = HybridSearcher.build(dict(enumerate(docs)), bm25_docs=docs, **index_kw)
     torch.cuda.synchronize()
     searcher = dataclasses.replace(reranked, rerank_depth=0)
     phase("index", t0, systems=",".join(searcher.active_systems), docs=N_DOCS,
@@ -3287,6 +3709,25 @@ def main() -> int:
     t0 = time.perf_counter()
     phase("cli", t0, gpu=repr(smi), **cli_check(torch, np, docs, queries, ckpt_paths, work.name, kernels))
     work.cleanup()
+
+    # streaming updates over the slice: the segmented searcher against the
+    # full one, served while it takes updates; the C++ posting builders; the
+    # dataset loaders through the CLI
+    t0 = time.perf_counter()
+    seg_out, seg = segmented_check(torch, np, docs, queries, index_kw, searcher, kernels)
+    phase("segmented", t0, gpu=repr(smi), **seg_out)
+    t0 = time.perf_counter()
+    phase("segmented_server", t0, gpu=repr(smi), **segmented_server_check(torch, np, seg, queries))
+    del seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase("native", t0, **native_check(np, docs))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_datasets_") as root:
+        t0 = time.perf_counter()
+        phase("cli_datasets", t0, gpu=repr(smi), **cli_datasets_check(torch, np, docs, queries, root, kernels))
+    t0 = time.perf_counter()
+    phase("mmarco_reader", t0, **reader_check(np))
 
     bm25 = searcher.bm25
     del searcher, reranked, ranked
@@ -3461,9 +3902,10 @@ def main() -> int:
                 "bound_by": bound[1], "library_ms": res["library_ms"], "library_device_ms": res["library_device_ms"]}
 
     record = {"kernels": [
-        # K1's launches: the main path's run, the slice with the packed rerank
+        # K1's launches: the main path's run, the slice with the packed rerank;
+        # and the segmented path's 192-query search over two segments
         entry("maxsim_maxima_T", "maxsim.cu", "fusion_tpu/ops/maxsim.py:225", rerank["launches"]["K1"],
-              k1_err, k1_ms, k1_plain, k1_bound),
+              k1_err, k1_ms, k1_plain, k1_bound, segmented_launches=seg_out["search_launches"]["K1"]),
         entry("dense_binmax", "dense_topk.cu", "fusion_tpu/ops/dense_topk.py:102", mm4_counts["K2"],
               k2_err, k2_ms, k2_plain, k2_bound),
         entry("scatter_binmax", "scatter_score.cu", "fusion_tpu/ops/scatter_score.py:138",

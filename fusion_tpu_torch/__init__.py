@@ -29,7 +29,11 @@ evaluators (``eval/evaluators.py``) and the CLI's ``dpr`` / ``splade`` /
 kernels (the attention backward); and the way in from HuggingFace
 checkpoints, read without ``transformers`` (``utils/hf_weights.py``; the
 models' ``from_pretrained_hf``, the T5 loader, ``HFTokenizer``) and the X-MOD
-trunk with per-language adapters (``models/xmod.py``, ``from_xmod``).
+trunk with per-language adapters (``models/xmod.py``, ``from_xmod``); and
+streaming index updates (``segmented.py``: new documents as new neural
+segments, BM25 rebuilt over the whole corpus on every update by the C++
+posting builders of ``native/``), the mMARCO and Mr. TyDi loaders from local
+record files (``data/mmarco.py``, ``data/mrtydi.py``).
 """
 
 __version__ = "0.1.0"
@@ -42,13 +46,25 @@ _LAZY = {
     "BiEncoder": "fusion_tpu_torch.models.biencoder",
     "ColBERT": "fusion_tpu_torch.models.colbert",
     "CrossEncoder": "fusion_tpu_torch.models.crossencoder",
+    "T5CrossEncoder": "fusion_tpu_torch.models.t5",
     "EncoderConfig": "fusion_tpu_torch.models.encoder",
     "Aggregator": "fusion_tpu_torch.fusion.aggregator",
-    "HybridSearcher": "fusion_tpu_torch.serving",
     "HybridPipeline": "fusion_tpu_torch.hybrid",
-    "Metrics": "fusion_tpu_torch.eval.metrics",
+    "HybridSearcher": "fusion_tpu_torch.serving",
+    "SegmentedHybridSearcher": "fusion_tpu_torch.segmented",
     "SearchServer": "fusion_tpu_torch.server",
-    "T5CrossEncoder": "fusion_tpu_torch.models.t5",
+    "Metrics": "fusion_tpu_torch.eval.metrics",
+    "InformationRetrievalEvaluator": "fusion_tpu_torch.eval.evaluators",
+    "RerankingEvaluator": "fusion_tpu_torch.eval.evaluators",
+    # index forms
+    "ImpactIndex": "fusion_tpu_torch.index.inverted",
+    "ChunkedImpactIndex": "fusion_tpu_torch.index.inverted",
+    "scatter_impact_search": "fusion_tpu_torch.ops.scatter_score",
+    "SparseIndex": "fusion_tpu_torch.index.sparse",
+    "QuantizedDenseIndex": "fusion_tpu_torch.index.dense_quant",
+    "CompressedTokenIndex": "fusion_tpu_torch.index.compression",
+    "IVFIndex": "fusion_tpu_torch.index.plaid",
+    # multilingual trunk
     "XmodConfig": "fusion_tpu_torch.models.xmod",
     "XmodEncoder": "fusion_tpu_torch.models.xmod",
 }

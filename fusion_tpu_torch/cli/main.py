@@ -11,8 +11,11 @@ commands and flags:
                              --run_monobert] [--fusion ...] [--normalization ...]
   fusion-tpu-torch serve    --task {build,search} --index_dir DIR [--http_port N]
 
-Data comes from a ``--fixture`` JSON file ({"corpus": [...], "questions":
-{...}, "negatives": {...}}, LLeQA's record layout).  One flag is new:
+Data comes from a ``--fixture`` JSON file: LLeQA's record layout
+({"corpus": [...], "questions": {...}, "negatives": {...}}) by default, or
+with ``--dataset mmarco-<lang>`` / ``mrtydi-<lang>`` the mMARCO raw schema
+({"corpus": {pid: text}, "train_queries", "train_qrels", "dev_queries",
+"dev_qrels", "negatives"}).  One flag is new:
 ``--device`` (default ``cuda``; the commands raise without a card unless
 given ``--device cpu``).  Models load from ``--*_path`` checkpoints (either
 package's) and compute in the ``--bf16`` dtype (f32 with ``--no_bf16`` or
@@ -28,8 +31,9 @@ config's, as the JAX CLI does); ``serve`` adds ``--ce_attention`` (default
 ``monobert --backbone t5`` builds a T5 cross-encoder, and a checkpoint's
 ``model_type`` picks the backbone it loads as.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: the mMARCO and Mr. TyDi datasets and data-parallel training.
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md item:
+data-parallel training.  The datasets' network sources (the HF hub,
+ir_datasets) are not ported either: without ``--fixture`` a loader raises.
 """
 
 from __future__ import annotations
@@ -47,16 +51,33 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to fusion_tpu_torch yet (ROADMAP.md Queue 1, {item})")
 
 
+def _read_fixture(args):
+    if not args.fixture:
+        return None
+    with open(args.fixture) as f:
+        return json.load(f)
+
+
 def _load_lleqa(args):
-    """The dataset: LLeQA records from ``--fixture``."""
-    if args.dataset.startswith(("mmarco", "mrtydi")):
-        raise _not_ported(f"--dataset {args.dataset} (its loader)", "item 15")
+    """Dataset loader dispatch: LLeQA (the default), mmarco-<lang> or
+    mrtydi-<lang>, each from the ``--fixture`` records; every loader has
+    load() / biencoder_sampler() / crossencoder_pairs() / hard_negatives(),
+    so every command runs on each dataset."""
+    if args.dataset.startswith("mmarco"):
+        from fusion_tpu_torch.data.mmarco import MmarcoLoader
+
+        lang = args.dataset.split("-")[-1] if "-" in args.dataset else "fr"
+        return MmarcoLoader(lang=lang, raw=_read_fixture(args))
+    if args.dataset.startswith("mrtydi"):
+        from fusion_tpu_torch.data.mrtydi import MrTyDiLoader
+
+        lang = args.dataset.split("-")[-1] if "-" in args.dataset else "en"
+        return MrTyDiLoader(lang=lang, raw=_read_fixture(args))
     from fusion_tpu_torch.data.lleqa import LLeQALoader
 
-    if not args.fixture:
+    raw = _read_fixture(args)
+    if raw is None:
         return LLeQALoader()  # raises: the hub loader is not ported
-    with open(args.fixture) as f:
-        raw = json.load(f)
     neg = raw.get("negatives")
     if neg:
         neg = {int(k): v for k, v in neg.items()}

@@ -11,11 +11,12 @@
     and ``post_impact f16``.  Local ids are uint16 values kept in an int16
     tensor (torch has few uint16 ops); the pad ``CHUNK_SENTINEL`` = 0xFFFF
     reads back as -1, so widen with ``& 0xFFFF``.  It feeds the scatter
-    scorer (``ops/scatter_score.py``).
+    scorer (``ops/scatter_score.py``) and the sort form
+    ``chunked_impact_search``.
 
-The build functions run on the host in numpy (offline index work) and put
-the arrays on ``device``; they give the arrays that
-``fusion_tpu/index/inverted.py``'s numpy build path gives.
+The build functions run on the host (offline index work: numpy, or the C++
+packers of ``native/`` above 2M postings) and put the arrays on ``device``;
+they give the arrays that ``fusion_tpu/index/inverted.py`` gives.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from fusion_tpu_torch import native
 from fusion_tpu_torch.core.ranked import RankedLists, stable_topk
 from fusion_tpu_torch.ops.segscan import segmented_run_totals
 
@@ -38,6 +40,9 @@ from fusion_tpu_torch.ops.segscan import segmented_run_totals
 CAP_SAFE_DF_RATIO = 8
 
 CHUNK_SENTINEL = 0xFFFF  # uint16 pad (docs_per_chunk must stay < 65535)
+
+# builds above this many postings go through the C++ packers by default
+NATIVE_MIN_POSTINGS = 2_000_000
 
 
 class ImpactCapTruncationWarning(UserWarning):
@@ -122,33 +127,46 @@ def build_impact_index(
     vocab_size: int,
     n_docs: int,
     cap: int = 4096,
+    use_native: bool | None = None,
     *,
     device,
 ) -> ImpactIndex:
-    """Host-side build from COO postings; the arrays then live on ``device``."""
+    """Host-side build from COO postings; the arrays then live on ``device``.
+
+    ``use_native=None`` routes builds of more than 2M postings through the
+    C++ packer (``native.pack_flat_impact``: a bounded heap per term instead
+    of a global lexsort), True always (numpy when it does not compile); both
+    give the same arrays where impacts do not tie at a term's cap."""
     t = np.asarray(entry_term, dtype=np.int64)
+    if use_native is None:
+        use_native = t.size > NATIVE_MIN_POSTINGS
     counts = np.bincount(t, minlength=vocab_size)
     df = counts[:vocab_size].astype(np.int32)
     _warn_unsafe_terms(df, cap, int(t.size))
-    d = np.asarray(entry_doc, dtype=np.int64)
-    v = np.asarray(impacts, dtype=np.float32)
-    order = np.lexsort((-v, t))  # term-major, impact descending within term
-    t, d, v = t[order], d[order], v[order]
-    starts = np.zeros(vocab_size + 1, dtype=np.int64)
-    np.cumsum(counts, out=starts[1:])
-    rank = np.arange(t.size, dtype=np.int64) - starts[t]
-    keep = rank < cap
-    post_doc = np.full((vocab_size + 1, cap), n_docs, dtype=np.int32)
-    post_imp = np.zeros((vocab_size + 1, cap), dtype=np.float16)
-    post_doc[t[keep], rank[keep]] = d[keep]
-    post_imp[t[keep], rank[keep]] = v[keep]
+    packed = native.pack_flat_impact(entry_term, entry_doc, impacts, vocab_size, n_docs, cap) if use_native else None
+    if packed is not None:
+        post_doc, post_imp, kept = packed
+    else:
+        d = np.asarray(entry_doc, dtype=np.int64)
+        v = np.asarray(impacts, dtype=np.float32)
+        order = np.lexsort((-v, t))  # term-major, impact descending within term
+        t, d, v = t[order], d[order], v[order]
+        starts = np.zeros(vocab_size + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        rank = np.arange(t.size, dtype=np.int64) - starts[t]
+        keep = rank < cap
+        post_doc = np.full((vocab_size + 1, cap), n_docs, dtype=np.int32)
+        post_imp = np.zeros((vocab_size + 1, cap), dtype=np.float16)
+        post_doc[t[keep], rank[keep]] = d[keep]
+        post_imp[t[keep], rank[keep]] = v[keep]
+        kept = int(keep.sum())
     return ImpactIndex(
         post_doc=torch.as_tensor(post_doc, device=device),
         post_impact=torch.as_tensor(post_imp, device=device),
         n_docs=n_docs,
         vocab_size=vocab_size,
         cap=cap,
-        nnz_kept=int(keep.sum()),
+        nnz_kept=kept,
         term_df=df,
     )
 
@@ -248,39 +266,52 @@ def build_chunked_impact_index(
     n_docs: int,
     docs_per_chunk: int = 32768,
     cap_per_chunk: int = 64,
+    use_native: bool | None = None,
     *,
     device,
 ) -> ChunkedImpactIndex:
-    """Host-side build from COO postings; the arrays then live on ``device``."""
+    """Host-side build from COO postings; the arrays then live on ``device``.
+
+    ``use_native`` as ``build_impact_index``'s, through
+    ``native.pack_chunked_impact`` (a bounded heap per (term, chunk))."""
     if docs_per_chunk >= CHUNK_SENTINEL:
         raise ValueError(f"docs_per_chunk must be < {CHUNK_SENTINEL}, got {docs_per_chunk}")
     num_chunks = -(-n_docs // docs_per_chunk)
     t = np.asarray(entry_term, dtype=np.int64)
+    if use_native is None:
+        use_native = t.size > NATIVE_MIN_POSTINGS
     # the chunked form's per-term capacity is cap_per_chunk × num_chunks
     _warn_unsafe_terms(
         np.bincount(t, minlength=vocab_size)[:vocab_size],
         cap_per_chunk * num_chunks,
         int(t.size),
     )
-    d = np.asarray(entry_doc, dtype=np.int64)
-    v = np.asarray(impacts, dtype=np.float32)
-    c = d // docs_per_chunk
-    local = (d % docs_per_chunk).astype(np.uint16)
-    group = t * num_chunks + c  # (term, chunk) group key
-    order = np.lexsort((-v, group))
-    group, local, v = group[order], local[order], v[order]
-    counts = np.bincount(group, minlength=vocab_size * num_chunks)
-    starts = np.zeros(vocab_size * num_chunks + 1, dtype=np.int64)
-    np.cumsum(counts, out=starts[1:])
-    rank = np.arange(group.size, dtype=np.int64) - starts[group]
-    keep = rank < cap_per_chunk
-    post_doc = np.full(
-        (vocab_size + 1, num_chunks, cap_per_chunk), CHUNK_SENTINEL, dtype=np.uint16
-    )
-    post_imp = np.zeros((vocab_size + 1, num_chunks, cap_per_chunk), dtype=np.float16)
-    gk = group[keep]
-    post_doc[gk // num_chunks, gk % num_chunks, rank[keep]] = local[keep]
-    post_imp[gk // num_chunks, gk % num_chunks, rank[keep]] = v[keep]
+    packed = native.pack_chunked_impact(
+        entry_term, entry_doc, impacts, vocab_size, n_docs, docs_per_chunk, cap_per_chunk
+    ) if use_native else None
+    if packed is not None:
+        post_doc, post_imp, kept = packed
+    else:
+        d = np.asarray(entry_doc, dtype=np.int64)
+        v = np.asarray(impacts, dtype=np.float32)
+        c = d // docs_per_chunk
+        local = (d % docs_per_chunk).astype(np.uint16)
+        group = t * num_chunks + c  # (term, chunk) group key
+        order = np.lexsort((-v, group))
+        group, local, v = group[order], local[order], v[order]
+        counts = np.bincount(group, minlength=vocab_size * num_chunks)
+        starts = np.zeros(vocab_size * num_chunks + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        rank = np.arange(group.size, dtype=np.int64) - starts[group]
+        keep = rank < cap_per_chunk
+        post_doc = np.full(
+            (vocab_size + 1, num_chunks, cap_per_chunk), CHUNK_SENTINEL, dtype=np.uint16
+        )
+        post_imp = np.zeros((vocab_size + 1, num_chunks, cap_per_chunk), dtype=np.float16)
+        gk = group[keep]
+        post_doc[gk // num_chunks, gk % num_chunks, rank[keep]] = local[keep]
+        post_imp[gk // num_chunks, gk % num_chunks, rank[keep]] = v[keep]
+        kept = int(keep.sum())
     return ChunkedImpactIndex(
         post_doc=torch.as_tensor(post_doc.view(np.int16), device=device),
         post_impact=torch.as_tensor(post_imp, device=device),
@@ -288,8 +319,70 @@ def build_chunked_impact_index(
         docs_per_chunk=docs_per_chunk,
         vocab_size=vocab_size,
         cap_per_chunk=cap_per_chunk,
-        nnz_kept=int(keep.sum()),
+        nnz_kept=kept,
     )
+
+
+def chunked_impact_search(
+    q_terms: torch.Tensor,  # int [Q, Kq] (pad >= vocab_size)
+    q_weights: torch.Tensor,  # f32 [Q, Kq]
+    index: ChunkedImpactIndex,
+    k: int = 1000,
+    local_k: int = 128,
+    bf16_payload: bool = True,
+    packed_sort: bool = True,
+) -> RankedLists:
+    """Query-driven scoring over the chunked impact index, the sort form:
+    per (query, chunk) row the gathered postings are sorted by local doc id
+    and each doc's run summed (``ops/segscan.py``); each chunk contributes
+    its top ``local_k`` docs to the final top-k (a chunk holding more of the
+    global top-k is the approximation, quantified by
+    ``scripts/recall_study.py``).
+
+    ``bf16_payload`` multiplies and sorts 2-byte payloads (f16 impacts times
+    f16 query weights, ≤0.4 % relative error per term; the runs sum in
+    f32), False f32 ones.  ``packed_sort`` sorts one key of (doc id << 16 |
+    f16 impact bits) instead of a key and a payload: impacts are ≥ 0, so the
+    bits order as the values, and each run's entries come out in one order
+    whatever the sort.  Selects are exact and stable where the JAX package's
+    per-chunk select is ``approx_max_k``."""
+    q, kq = q_terms.shape
+    vp1, c, capc = index.post_doc.shape
+    k = min(k, index.n_docs)
+    terms = q_terms.long().clamp(0, vp1 - 1)
+    docs = index.post_doc[terms].long() & 0xFFFF  # [Q, Kq, C, capc] local ids
+    if bf16_payload:
+        vals = index.post_impact[terms] * q_weights[..., None, None].to(torch.float16)
+    else:
+        vals = index.post_impact[terms].float() * q_weights.float()[..., None, None]
+    width = kq * capc
+    docs = docs.permute(0, 2, 1, 3).reshape(q * c, width)
+    vals = vals.permute(0, 2, 1, 3).reshape(q * c, width)
+    if packed_sort and bf16_payload:
+        key_s, _ = torch.sort((docs << 16) | (vals.view(torch.int16).long() & 0xFFFF), dim=1)
+        docs_s = key_s >> 16
+        vals_s = (key_s & 0xFFFF).to(torch.int16).view(torch.float16)
+    else:
+        docs_s, order = torch.sort(docs, dim=1, stable=True)
+        vals_s = torch.gather(vals, 1, order)
+    seg, is_end = segmented_run_totals(docs_s, vals_s.float(), kq)
+    scores = torch.where(is_end & (docs_s != CHUNK_SENTINEL), seg, -torch.inf)
+    lk = min(local_k, width)
+    if width > 2 * lk:
+        loc_vals, loc_pos = stable_topk(scores, lk)
+        loc_docs = torch.gather(docs_s, 1, loc_pos)
+    else:
+        lk, loc_vals, loc_docs = width, scores, docs_s
+    chunk_of_row = (torch.arange(q * c, device=docs.device) % c)[:, None]
+    gids = torch.where(torch.isfinite(loc_vals), chunk_of_row * index.docs_per_chunk + loc_docs, -1)
+    pool_scores, pool_ids = loc_vals.reshape(q, c * lk), gids.reshape(q, c * lk)
+    kk = min(k, pool_scores.shape[-1])
+    top_scores, pos = stable_topk(pool_scores, kk)
+    top_ids = torch.where(torch.isfinite(top_scores), torch.gather(pool_ids, 1, pos), -1)
+    if kk < k:
+        top_scores = torch.nn.functional.pad(top_scores, (0, k - kk), value=-torch.inf)
+        top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
+    return RankedLists(ids=top_ids.to(torch.int32), scores=top_scores)
 
 
 def _sparse_coo(sparse_index) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

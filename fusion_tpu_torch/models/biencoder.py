@@ -13,7 +13,8 @@ host round trip (a SPLADE corpus at 28k docs is 1.8 GB in bf16).  ``search``
 is the model's own exact search over an encoded corpus, ``search_sparse``
 the SPLADE search over a fixed-K pruned index.  ``save`` / ``load`` read and
 write the JAX package's checkpoint format (``models/checkpoint.py``), and
-``save_checkpoint`` the rolling step exports of a training run.
+``save_checkpoint`` the rolling step exports of a training run;
+``decode_splade_vector`` reads SPLADE activations as bags of words.
 
 Training builds the model with ``param_dtype=torch.float32`` (f32 master
 weights; the forward still computes in ``cfg.dtype``) and calls
@@ -421,3 +422,21 @@ class BiEncoder(EncoderViews):
             device=device,
             param_dtype=param_dtype,
         )
+
+
+def decode_splade_vector(activations, tokenizer, topk_tokens: int = 96) -> list[dict]:
+    """Top-k activated vocabulary entries as a bag-of-words dict per row,
+    ``{token: round(100 * weight)}`` for the positive ones (tokens by
+    ``tokenizer.tok`` when it has one, else the ids as strings)."""
+    if isinstance(activations, torch.Tensor):
+        activations = activations.float().cpu().numpy()
+    out = []
+    for row in np.asarray(activations):
+        idx = np.argsort(-row)[:topk_tokens]
+        idx = idx[row[idx] > 0]
+        weights = np.round(row[idx] * 100).astype(int)
+        keep = weights > 0
+        ids = idx[keep].tolist()
+        toks = tokenizer.tok.convert_ids_to_tokens(ids) if hasattr(tokenizer, "tok") else [str(i) for i in ids]
+        out.append(dict(zip(toks, weights[keep].tolist())))
+    return out

@@ -1,6 +1,6 @@
 """BM25 / TF-IDF / ATIRE-BM25 lexical index.
 
-  build (host, once):
+  build (host, once; the C++ builder of ``native/`` or numpy):
       vocab, df[V], doc_len[N], and COO postings (term, doc, tf) sorted by
       (doc, term) and padded to a static nnz (pad term = V, pad doc = N).
   score:
@@ -29,6 +29,7 @@ top non-positives as training negatives.
 from __future__ import annotations
 
 import json
+import logging
 import os
 from dataclasses import dataclass
 from typing import Sequence
@@ -36,6 +37,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from fusion_tpu_torch import native
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists, ranked_from_scores
 from fusion_tpu_torch.ops.mips import matmul_f32
@@ -50,6 +52,32 @@ def _compute_idf(variant: str, n_docs: int, df: np.ndarray) -> np.ndarray:
     if variant == "bm25":
         return np.log10((n_docs - df + 0.5) / (df + 0.5))
     return np.log10((n_docs + 1.0) / (df + 1.0))
+
+
+def _numpy_postings(corpus: Sequence[str]):
+    """The numpy posting builder: (vocab, entry_term, entry_doc, entry_tf,
+    doc_len, df) in doc-major (doc, term) order, vocabulary ids in order of
+    first appearance (what ``native.build_bm25_postings`` returns)."""
+    n = len(corpus)
+    tokens_per_doc = [doc.split() for doc in corpus]
+    doc_len = np.array([len(t) for t in tokens_per_doc], dtype=np.float32)
+    total = int(doc_len.sum())
+    vocab: dict[str, int] = {}
+    if not total:
+        empty = np.zeros(0, dtype=np.int64)
+        return vocab, empty, empty, np.zeros(0, dtype=np.float32), doc_len, empty
+    setdefault = vocab.setdefault
+    inv = np.fromiter(
+        (setdefault(t, len(vocab)) for toks in tokens_per_doc for t in toks),
+        dtype=np.int64,
+        count=total,
+    )
+    v = len(vocab)
+    doc_ids = np.repeat(np.arange(n, dtype=np.int64), doc_len.astype(np.int64))
+    # (doc, term) pair counts; sorted int keys → doc-major COO
+    uniq_pairs, counts = np.unique(doc_ids * v + inv, return_counts=True)
+    entry_term = uniq_pairs % v
+    return vocab, entry_term, uniq_pairs // v, counts.astype(np.float32), doc_len, np.bincount(entry_term, minlength=v)
 
 
 @dataclass
@@ -77,39 +105,44 @@ class BM25Index:
         b: float = 0.75,
         variant: str = "bm25",
         pad_multiple: int = 1024,
+        use_native: str | bool = "auto",
         *,
         device="cuda",
     ) -> "BM25Index":
-        """Build from preprocessed documents (whitespace-token strings) with
-        one vectorized numpy pass; the arrays then live on ``device``."""
+        """Build from preprocessed documents (whitespace-token strings); the
+        arrays then live on ``device``.
+
+        The host pass is the C++ builder (``native/``, ``csrc/bm25_builder.cpp``)
+        with ``use_native`` "auto" (when it compiles and no document holds a
+        newline) or True (which raises instead of falling back), and one
+        vectorized numpy pass otherwise; both give the same arrays."""
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+        if use_native not in ("auto", True, False):
+            raise ValueError(f"use_native must be 'auto', True or False, got {use_native!r}")
         device = resolve_device(device)
         n = len(corpus)
-        tokens_per_doc = [doc.split() for doc in corpus]
-        doc_len = np.array([len(t) for t in tokens_per_doc], dtype=np.float32)
-        total = int(doc_len.sum())
-        vocab: dict[str, int] = {}
-        if total:
-            setdefault = vocab.setdefault
-            inv = np.fromiter(
-                (setdefault(t, len(vocab)) for toks in tokens_per_doc for t in toks),
-                dtype=np.int64,
-                count=total,
-            )
-            v = len(vocab)
-            doc_ids = np.repeat(np.arange(n, dtype=np.int64), doc_len.astype(np.int64))
-            # (doc, term) pair counts; sorted int keys → doc-major COO
-            uniq_pairs, counts = np.unique(doc_ids * v + inv, return_counts=True)
-            entry_doc = uniq_pairs // v
-            entry_term = uniq_pairs % v
-            entry_tf = counts.astype(np.float32)
-        else:
-            v = 0
-            entry_term = np.zeros(0, dtype=np.int64)
-            entry_doc = np.zeros(0, dtype=np.int64)
-            entry_tf = np.zeros(0, dtype=np.float32)
-        df = np.bincount(entry_term, minlength=v) if v else np.zeros(0, dtype=np.int64)
+        native_out = None
+        if use_native in ("auto", True) and n:
+            if any("\n" in d for d in corpus):
+                # the builder's wire format is line-delimited
+                if use_native is True:
+                    raise RuntimeError(
+                        "native BM25 builder cannot take documents containing "
+                        "newlines — preprocess them out or use use_native='auto'"
+                    )
+            else:
+                native_out = native.build_bm25_postings(list(corpus))
+                if native_out is None and use_native is True:
+                    raise RuntimeError("native BM25 builder unavailable (g++ failed; see the logged stderr)")
+        logging.getLogger(__name__).info(
+            "BM25 posting builder: %s (%d docs)",
+            "C++ (csrc/bm25_builder.cpp)" if native_out is not None else "numpy", n,
+        )
+        vocab, entry_term, entry_doc, entry_tf, doc_len, df = (
+            native_out if native_out is not None else _numpy_postings(corpus)
+        )
+        v = len(vocab)
 
         nnz = entry_term.shape[0]
         nnz_pad = max(pad_multiple, -(-nnz // pad_multiple) * pad_multiple)

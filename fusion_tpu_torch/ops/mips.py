@@ -63,3 +63,16 @@ def dense_search(
         return torch.where(fresh[None, :], scores, -torch.inf), real_start
 
     return blockwise_topk_offset(block_scores, num_blocks, q, k, local_topk=local_topk)
+
+
+def chunked_encode_search(
+    encode_fn,
+    query_batches,
+    corpus_embs: torch.Tensor,
+    k: int = 1000,
+    similarity: str = "cos_sim",
+) -> RankedLists:
+    """Encode each query batch (``encode_fn(batch)`` → [B, H] on the
+    corpus's device) and search it; the batches' lists concatenated."""
+    parts = [dense_search(encode_fn(batch), corpus_embs, k=k, similarity=similarity) for batch in query_batches]
+    return RankedLists(ids=torch.cat([p.ids for p in parts]), scores=torch.cat([p.scores for p in parts]))

@@ -1,12 +1,14 @@
 """HTTP serving front-end with dynamic batching.
 
-Wraps a built (or reloaded) ``HybridSearcher`` in a small dependency-free
-HTTP server:
+Wraps a built (or reloaded) ``HybridSearcher``, or a
+``SegmentedHybridSearcher`` that takes updates while it serves, in a small
+dependency-free HTTP server:
 
   * POST /search   {"queries": ["..."], "topk": 10}  →
                    {"results": [{"ids": [...], "scores": [...]}, ...],
                     "batch_ms": ...}
   * GET  /healthz  → {"ok": true, "systems": [...], "corpus_docs": N}
+                   (a segmented searcher's live ``n_docs``)
   * GET  /stats    → request/batch/query counters and latency aggregates
 
 One process owns the card:
@@ -99,7 +101,9 @@ class SearchServer:
             def do_GET(self):  # noqa: N802
                 if self.path == "/healthz":
                     s = server.searcher
-                    n = int(np.asarray(s.corpus_ids).shape[0])
+                    n = getattr(s, "n_docs", None)  # SegmentedHybridSearcher
+                    if n is None:
+                        n = int(np.asarray(s.corpus_ids).shape[0])
                     self._reply(
                         200,
                         {

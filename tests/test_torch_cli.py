@@ -303,12 +303,12 @@ def options_index(setup):
     return index
 
 
-# The ids name the cases as they stood while the options raised (the
-# dataset ones still do, with their ROADMAP.md item).
+# The ids name the cases as they stood while the options raised (each with
+# its ROADMAP.md item).
 @pytest.mark.parametrize("argv, match", [
     (["monobert", "--task", "train", "--backbone", "t5"], None),
-    (["dpr", "--task", "test", "--dataset", "mrtydi-en"], "item 15"),
-    (["bm25", "--dataset", "mmarco-fr"], "item 15"),
+    (["dpr", "--task", "test", "--dataset", "mrtydi-en"], None),
+    (["bm25", "--dataset", "mmarco-fr"], None),
     (["hybrid", "--run_dpr", "--attention_impl", "flash"], None),
     (["serve", "--task", "search", "--ce_int8"], None),
     (["serve", "--task", "search", "--encoders_int8"], None),
@@ -318,15 +318,32 @@ def options_index(setup):
 ], ids=["argv0-item 17", "argv1-item 15", "argv2-item 15", "argv3-item 2", "argv4-item 17", "argv5-item 17",
         "argv6-item 9", "argv7-item 9", "argv8-item 2"])
 def test_unported_options_raise(setup, options_index, request, argv, match):
-    """The datasets still raise.  Every other option runs in both packages
-    and ranks alike: the T5 backbone trains and the JAX package scores its
-    final/ as the port does; ``hybrid --attention_impl`` (which ``--tiny``
-    leaves at the tiny config's form, in both) gives JAX's metrics; each
-    ``serve`` option searching one JAX-built directory gives JAX's TSV."""
+    """Every option runs in both packages and ranks alike: the datasets
+    (from ``tests/test_cli.py``'s mMARCO-schema fixture, the DPR test on the
+    JAX-saved checkpoint) give JAX's metrics; the T5 backbone trains and the
+    JAX package scores its final/ as the port does; ``hybrid
+    --attention_impl`` (which ``--tiny`` leaves at the tiny config's form, in
+    both) gives JAX's metrics; each ``serve`` option searching one JAX-built
+    directory gives JAX's TSV."""
     label = "option_" + request.node.callspec.id.split("-")[0]
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             _run(setup, "port", label, argv)
+        return
+    if "--dataset" in argv:
+        from test_cli import MMARCO_FIXTURE
+
+        fx = setup[0] / "mmarco_fixture.json"
+        fx.write_text(json.dumps(MMARCO_FIXTURE))
+        flags = ["--fixture", str(fx), "--tiny"] + (["--model_path", setup[2]["dpr"], "--split", "dev"]
+                                                    if argv[0] == "dpr" else [])
+        out = {pkg: setup[0] / pkg / label for pkg in ("jax", "port")}
+        jax_main(argv + flags + ["--output_dir", str(out["jax"])])
+        main(argv + flags + ["--output_dir", str(out["port"]), "--device", DEVICE])
+        name = "ir_eval_results.csv" if argv[0] == "dpr" else "performance_bm25_mmarco-fr_dev.json"
+        want, got = (_csv(str(out[p] / name)) if argv[0] == "dpr" else [_json(str(out[p] / name))] for p in out)
+        strip = lambda rows: [{k: v for k, v in r.items() if "latency" not in k and "ms/" not in k} for r in rows]  # noqa: E731
+        assert strip(got) == strip(want) and got
         return
     if argv[0] == "monobert":
         out = _run(setup, "port", label, argv + ["--steps", "2", "--train_batch_size", "2"])

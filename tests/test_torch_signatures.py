@@ -251,3 +251,46 @@ def test_approx_local_topk_is_the_exact_select(rng, block):
     assert torch.equal(off.ids, want.ids)
     with pytest.raises(ValueError, match="local_topk"):
         topk.blockwise_topk(score_block, 1, 3, 7, local_topk="binned")
+
+
+def test_every_jax_public_name_imports_from_the_port():
+    """F3: each name of ``fusion_tpu.__all__`` resolves on
+    ``fusion_tpu_torch`` to the port's object of the same module path."""
+    import importlib
+
+    import fusion_tpu
+    import fusion_tpu_torch
+
+    assert set(fusion_tpu.__all__) <= set(fusion_tpu_torch.__all__)
+    for name in fusion_tpu.__all__:
+        obj, jax_obj = getattr(fusion_tpu_torch, name), getattr(fusion_tpu, name)
+        if not callable(jax_obj):  # __version__, PAD_ID
+            assert obj == jax_obj, name
+            continue
+        jax_module = jax_obj.__module__
+        assert obj.__module__ == jax_module.replace("fusion_tpu", "fusion_tpu_torch", 1), name
+        assert obj is getattr(importlib.import_module(obj.__module__), name)
+    with pytest.raises(AttributeError):
+        fusion_tpu_torch.NoSuchName  # noqa: B018
+
+
+def test_no_port_module_imports_jax():
+    """Every module of the port imports in a fresh interpreter without JAX,
+    flax or the JAX package being loaded."""
+    import subprocess
+    import sys
+
+    modules = []
+    port_root = os.path.join(ROOT, "fusion_tpu_torch")
+    for dirpath, _, files in os.walk(port_root):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, name), ROOT)[:-3].replace(os.sep, ".")
+                modules.append(rel.removesuffix(".__init__"))
+    assert "fusion_tpu_torch.segmented" in modules and "fusion_tpu_torch.native" in modules
+    code = (
+        f"import importlib, sys\nfor m in {modules!r}:\n    importlib.import_module(m)\n"
+        "print(sorted(m for m in ('jax', 'flax', 'fusion_tpu') if m in sys.modules))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=ROOT)
+    assert out.stdout.strip() == "[]"
