@@ -271,7 +271,7 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 than requests; requests/s, p50 / p99 request ms, batches and
                 mean batch ms;
      cli      — fusion_tpu_torch.cli.main in process on a fixture JSON of the
-                slice's first 8,192 docs and 192 dev questions (the zipf words
+                slice's first 4,096 docs and 192 dev questions (the zipf words
                 spelled in consonants, which the CLI's BM25 preprocessing
                 keeps as they are), the [checkpoint] models as --*_path:
                 serve --task build and serve --task search with all four
@@ -308,10 +308,10 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 impact_packer.cpp, built by g++) against the numpy builders,
                 byte for byte: BM25 postings over the slice's corpus, the
                 chunked (docs_per_chunk 32,768, cap 64) and flat (cap 4,096)
-                impact packers over a seeded COO of 2^20 docs x 32 postings;
+                impact packers over a seeded COO of 2^19 docs x 32 postings;
                 both times each;
      cli_datasets — the CLI in process on an mMARCO-schema fixture of the
-                first 8,192 docs: bm25 --task evaluate --dataset mmarco-fr,
+                first 4,096 docs: bm25 --task evaluate --dataset mmarco-fr,
                 colbert --task train / test --dataset mmarco-fr (the test
                 through K1, counted) and dpr --task train / test --dataset
                 mrtydi-ja at --tiny; then [mmarco_reader] times
@@ -341,6 +341,33 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 rounding moves, so its leg's and the fused lists' overlap
                 with the unrounded searcher is reported, not gated; K2, K3
                 and K4 launch as in memory);
+     sharded  — the multi-device serving tier over that searcher with the
+                slice's cross-encoder in the flash form (packed rerank of the
+                fused top 100: FA): first one rank in this process on an NCCL
+                group (ShardedHybridSearcher on make_mesh(index=1)): each
+                leg's top-100 overlap with the single-device searcher 1.0 and
+                the fused top 1,000 the same ids; ms per batch of both in
+                turns, the time inside the collectives (none run on one
+                rank), launches per batch.  Then two ranks on the one card
+                over gloo (NCCL refuses two ranks on one device), each a
+                child process of this script that loads the searcher this
+                process saved (torch.save), keeps its half and serves the 192
+                queries: each leg's merged list through the kernels against
+                the same with K2, K3, K4 and FA pointed at their plain
+                versions on the same card tensors (top-100 overlap >= 0.99),
+                BM25's merged list equal to the single-device one (ids and
+                scores bit-equal), the fused list checked, the reranked head
+                a permutation of the fused head, the packed stage's logits
+                with FA against its plain version (within 0.04), PLAID's
+                overlap with the single-device leg (reported); the six
+                sharded functions of the index forms at S = 2 against their
+                single-device searches (impact bit-equal; dense, the
+                token-major MaxSim (K1) and the compressed one (K1) equal up
+                to ties within 1e-5; scatter (K3) within K3's bound; PLAID
+                (K4) overlap reported); ms per batch, collective ms and
+                bytes per batch, peak memory per rank (the two ranks share
+                one card's SMs: no speed-up figure); a rank's failure or a
+                timeout fails the phase;
  13. scale_mmarco — the three-leg scale-mode searcher (BM25 impact index, int8
                 DPR, SPLADE scatter + exact rescore) at mMARCO's 8,912,896 docs:
                 the query side is real (tokenizers, the zipf BM25Index, the
@@ -381,7 +408,8 @@ JSON record.  The line before the last is the kernels' JSON record
 two-segment search beside them, the four-leg mMARCO search for
 K2, K3 and K4, the two bench runs for K1-v1 and K1-v2, the probe tools'
 runs for P3, P4 and P5, the packed flash search of [rerank_forms] for FA
-and [train_flash]'s flash run for FA-bwd; ms are CUDA-event medians for
+and [train_flash]'s flash run for FA-bwd, and for K1-K4 and FA the
+launches on [sharded]'s two-rank path beside them; ms are CUDA-event medians for
 K1-K3, K1-v1, K1-v2, P3-P5, FA and FA-bwd and queued device times for K4;
 bound_ms is the least time an H100 SXM could take for the same work, from
 this run's shapes and data; library_ms is index_select's time for K4,
@@ -435,8 +463,9 @@ T5_LOGIT_TOL = 0.01
 # set from a dev run of the phase on an H100 (0.979-0.991 for einsum_bf16
 # and flash, 0.949-0.973 for int8)
 ENCODER_FORM_OVERLAP, ENCODER_INT8_OVERLAP = 0.95, 0.9
-# [cli]: the fixture's docs, the first CLI_DOCS of the slice's corpus
-CLI_DOCS = 8_192
+# [cli]: the fixture's docs, the first CLI_DOCS of the slice's corpus (cut
+# to keep the whole run well inside its time limit)
+CLI_DOCS = 4_096
 N_DOCS, BATCH, N_QUERIES, TOPK, LQ, LD, DIM = 27_940, 64, 192, 1000, 32, 128, 128
 RUNS = 10  # alternating kernel / plain timing runs
 REPEATS = 10  # repeated launches that must give bit-identical outputs
@@ -2304,7 +2333,9 @@ def server_check(torch, np, searcher, queries) -> dict:
 # streaming updates, the C++ posting builders, the dataset loaders
 # ----------------------------------------------------------------------
 SEG_DELTA, SEG_DELETES, SEG_SERVER_ADDS, SEG_SERVER_DELETES = 4_000, 64, 1_000, 32
-NATIVE_DOCS, NATIVE_PER_DOC, NATIVE_BLOCK = 1 << 20, 32, 1_024  # [native]'s COO: 2^20 docs x 32 postings
+# [native]'s COO: 2^19 docs x 32 postings (mMARCO's 8.9M docs cut to keep the
+# numpy reference builders, and the run, inside its time limit)
+NATIVE_DOCS, NATIVE_PER_DOC, NATIVE_BLOCK = 1 << 19, 32, 1_024
 READER_RECORDS = 50_000
 
 
@@ -3315,11 +3346,386 @@ def cli_train_check(torch, np, root, kernels, device="cuda") -> dict:
     return out
 
 
+# [sharded]: ranks on the one card, and the time the two-rank part may take
+# (the children's load, searches and checks take about half a minute on an
+# H100; a rank that dies leaves the other waiting in a collective)
+SHARDED_RANKS, SHARDED_TIMEOUT = 2, 420
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_up_to_ties(np, got_ids, got_scores, want_ids, want_scores, atol) -> bool:
+    """Scores within ``atol`` (the same -inf pattern) and ids equal position
+    by position, except inside runs of reference scores within ``atol`` of
+    each other, which must hold the same ids as sets (a run that reaches the
+    last position is held to its scores only: its members past the cut are
+    in neither list)."""
+    gi, wi, g, w = (np.asarray(x) for x in (got_ids, want_ids, got_scores, want_scores))
+    fin = np.isfinite(w)
+    if gi.shape != wi.shape or not (np.isfinite(g) == fin).all():
+        return False
+    if not np.allclose(np.where(fin, g, 0.0), np.where(fin, w, 0.0), atol=atol, rtol=0.0):
+        return False
+    for row in range(w.shape[0]):
+        s, start = w[row], 0
+        for end in range(1, len(s) + 1):
+            if end == len(s) or not (s[end] == s[end - 1] or abs(s[end] - s[end - 1]) <= atol):
+                if end < len(s) and set(gi[row, start:end].tolist()) != set(wi[row, start:end].tolist()):
+                    return False
+                start = end
+    return True
+
+
+class plain_kernels:
+    """Within the block, K2, K3, K4 and FA's dispatchers send tensors on the
+    card to the kernels' plain versions (the same tensors, PyTorch ops)."""
+
+    def __enter__(self):
+        from fusion_tpu_torch.index import plaid
+        from fusion_tpu_torch.models import encoder
+        from fusion_tpu_torch.ops import attention, dense_topk, gather_rows, scatter_score
+
+        self.saved = (dense_topk.binmax, scatter_score.scatter_binmax, plaid.gather_rows, encoder.masked_attention)
+        dense_topk.binmax = lambda q, v, s, n, doc_block=2048, dead_rows=True: dense_topk.binmax_plain(
+            q, v, s, n, doc_block, dead_rows=dead_rows)
+        scatter_score.scatter_binmax = scatter_score.scatter_binmax_plain
+        plaid.gather_rows = gather_rows.gather_rows_plain
+        encoder.masked_attention = attention.masked_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        from fusion_tpu_torch.index import plaid
+        from fusion_tpu_torch.models import encoder
+        from fusion_tpu_torch.ops import dense_topk, scatter_score
+
+        dense_topk.binmax, scatter_score.scatter_binmax, plaid.gather_rows, encoder.masked_attention = self.saved
+
+
+def sharded_counts(kernels) -> dict[str, int]:
+    """K1-K4's and FA's launch counts."""
+    from fusion_tpu_torch.ops import attention
+
+    return {**{k: v for k, v in counts(*kernels).items() if k in ("K1", "K2", "K3", "K4")},
+            "FA": attention.masked_attention_cuda.launches}
+
+
+def reset_sharded_counts(kernels) -> None:
+    from fusion_tpu_torch.ops import attention
+
+    reset_counts(*kernels)
+    attention.masked_attention_cuda.launches = 0
+
+
+def sharded_one_rank(torch, np, src, queries, kernels, backend="nccl", device="cuda:0") -> dict:
+    """[sharded] part 1: one rank on an NCCL group in this process; the
+    sharded searcher against ``src`` (its shard is the corpus)."""
+    import torch.distributed as dist
+
+    from fusion_tpu_torch.parallel import sharding
+    from fusion_tpu_torch.parallel.multihost import initialize_multihost
+    from fusion_tpu_torch.serving_sharded import ShardedHybridSearcher
+
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend=backend, device=device)
+    try:
+        mesh = sharding.make_mesh(index=1)
+        check(mesh.backend == backend and mesh.device == torch.device(device), f"sharded: mesh {mesh}")
+        sh = ShardedHybridSearcher.from_searcher(src, mesh)
+        sh.dense_impl = "fused"  # K2 per shard (JAX's sharded default is the exact block search)
+        want = src.search_systems(queries, batch_size=BATCH, external_ids=False)
+        got = sh.search_systems(queries, batch_size=BATCH, external_ids=False)
+        legs = {n: overlap100(np, got[n].ids.numpy(), want[n].ids.numpy()) for n in want}
+        check(set(got) == set(want) and all(v == 1.0 for v in legs.values()),
+              f"sharded one rank: leg top-100 overlaps {legs}")
+        want_f, _ = src.search(queries, batch_size=BATCH, external_ids=False)
+        reset_sharded_counts(kernels)
+        before = dict(sharding.COLLECTIVES)
+        got_f, _ = sh.search(queries, batch_size=BATCH, external_ids=False)
+        launches = sharded_counts(kernels)
+        batches = len(queries) // BATCH
+        check(np.array_equal(got_f.ids.numpy(), want_f.ids.numpy()),
+              f"sharded one rank: fused top {TOPK} ids differ (overlap@100 "
+              f"{overlap100(np, got_f.ids.numpy(), want_f.ids.numpy())})")
+        check_ranked(torch, np, got_f, len(queries), TOPK, N_DOCS)
+        for k in ("K2", "K3", "K4", "FA"):
+            check(launches[k] > 0, f"sharded one rank: {k} never launched")
+        single_ms, sharded_ms = [], []
+        for _ in range(3):  # in turns
+            single_ms += [t / batches for t in timed_ms(torch, lambda: src.search(queries, batch_size=BATCH), 1)]
+            sharded_ms += [t / batches for t in timed_ms(torch, lambda: sh.search(queries, batch_size=BATCH), 1)]
+        return {
+            "backend": mesh.backend, "leg_top100_overlap": legs, "fused_ids_equal": True,
+            "ms_per_batch_single": statistics.median(single_ms), "ms_per_batch_sharded": statistics.median(sharded_ms),
+            "ms_per_batch_runs": {"single": single_ms, "sharded": sharded_ms},
+            "collective_ms_per_batch": (sharding.COLLECTIVES["seconds"] - before["seconds"]) * 1e3 / batches,
+            "collective_calls": sharding.COLLECTIVES["calls"] - before["calls"],
+            "launches_per_batch": {k: v / batches for k, v in launches.items()},
+        }
+    finally:
+        dist.destroy_process_group()
+        sharding._DEFAULT_DEVICE[0] = None
+
+
+def sharded_standalone(torch, np, src, mesh, batch, kernels) -> dict:
+    """The six sharded functions of the index forms on this rank's shard of
+    ``src``'s indexes against their single-device searches over the whole
+    of them (every rank runs the same calls in the same order)."""
+    from fusion_tpu_torch.index import inverted, plaid
+    from fusion_tpu_torch.index.compression import CompressedTokenIndex, maxsim_search_compressed
+    from fusion_tpu_torch.models.heads import l2_normalize
+    from fusion_tpu_torch.ops import maxsim, mips, scatter_score
+    from fusion_tpu_torch.parallel.sharding import INDEX_AXIS
+
+    s, r = mesh.shape[INDEX_AXIS], mesh.coords[INDEX_AXIS]
+    inputs = src._prepare_inputs(batch)
+    out, k1 = {}, 0
+
+    def held(name, got, want, atol):
+        gi, gs, wi, ws = (x.cpu().numpy() for x in (got.ids, got.scores, want.ids, want.scores))
+        fin = np.isfinite(ws) & np.isfinite(gs)
+        out[name] = {"equal_up_to_ties": same_up_to_ties(np, gi, gs, wi, ws, atol),
+                     "max_abs_score_diff": float(np.abs(np.where(fin, gs - ws, 0.0)).max()),
+                     "top100_overlap": overlap100(np, gi, wi)}
+
+    idx = src.bm25_impact_index
+    terms, weights = inputs["bm25_terms"], inputs["bm25_weights"].float()
+    got = inverted.sharded_impact_search(terms, weights, inverted.shard_impact_index(idx, s), mesh, k=TOPK)
+    held("impact", got, inverted.impact_search(terms, weights, idx, k=got.depth), 0.0)
+
+    dc = src.dense_corpus
+    n = (src.dense_n_docs or dc.num_docs) // s * s
+    emb = (dc.values[:n].float() * dc.scales[:n, None]).to(torch.bfloat16)
+    q = src.dense_model.embed_tokens(inputs["q_ids"], inputs["q_mask"]).to(torch.bfloat16)
+    per = n // s
+    got = mips.sharded_dense_search(q, emb[r * per : (r + 1) * per], mesh, k=TOPK, similarity="dot_score")
+    held("dense", got, mips.dense_search(q, emb, k=got.depth, similarity="dot_score"), 1e-5)
+    del emb
+
+    sp = src.splade_model.embed_tokens(inputs["sp_ids"], inputs["sp_mask"]).float()
+    if src.splade_model.similarity == "cos_sim":
+        sp = l2_normalize(sp)
+    terms, weights = inverted.activations_to_query_terms(sp, src.splade_query_terms)
+    sidx = src.splade_scatter_index
+    got = scatter_score.sharded_scatter_search(terms, weights, scatter_score.shard_chunked_impact_index(sidx, s),
+                                               mesh, k=TOPK)
+    want = scatter_score.scatter_impact_search(terms, weights, sidx, k=got.depth)
+    held("scatter", got, want, K3_TOL[0] + K3_TOL[1] * float(want.scores[torch.isfinite(want.scores)].abs().max()))
+
+    ci = src.colbert_index
+    q_tok = src.colbert_model.embed_tokens(inputs["cb_ids"], inputs["cb_mask"])
+    qm = inputs["cb_mask"].float()
+    n = ci.num_docs // s * s
+    per = n // s
+    rows = slice(r * per, (r + 1) * per)
+    cid_tm, codes_tm, mask_tm, valid = ci.prepared()
+    d_tm = ci.decompress_tm(cid_tm[:, :n], codes_tm[:, :n], mask_tm[:, :n])  # [Ld, N, D] bf16
+    k1 -= maxsim.maxsim_maxima_cuda.launches
+    got = mips.sharded_maxsim_search_tm(q_tok.to(torch.bfloat16), qm, d_tm[:, rows], valid[rows], mesh, k=TOPK)
+    k1 += maxsim.maxsim_maxima_cuda.launches
+    held("maxsim_tm", got, maxsim.maxsim_search_tm(q_tok.to(torch.bfloat16), qm, d_tm, valid[:n], k=got.depth), 1e-5)
+    del d_tm
+    shard = CompressedTokenIndex(ci.centroids, ci.centroid_ids[rows], ci.codes[rows], ci.mask[rows],
+                                 ci.bucket_weights, ci.nbits)
+    whole = CompressedTokenIndex(ci.centroids, ci.centroid_ids[:n], ci.codes[:n], ci.mask[:n], ci.bucket_weights,
+                                 ci.nbits)
+    k1 -= maxsim.maxsim_maxima_cuda.launches
+    got = mips.sharded_maxsim_search_compressed(q_tok, qm, shard, mesh, k=TOPK)
+    k1 += maxsim.maxsim_maxima_cuda.launches
+    held("compressed", got, maxsim_search_compressed(q_tok, qm, whole, k=got.depth), 1e-5)
+
+    k4 = -kernels[3].gather_rows_cuda.launches
+    got = plaid.sharded_plaid_search(q_tok.float(), qm, plaid.shard_plaid_index(ci, s, ivf_cap=src.colbert_ivf.cap),
+                                     mesh, k=TOPK, nprobe=src.plaid_nprobe, ncand=src.plaid_ncand)
+    k4 += kernels[3].gather_rows_cuda.launches
+    want = plaid.plaid_search(q_tok.float(), qm, ci, src.colbert_ivf, k=TOPK, nprobe=src.plaid_nprobe,
+                              ncand=src.plaid_ncand)
+    held("plaid", got, want, 1e-5)
+    out["launches"] = {"K1": k1, "K4": k4}
+    return out
+
+
+def sharded_rank_main(rank: int, workdir: str, port: int, device: str = "cuda:0") -> int:
+    """[sharded] part 2, one rank (a child process of this script): join the
+    gloo group, load the parent's searcher, keep this rank's half, serve and
+    check; write ``rank<r>.json``.  A failed check is recorded and the rank
+    goes on, so both ranks make the same collective calls; the exit code
+    says whether any failed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from fusion_tpu_torch.ops import _kernels, dense_topk, gather_rows, maxsim, scatter_score
+    from fusion_tpu_torch.parallel import sharding
+    from fusion_tpu_torch.parallel.multihost import initialize_multihost
+    from fusion_tpu_torch.serving_sharded import ShardedHybridSearcher
+
+    kernels = (maxsim, dense_topk, scatter_score, gather_rows)
+    _kernels.load_all(["maxsim", "dense_topk", "scatter_score", "gather_rows", "attention"])  # built by the parent
+    t0 = time.perf_counter()
+    initialize_multihost(f"127.0.0.1:{port}", SHARDED_RANKS, rank, backend="gloo", device=device)
+    mesh = sharding.make_mesh(index=SHARDED_RANKS, devices=[device] * SHARDED_RANKS)
+    data = torch.load(os.path.join(workdir, "input.pt"), map_location=device, weights_only=False)
+    src, queries = data["searcher"], data["queries"]
+    torch.cuda.reset_peak_memory_stats()
+    sh = ShardedHybridSearcher.from_searcher(src, mesh)
+    sh.dense_impl = "fused"
+    torch.cuda.synchronize()
+    out = {"rank": rank, "backend": mesh.backend, "load_and_shard_s": time.perf_counter() - t0, "failed": []}
+
+    def expect(cond, msg):
+        if not cond:
+            out["failed"].append(msg)
+
+    batches = len(queries) // BATCH
+    sh.search(queries[:BATCH], batch_size=BATCH)  # warm-up
+    reset_sharded_counts(kernels)
+    before = dict(sharding.COLLECTIVES)
+    final, _ = sh.search(queries, batch_size=BATCH, external_ids=False)
+    out["launches"] = sharded_counts(kernels)
+    out["collective_ms_per_batch"] = (sharding.COLLECTIVES["seconds"] - before["seconds"]) * 1e3 / batches
+    out["collective_bytes_per_batch"] = (sharding.COLLECTIVES["bytes"] - before["bytes"]) / batches
+    out["collective_calls_per_batch"] = (sharding.COLLECTIVES["calls"] - before["calls"]) / batches
+    # every rank runs each leg; FA runs where a rank's packed chunks hold rows
+    for k in ("K2", "K3", "K4"):
+        expect(out["launches"][k] > 0, f"{k} never launched on the sharded path")
+    runs = [t / batches for t in timed_ms(torch, lambda: sh.search(queries, batch_size=BATCH), 3)]
+    out["ms_per_batch"], out["ms_per_batch_runs"] = statistics.median(runs), runs
+
+    fused, _ = dataclasses.replace(sh, rerank_depth=0).search(queries, batch_size=BATCH, external_ids=False)
+    for ranked in (fused, final):
+        ids, scores = ranked.ids.numpy(), ranked.scores.numpy()
+        expect(ids.shape == (len(queries), TOPK) and bool(np.isfinite(scores).all())
+               and bool((np.diff(scores, axis=1) <= 0).all()) and bool(((ids >= 0) & (ids < N_DOCS)).all())
+               and all(len(set(row)) == len(row) for row in ids), "the fused list is not well formed")
+    depth = sh.rerank_depth
+    expect(all(set(a[:depth]) == set(b[:depth]) for a, b in zip(final.ids.numpy(), fused.ids.numpy())),
+           "the reranked head is not a permutation of the fused head")
+    out["final_ids_head"] = final.ids[:2, :10].tolist()
+
+    legs = sh.search_systems(queries, batch_size=BATCH, external_ids=False)
+    launched = sharded_counts(kernels)
+    with plain_kernels():
+        plain = sh.search_systems(queries, batch_size=BATCH, external_ids=False)
+        inputs = sh._prepare_inputs(queries[:BATCH])
+        head = sh._fuse(sh._search_batch(inputs)).ids[:, :depth]
+        logits_plain = sh._packed_rerank_stage(inputs, head)
+    expect(sharded_counts(kernels) == launched, "the plain versions launched a kernel")
+    logits = sh._packed_rerank_stage(inputs, head)
+    valid = head >= 0
+    out["fa_logit_gap_vs_plain"] = float((logits - logits_plain)[valid].abs().max())
+    expect(out["fa_logit_gap_vs_plain"] <= RERANK_LOGIT_TOL, f"FA logits vs plain {out['fa_logit_gap_vs_plain']}")
+    out["leg_top100_overlap_vs_plain"] = {n: overlap100(np, legs[n].ids.numpy(), plain[n].ids.numpy()) for n in legs}
+    for n, v in out["leg_top100_overlap_vs_plain"].items():
+        expect(v >= 0.99, f"{n} leg kernel vs plain top-100 overlap {v}")
+    single = src.search_systems(queries, batch_size=BATCH, external_ids=False)
+    out["bm25_equal_single_device"] = bool(torch.equal(legs["bm25"].ids, single["bm25"].ids)
+                                           and torch.equal(legs["bm25"].scores, single["bm25"].scores))
+    expect(out["bm25_equal_single_device"], "BM25's merged list differs from the single-device list")
+    out["leg_top100_overlap_vs_single"] = {n: overlap100(np, legs[n].ids.numpy(), single[n].ids.numpy())
+                                           for n in legs}
+    out["merged_lists_digest"] = {n: float(legs[n].scores[torch.isfinite(legs[n].scores)].double().sum())
+                                  for n in legs}
+
+    standalone = sharded_standalone(torch, np, src, mesh, queries[:BATCH], kernels)
+    out["standalone"] = standalone
+    for name in ("impact", "dense", "scatter", "maxsim_tm", "compressed"):
+        expect(standalone[name]["equal_up_to_ties"], f"sharded {name} search vs single-device: {standalone[name]}")
+    for name, n in standalone["launches"].items():
+        expect(n > 0, f"the sharded functions never launched {name}")
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 1 if out["failed"] else 0
+
+
+def sharded_two_ranks(torch, src, queries, device="cuda:0") -> list[dict]:
+    """[sharded] part 2: save ``src`` and the queries, start the two ranks
+    (children of this script, one gloo group on cuda:0), wait for both."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as work:
+        t0 = time.perf_counter()
+        torch.save({"searcher": src, "queries": list(queries)}, os.path.join(work, "input.pt"))
+        save_s = time.perf_counter() - t0
+        port, procs, logs = free_port(), [], []
+        for rank in range(SHARDED_RANKS):
+            logs.append(os.path.join(work, f"rank{rank}.log"))
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(rank), "--sharded-dir", work,
+                     "--sharded-port", str(port), "--sharded-device", device], stdout=log, stderr=subprocess.STDOUT,
+                    cwd=REPO,
+                ))
+        deadline = time.monotonic() + SHARDED_TIMEOUT
+        timed_out = False
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            timed_out = True
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        tails = "\n".join(f"--- rank {r}:\n{open(log).read()[-4000:]}" for r, log in enumerate(logs))
+        check(not timed_out, f"sharded: the ranks outlived {SHARDED_TIMEOUT} s\n{tails}")
+        reports = []
+        for rank, p in enumerate(procs):
+            path = os.path.join(work, f"rank{rank}.json")
+            report = json.load(open(path)) if os.path.exists(path) else {}
+            check(p.returncode == 0, f"sharded: rank {rank} exited {p.returncode}: {report.get('failed')}\n{tails}")
+            reports.append(report)
+        reports[0]["save_s"] = save_s
+        return reports
+
+
+def sharded_check(torch, np, src, queries, kernels, backend="nccl", device="cuda:0") -> dict:
+    """[sharded]: the one-rank NCCL part, then the two-rank gloo part."""
+    t0 = time.perf_counter()
+    out = {"one_rank": sharded_one_rank(torch, np, src, queries, kernels, backend, device)}
+    out["one_rank"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = sharded_two_ranks(torch, src, queries, device)
+    check(ranks[0]["merged_lists_digest"] == ranks[1]["merged_lists_digest"]
+          and ranks[0]["final_ids_head"] == ranks[1]["final_ids_head"], "sharded: the two ranks' lists differ")
+    check(sum(r["launches"]["FA"] for r in ranks) > 0, "sharded: FA never launched on the sharded path")
+    out["two_ranks"] = {
+        "s": time.perf_counter() - t0, "backend": ranks[0]["backend"],
+        "note": "two ranks share one card's SMs: these times are no speed-up figure",
+        **{k: ranks[0][k] for k in ("leg_top100_overlap_vs_plain", "leg_top100_overlap_vs_single",
+                                    "bm25_equal_single_device", "fa_logit_gap_vs_plain", "standalone", "save_s")},
+        "launches": {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]},
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "plaid_top100_overlap_vs_single": ranks[0]["leg_top100_overlap_vs_single"]["colbert"],
+        "per_rank": [{k: r[k] for k in ("ms_per_batch", "ms_per_batch_runs", "collective_ms_per_batch",
+                                        "collective_bytes_per_batch", "collective_calls_per_batch", "peak_mem_gib",
+                                        "load_and_shard_s")} for r in ranks],
+    }
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm search of each searcher with torch.profiler")
+    # one rank of [sharded]'s two-rank part (the script starts them itself)
+    ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-device", default="cuda:0", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sharded_rank is not None:
+        return sharded_rank_main(args.sharded_rank, args.sharded_dir, args.sharded_port, args.sharded_device)
 
     import numpy as np
     import torch
@@ -3730,6 +4136,9 @@ def main() -> int:
     phase("mmarco_reader", t0, **reader_check(np))
 
     bm25 = searcher.bm25
+    # the slice's cross-encoder doc tokens, for [sharded]'s rerank
+    ce_tokens = dict(ce_doc_tokens=reranked.ce_doc_tokens, ce_doc_mask=reranked.ce_doc_mask,
+                     ce_doc_lens=reranked.ce_doc_lens)
     del searcher, reranked, ranked
     gc.collect()
     torch.cuda.empty_cache()
@@ -3810,7 +4219,17 @@ def main() -> int:
     phase("persist", t0, searcher="plaid_build", gpu=repr(smi), **persisted)
     for name in ("K2", "K3", "K4"):
         check(persisted["launches"][name] > 0, f"persist plaid_build: {name} never launched")
-    del pb, cb, ranked, fresh, reloaded
+    del fresh, reloaded
+
+    # the multi-device serving tier over the plaid_build searcher with the
+    # packed rerank of the fused top 100 in the flash form
+    t0 = time.perf_counter()
+    src = dataclasses.replace(pb, cross_encoder=ce.with_attention("flash"), rerank_depth=100, rerank_packed=True,
+                              **ce_tokens)
+    sharded = sharded_check(torch, np, src, queries, kernels)
+    phase("sharded", t0, gpu=repr(smi), **sharded)
+    sharded_launches = {**sharded["two_ranks"]["launches"], "K1": sharded["two_ranks"]["standalone"]["launches"]["K1"]}
+    del src, pb, cb, ranked, ce_tokens
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3905,14 +4324,15 @@ def main() -> int:
         # K1's launches: the main path's run, the slice with the packed rerank;
         # and the segmented path's 192-query search over two segments
         entry("maxsim_maxima_T", "maxsim.cu", "fusion_tpu/ops/maxsim.py:225", rerank["launches"]["K1"],
-              k1_err, k1_ms, k1_plain, k1_bound, segmented_launches=seg_out["search_launches"]["K1"]),
+              k1_err, k1_ms, k1_plain, k1_bound, segmented_launches=seg_out["search_launches"]["K1"],
+              sharded_launches=sharded_launches["K1"]),
         entry("dense_binmax", "dense_topk.cu", "fusion_tpu/ops/dense_topk.py:102", mm4_counts["K2"],
-              k2_err, k2_ms, k2_plain, k2_bound),
+              k2_err, k2_ms, k2_plain, k2_bound, sharded_launches=sharded_launches["K2"]),
         entry("scatter_binmax", "scatter_score.cu", "fusion_tpu/ops/scatter_score.py:138",
-              mm4_counts["K3"], k3_err, k3_ms, k3_plain, k3_bound),
+              mm4_counts["K3"], k3_err, k3_ms, k3_plain, k3_bound, sharded_launches=sharded_launches["K3"]),
         # the library call of K4's function is index_select, its plain version
         entry("gather_rows", "gather_rows.cu", "fusion_tpu/ops/gather_rows.py:41", mm4_counts["K4"],
-              k4_err, k4_ms, k4_plain, k4_bound, library_ms=k4_plain),
+              k4_err, k4_ms, k4_plain, k4_bound, library_ms=k4_plain, sharded_launches=sharded_launches["K4"]),
         entry("maxsim_fused", "maxsim.cu",
               "fusion_tpu/ops/maxsim.py:67; scripts/bench_maxsim.py:55", variant_counts["K1-v1"],
               k1v1_err, k1v1_ms, k1v1_plain, k1v1_bound),
@@ -3936,7 +4356,8 @@ def main() -> int:
               "forward pallas_call at flash_attention.py:758)",
               forms["packed_flash"]["kernel_launches_search"], attn["max_abs_err"], attn["packed"]["ms"],
               attn["packed"]["plain_ms"], attn["packed"]["bound_ms"], library_ms=attn["packed"]["library_ms"],
-              shapes={c: attention_shape(attn[c], ATTENTION_KERNELS[:1]) for c in ("packed", "bench_doc")}),
+              shapes={c: attention_shape(attn[c], ATTENTION_KERNELS[:1]) for c in ("packed", "bench_doc")},
+              sharded_launches=sharded_launches["FA"]),
         # FA's backward (the D pass, dK/dV and dQ kernels): launches in
         # [train_flash]'s flash run (this slice's path), times at one layer's
         # doc call of that step, the library call scaled_dot_product_attention's

@@ -33,7 +33,10 @@ trunk with per-language adapters (``models/xmod.py``, ``from_xmod``); and
 streaming index updates (``segmented.py``: new documents as new neural
 segments, BM25 rebuilt over the whole corpus on every update by the C++
 posting builders of ``native/``), the mMARCO and Mr. TyDi loaders from local
-record files (``data/mmarco.py``, ``data/mrtydi.py``).
+record files (``data/mmarco.py``, ``data/mrtydi.py``); and the multi-device
+serving tier (``parallel/``: one process per card on ``torch.distributed``;
+``serving_sharded.py``'s ``ShardedHybridSearcher``, the sharded index forms,
+sharded segments).
 """
 
 __version__ = "0.1.0"

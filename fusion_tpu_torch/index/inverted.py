@@ -31,6 +31,7 @@ import torch
 from fusion_tpu_torch import native
 from fusion_tpu_torch.core.ranked import RankedLists, stable_topk
 from fusion_tpu_torch.ops.segscan import segmented_run_totals
+from fusion_tpu_torch.parallel.sharding import INDEX_AXIS, default_index_rank, globalize, merge_shards
 
 # Query terms whose document frequency exceeds CAP_SAFE_DF_RATIO × cap are
 # quality-unsafe under impact-ordered capping (the JAX package's planted-
@@ -210,6 +211,75 @@ def activations_to_query_terms(
     weights, terms = stable_topk(query_activations, kq)
     terms = torch.where(weights > 0, terms, v).to(torch.int32)
     return terms, torch.clamp(weights, min=0.0)
+
+
+def shard_impact_index(index: ImpactIndex, n_shards: int, *, rank: int | None = None) -> "ShardedImpactIndex":
+    """Split an ImpactIndex into ``n_shards`` doc-range shards and keep shard
+    ``rank`` (default: this process's index coordinate,
+    ``parallel.sharding.default_index_rank``) on the index's device.
+
+    Each shard keeps, per term, its doc range's postings re-packed to the
+    front (impact order kept), with local doc ids and pad ``docs_per_shard``:
+    the host repack of the JAX package, whose ``[S, V+1, P]`` stack holds
+    these rows.  Host-side build work."""
+    rank = default_index_rank(n_shards) if rank is None else rank
+    docs = index.post_doc.cpu().numpy()
+    imps = index.post_impact.cpu().numpy()
+    n = index.n_docs
+    per = -(-n // n_shards)
+    lo, hi = rank * per, min((rank + 1) * per, n)
+    in_shard = (docs >= lo) & (docs < hi)
+    # stable front-packing per row keeps impact order
+    order = np.argsort(~in_shard, axis=1, kind="stable")
+    d_s = np.take_along_axis(np.where(in_shard, docs - lo, per), order, axis=1).astype(np.int32)
+    i_s = np.take_along_axis(np.where(in_shard, imps, 0), order, axis=1).astype(np.float16)
+    device = index.post_doc.device
+    return ShardedImpactIndex(
+        post_doc=torch.as_tensor(d_s, device=device),
+        post_impact=torch.as_tensor(i_s, device=device),
+        n_docs=n,
+        docs_per_shard=per,
+        vocab_size=index.vocab_size,
+        cap=docs.shape[1],
+        term_df=index.term_df,
+    )
+
+
+class ShardedImpactIndex(NamedTuple):
+    """One rank's doc-range shard of an ImpactIndex (``shard_impact_index``)."""
+
+    post_doc: torch.Tensor  # int32 [V+1, P] (local doc ids; pad = docs_per_shard)
+    post_impact: torch.Tensor  # f16 [V+1, P]
+    n_docs: int
+    docs_per_shard: int
+    vocab_size: int
+    cap: int
+    term_df: object = None  # host df [V]: the query-time cap guard
+
+    def unsafe_query_term_frac(self, q_terms) -> float:
+        return ImpactIndex.unsafe_query_term_frac(self, q_terms)
+
+    def local(self) -> ImpactIndex:
+        """The shard as an ImpactIndex over its ``docs_per_shard`` local docs."""
+        return ImpactIndex(post_doc=self.post_doc, post_impact=self.post_impact, n_docs=self.docs_per_shard,
+                           vocab_size=self.vocab_size, cap=self.cap, nnz_kept=0, term_df=self.term_df)
+
+
+def sharded_impact_search(
+    q_terms: torch.Tensor,
+    q_weights: torch.Tensor,
+    index: ShardedImpactIndex,
+    mesh,
+    k: int = 1000,
+) -> RankedLists:
+    """Index-parallel impact search: each rank scores its doc-range shard
+    (queries replicated), and the per-shard top-k lists all-gather and merge
+    (``parallel.sharding.merge_shards``).  Depth ``min(k, docs_per_shard)``,
+    as the JAX function's."""
+    per = index.docs_per_shard
+    k = min(k, per)
+    local = impact_search(q_terms, q_weights, index.local(), k=k)
+    return merge_shards(globalize(local, mesh.coords[INDEX_AXIS], per), local.scores, k, mesh)
 
 
 class ChunkedImpactIndex(NamedTuple):

@@ -35,6 +35,7 @@ from fusion_tpu_torch.ops.gather_rows import gather_rows
 from fusion_tpu_torch.ops.mips import bmm_f32, matmul_f32
 from fusion_tpu_torch.ops.segscan import segmented_run_totals
 from fusion_tpu_torch.ops.topk import blockwise_topk
+from fusion_tpu_torch.parallel.sharding import INDEX_AXIS, default_index_rank, globalize, merge_shards
 
 
 class IVFIndex(NamedTuple):
@@ -375,3 +376,127 @@ def plaid_search(
                 q_tok, q_m, cs, index, cand, k=min(k, ncand), cand_chunk=cand_chunk
             )
         return _plaid_rescore(q_tok, q_m, index, cand, k=min(k, ncand), cand_chunk=cand_chunk)
+
+
+# ----------------------------------------------------------------------
+# sharded over a mesh (parallel/sharding.py)
+# ----------------------------------------------------------------------
+GATHER_IMPLS = ("auto", "xla", "pallas", "pallas_interpret")
+
+
+class ShardedPlaidIndex(NamedTuple):
+    """One rank's doc-range shard of (compressed index + IVF).  The
+    centroid table and bucket weights are replicated; the rows and the IVF
+    (over LOCAL doc ids, pad ``docs_per_shard``) are the shard's.  The JAX
+    package's segmented codes form ``codes_seg`` has no counterpart (the
+    gather kernel reads the u8 codes): it stays None."""
+
+    centroids: torch.Tensor  # [C, D] (replicated)
+    bucket_weights: torch.Tensor  # [2^nbits] (replicated)
+    centroid_ids: torch.Tensor  # int32 [per, Ld]
+    codes: torch.Tensor  # u8 [per, Ld, D·nbits/8]
+    mask: torch.Tensor  # [per, Ld]
+    ivf_doc: torch.Tensor  # int32 [C, cap] (local doc ids; pad = per)
+    nbits: int
+    n_docs: int
+    docs_per_shard: int
+    codes_seg: object = None
+
+    def local(self) -> CompressedTokenIndex:
+        """The shard's rows as a CompressedTokenIndex over its local docs."""
+        return CompressedTokenIndex(
+            centroids=self.centroids, centroid_ids=self.centroid_ids, codes=self.codes, mask=self.mask,
+            bucket_weights=self.bucket_weights, nbits=self.nbits,
+        )
+
+
+def shard_plaid_index(
+    index: CompressedTokenIndex, n_shards: int, ivf_cap: int = 4096, dma_codes: bool = True, *,
+    rank: int | None = None,
+) -> ShardedPlaidIndex:
+    """Split a CompressedTokenIndex into doc-range shards, keep shard
+    ``rank`` (default: this process's index coordinate) and build its IVF
+    over its local doc ids, on the index's device (host-side, offline; the
+    rows the JAX package's ``dma_codes=False`` stack holds).  ``dma_codes``
+    (JAX's segmented codes form) is checked and dropped."""
+    if not isinstance(dma_codes, bool):
+        raise ValueError(f"dma_codes must be a bool, got {dma_codes!r}")
+    rank = default_index_rank(n_shards) if rank is None else rank
+    n = index.num_docs
+    per = -(-n // n_shards)
+    lo, hi = rank * per, min((rank + 1) * per, n)
+
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        part = t[lo:hi]
+        if part.shape[0] < per:  # the last shard pads with zero rows
+            part = torch.cat([part, part.new_zeros((per - part.shape[0], *t.shape[1:]))])
+        return part.contiguous()
+
+    cid, mask = rows(index.centroid_ids), rows(index.mask)
+    ivf = build_ivf(cid, mask, index.centroids.shape[0], cap=ivf_cap, device=cid.device)
+    return ShardedPlaidIndex(
+        centroids=index.centroids,
+        bucket_weights=index.bucket_weights,
+        centroid_ids=cid,
+        codes=rows(index.codes),
+        mask=mask,
+        ivf_doc=ivf.ivf_doc,
+        nbits=index.nbits,
+        n_docs=n,
+        docs_per_shard=per,
+    )
+
+
+def sharded_plaid_search(
+    q_tok: torch.Tensor,
+    q_mask: torch.Tensor,
+    sharded: ShardedPlaidIndex,
+    mesh,
+    k: int = 1000,
+    nprobe: int = 4,
+    ncand: int = 4096,
+    cand_chunk: int = 512,
+    ncand_rescore: int | None = 1024,
+    rescore_impl: str = "gather",
+    gather_impl: str = "xla",
+    topk_impl: str = "approx",
+) -> RankedLists:
+    """Index-parallel PLAID: each rank probes, prunes and rescores its
+    doc-range shard (queries and centroid table replicated; the rescore's
+    gathers through K4 on the card) and the per-shard top-k lists all-gather
+    and merge.  ``gather_impl`` and ``topk_impl`` are checked and dropped:
+    the device picks the gather, and every select is exact."""
+    if gather_impl not in GATHER_IMPLS or topk_impl not in ("approx", "exact"):
+        raise ValueError(f"gather_impl must be one of {GATHER_IMPLS} and topk_impl 'approx' or 'exact', "
+                         f"got {gather_impl!r}, {topk_impl!r}")
+    if rescore_impl not in ("gather", "factored"):
+        raise ValueError(f"rescore_impl must be 'gather' or 'factored', got {rescore_impl!r}")
+    per = sharded.docs_per_shard
+    ncand_l = min(ncand, per)
+    chunk = min(cand_chunk, ncand_l)
+    ncand_l -= ncand_l % chunk
+    nr = 0
+    if ncand_rescore and ncand_rescore < ncand_l:
+        nr = max(ncand_rescore - ncand_rescore % chunk, chunk)
+    k = min(k, nr or ncand_l)
+    local = _plaid_shard_search(q_tok, q_mask, sharded, nprobe, ncand_l, chunk, nr, rescore_impl, k)
+    return merge_shards(globalize(local, mesh.coords[INDEX_AXIS], per), local.scores, k, mesh)
+
+
+def _plaid_shard_search(q_tok, q_mask, sharded: ShardedPlaidIndex, nprobe: int, ncand: int, chunk: int,
+                        nr: int, rescore_impl: str, k: int) -> RankedLists:
+    """One shard's probe → (prune to ``nr`` when non-zero) → rescore, LOCAL
+    ids; the sharded searcher's PLAID leg runs it too."""
+    qt, qm = q_tok.to(torch.float32), q_mask.to(torch.float32)
+    index = sharded.local()
+    cand, _ = plaid_candidates(qt, qm, sharded.centroids, sharded.ivf_doc, sharded.docs_per_shard,
+                               nprobe=nprobe, ncand=ncand)
+    cs = None
+    if nr or rescore_impl == "factored":
+        cs = _centroid_score_table(qt, sharded.centroids)
+    if nr:
+        cand = _plaid_centroid_prune(qt, qm, sharded.centroids, sharded.centroid_ids, sharded.mask, cand,
+                                     ncand2=nr, cs=cs)
+    if rescore_impl == "factored":
+        return _plaid_rescore_factored(qt, qm, cs, index, cand, k=k, cand_chunk=chunk)
+    return _plaid_rescore(qt, qm, index, cand, k=k, cand_chunk=chunk)

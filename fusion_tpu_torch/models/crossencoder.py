@@ -373,13 +373,16 @@ class PairRerankMixin:
         n_docs: int,
         row_width: int | None = None,
         rows_per_chunk: int | None = None,
+        chunk_multiple: int = 1,
     ):
         """The host packing plan of a batch's [Q, Kr] candidates (-1 pads are
         planned as empty-doc pairs) → (desc [6, P] int32: query row, doc,
         row, offset, query length, doc length, sorted by (row, offset);
         tables [nchunks, pc_cap, 3] int32: each chunk's pairs as (local row,
         column, output slot), fillers writing the spill slot Q·Kr; width,
-        nchunks, rows per chunk, pc_cap)."""
+        nchunks, rows per chunk, pc_cap).  ``nchunks`` is a multiple of
+        ``chunk_multiple``, so each of that many ranks scores whole chunks
+        (the sharded packed rerank)."""
         qn, kr = head_ids.shape
         flat = head_ids.reshape(-1).astype(np.int64)
         valid = flat >= 0
@@ -397,8 +400,8 @@ class PairRerankMixin:
         perm = np.lexsort((off, row))
         qrow, safe, qlen, dlen, row, off = (a[perm] for a in (qrow, safe, qlen, dlen, row, off))
         rpc = rows_per_chunk or max(8, (64 * 512) // width)
-        units = -(-max(n_rows, 1) // rpc)
-        nchunks = next((g for g in _BUCKET_CHUNK_GRID if g >= units), units)
+        units = -(-max(n_rows, 1) // (rpc * chunk_multiple))
+        nchunks = next((g for g in _BUCKET_CHUNK_GRID if g >= units), units) * chunk_multiple
         chunk_of = row // rpc
         counts = np.bincount(chunk_of, minlength=nchunks)
         cmax = int(counts.max()) if counts.size else 0

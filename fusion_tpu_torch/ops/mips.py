@@ -2,6 +2,12 @@
 
 The corpus is scanned in blocks with a running top-k (``ops/topk.py``).  It
 serves the DPR leg and the SPLADE sparse-as-dense leg.
+
+The ``sharded_*`` functions are the index-parallel forms over a mesh
+(``parallel/sharding.py``): each rank passes ITS shard of the corpus (the
+JAX functions take the global array laid out over the mesh ``index`` axis),
+searches it with the single-device search, turns local ids into global ones
+(``local + rank·shard_n``) and all-gathers and merges the per-shard lists.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ import torch
 from fusion_tpu_torch.core.ranked import RankedLists
 from fusion_tpu_torch.models.heads import l2_normalize
 from fusion_tpu_torch.ops.topk import blockwise_topk_offset
+from fusion_tpu_torch.parallel.sharding import INDEX_AXIS, globalize, merge_shards
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -63,6 +70,89 @@ def dense_search(
         return torch.where(fresh[None, :], scores, -torch.inf), real_start
 
     return blockwise_topk_offset(block_scores, num_blocks, q, k, local_topk=local_topk)
+
+
+def _merge_local(local: RankedLists, mesh, shard_n: int, k: int) -> RankedLists:
+    return merge_shards(globalize(local, mesh.coords[INDEX_AXIS], shard_n), local.scores, k, mesh)
+
+
+def sharded_dense_search(
+    query_embs: torch.Tensor,
+    corpus_shards: torch.Tensor,
+    mesh,
+    k: int = 1000,
+    similarity: str = "cos_sim",
+    doc_block: int = 65536,
+) -> RankedLists:
+    """Index-parallel exact search: ``corpus_shards`` is this rank's
+    ``[N/S, H]`` rows of the corpus (every shard the same size); queries are
+    replicated.  Depth ``min(k, N/S)``."""
+    shard_n = corpus_shards.shape[0]
+    k = min(k, shard_n)
+    local = dense_search(query_embs, corpus_shards, k=k, similarity=similarity, doc_block=doc_block)
+    return _merge_local(local, mesh, shard_n, k)
+
+
+def sharded_maxsim_search(
+    q_tokens: torch.Tensor,  # [Q, Lq, D]
+    q_mask: torch.Tensor,  # [Q, Lq]
+    corpus_tokens: torch.Tensor,  # this rank's [N/S, Ld, D]
+    corpus_mask: torch.Tensor,  # this rank's [N/S, Ld]
+    mesh,
+    k: int = 1000,
+    doc_block: int = 1024,
+) -> RankedLists:
+    """Index-parallel ColBERT search over the doc-major token matrix: each
+    rank runs ``maxsim_search`` over its shard (K1 on the card, the dense
+    reference on the CPU, which is JAX's ``use_pallas=False``)."""
+    from fusion_tpu_torch.ops.maxsim import maxsim_search
+
+    shard_n = corpus_tokens.shape[0]
+    k = min(k, shard_n)
+    local = maxsim_search(q_tokens, q_mask, corpus_tokens, corpus_mask, k=k, doc_block=doc_block)
+    return _merge_local(local, mesh, shard_n, k)
+
+
+def sharded_maxsim_search_tm(
+    q_tokens: torch.Tensor,  # [Q, Lq, D]
+    q_mask: torch.Tensor,  # [Q, Lq]
+    corpus_tm: torch.Tensor,  # this rank's prepared [Ld, N/S, D]
+    doc_valid: torch.Tensor,  # this rank's [N/S] bool
+    mesh,
+    k: int = 1000,
+    use_pallas: bool | None = None,
+) -> RankedLists:
+    """Index-parallel MaxSim over the PREPARED token-major corpus, the
+    serving layout (``prepare_token_corpus``; docs on axis 1): each rank
+    streams ``maxsim_search_tm`` (K1 on the card) over its shard."""
+    from fusion_tpu_torch.ops.maxsim import maxsim_search_tm
+
+    shard_n = corpus_tm.shape[1]
+    k = min(k, shard_n)
+    local = maxsim_search_tm(q_tokens, q_mask, corpus_tm, doc_valid, k=k, use_pallas=use_pallas)
+    return _merge_local(local, mesh, shard_n, k)
+
+
+def sharded_maxsim_search_compressed(
+    q_tokens: torch.Tensor,  # [Q, Lq, D]
+    q_mask: torch.Tensor,  # [Q, Lq]
+    index,  # this rank's CompressedTokenIndex (its docs' rows; centroids replicated)
+    mesh,
+    k: int = 1000,
+    doc_block: int = 8192,
+    use_pallas: bool | None = None,
+) -> RankedLists:
+    """Index-parallel search over the residual-compressed ColBERT index:
+    each rank decompresses its shard block by block into K1
+    (``maxsim_search_compressed``).  ``use_pallas`` is checked and dropped."""
+    from fusion_tpu_torch.core.device import check_use_pallas
+    from fusion_tpu_torch.index.compression import maxsim_search_compressed
+
+    check_use_pallas(use_pallas)
+    shard_n = index.num_docs
+    k = min(k, shard_n)
+    local = maxsim_search_compressed(q_tokens, q_mask, index, k=k, doc_block=min(doc_block, shard_n))
+    return _merge_local(local, mesh, shard_n, k)
 
 
 def chunked_encode_search(

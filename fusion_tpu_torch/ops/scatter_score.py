@@ -28,7 +28,10 @@ and one stable top-k over all bins picks the result.
     bulk copies and a term-major one by 16-byte copies
     (``pregathered_smem_bytes`` mirrors its shared-memory sizes;
     ``.launches`` counts chunk-major launches, ``.term_major_launches``
-    term-major ones); ``pregathered_search`` is the search over them.
+    term-major ones); ``pregathered_search`` is the search over them;
+  * ``shard_chunked_impact_index``, ``local_scatter_search`` and
+    ``sharded_scatter_search`` — a rank's chunk-range shard of the index
+    and its search over a mesh (``parallel/sharding.py``).
 
 Trades, as in the JAX package: postings accumulate bf16 values in f32;
 two true top-k docs sharing a 16-doc bin drop the weaker; packed scores lose
@@ -40,13 +43,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from fusion_tpu_torch.core.device import check_use_pallas
 from fusion_tpu_torch.core.ranked import RankedLists
 from fusion_tpu_torch.index.inverted import CHUNK_SENTINEL
 from fusion_tpu_torch.ops import _kernels
 from fusion_tpu_torch.ops.dense_topk import BIN, _bin_reduce_pack, _select_topk
+from fusion_tpu_torch.parallel.sharding import INDEX_AXIS, default_index_rank, globalize, merge_shards
 
 LANES = 128  # a chunk's docs d = hi·LANES + lo, hi < H
 
@@ -406,3 +413,93 @@ def pregathered_search(
     else:
         packed = scatter_pregathered_plain(docs, vals, docs_per_chunk, layout)
     return _select_topk(packed, n_docs, min(k, n_docs), docs_per_chunk)
+
+
+class ShardedChunkedImpactIndex(NamedTuple):
+    """One rank's chunk-range shard of a ChunkedImpactIndex
+    (``shard_chunked_impact_index``).  Chunks are contiguous doc ranges, so
+    shard r owns docs [r·docs_per_shard, (r+1)·docs_per_shard)."""
+
+    post_doc: torch.Tensor  # int16 [V+1, C/S, capc] (uint16 local ids, pad 0xFFFF)
+    post_impact: torch.Tensor  # f16 [V+1, C/S, capc]
+    n_docs: int
+    docs_per_chunk: int
+    docs_per_shard: int
+    vocab_size: int
+    cap_per_chunk: int
+
+
+def shard_chunked_impact_index(index, n_shards: int, *, rank: int | None = None) -> ShardedChunkedImpactIndex:
+    """Split a ChunkedImpactIndex chunk-wise into ``n_shards`` doc-range
+    shards and keep shard ``rank`` (default: this process's index
+    coordinate) on the index's device.  The chunk axis pads with
+    sentinel-only chunks to divide evenly: the host repack of the JAX
+    package, whose ``[S, V+1, C/S, capc]`` stack holds these rows."""
+    rank = default_index_rank(n_shards) if rank is None else rank
+    docs = index.post_doc.cpu().numpy()
+    imps = index.post_impact.cpu().numpy()
+    vp1, c, capc = docs.shape
+    per_c = -(-c // n_shards)
+    lo, hi = rank * per_c, min((rank + 1) * per_c, c)
+    d_s = np.full((vp1, per_c, capc), CHUNK_SENTINEL, dtype=np.uint16).view(np.int16)
+    i_s = np.zeros((vp1, per_c, capc), dtype=np.float16)
+    d_s[:, : max(hi - lo, 0)] = docs[:, lo:hi]
+    i_s[:, : max(hi - lo, 0)] = imps[:, lo:hi]
+    device = index.post_doc.device
+    return ShardedChunkedImpactIndex(
+        post_doc=torch.as_tensor(d_s, device=device),
+        post_impact=torch.as_tensor(i_s, device=device),
+        n_docs=index.n_docs,
+        docs_per_chunk=index.docs_per_chunk,
+        docs_per_shard=per_c * index.docs_per_chunk,
+        vocab_size=index.vocab_size,
+        cap_per_chunk=index.cap_per_chunk,
+    )
+
+
+def local_scatter_search(
+    q_terms: torch.Tensor,
+    q_weights: torch.Tensor,
+    post_doc: torch.Tensor,  # int16 [V+1, Cl, capc] (one shard's chunks)
+    post_impact: torch.Tensor,
+    docs_per_chunk: int,
+    docs_per_shard: int,
+    k: int,
+    chunk_block: int = 16,
+    use_pallas: bool | None = None,
+    recall_target: float = 0.99,
+) -> RankedLists:
+    """One shard's scatter search with LOCAL doc ids (pad slots -1): K3 for
+    tensors on the card, its plain version on the CPU.  ``chunk_block`` (the
+    TPU kernel's grid step), ``use_pallas`` and ``recall_target`` are checked
+    and dropped: the port's select is exact."""
+    check_use_pallas(use_pallas)
+    if chunk_block < 1 or not 0.0 < recall_target <= 1.0:
+        raise ValueError(f"chunk_block must be >= 1 and recall_target in (0, 1], got {chunk_block}, {recall_target}")
+    packed = scatter_binmax(
+        q_terms.to(torch.int32).contiguous(), q_weights.to(torch.float32).contiguous(),
+        post_doc.contiguous(), post_impact.contiguous(), docs_per_chunk,
+    )
+    return _select_topk(packed, docs_per_shard, min(k, docs_per_shard), docs_per_chunk)
+
+
+def sharded_scatter_search(
+    q_terms: torch.Tensor,
+    q_weights: torch.Tensor,
+    index: ShardedChunkedImpactIndex,
+    mesh,
+    k: int = 1000,
+    chunk_block: int = 16,
+    use_pallas: bool | None = None,
+    recall_target: float = 0.99,
+) -> RankedLists:
+    """Index-parallel scatter search: each rank scores its chunk-range shard
+    (queries replicated) and the per-shard top-k lists all-gather and merge.
+    Depth ``min(k, docs_per_shard)``."""
+    per = index.docs_per_shard
+    k = min(k, per)
+    local = local_scatter_search(
+        q_terms, q_weights, index.post_doc, index.post_impact, index.docs_per_chunk, per, k,
+        chunk_block=chunk_block, use_pallas=use_pallas, recall_target=recall_target,
+    )
+    return merge_shards(globalize(local, mesh.coords[INDEX_AXIS], per), local.scores, k, mesh)

@@ -25,7 +25,12 @@ added.  The merge, fusion and rerank run on the searcher's ``device``; each
 segment's cross-encoder doc tokens stay on the device where they were built
 and the rerank gathers each segment's rows from its own table.
 
-The JAX package's sharded segments (``mesh=``) are not ported: they raise.
+With ``mesh=`` (``parallel.sharding.make_mesh``) every segment and the
+global BM25 index serve as ``ShardedHybridSearcher`` over the mesh ``index``
+axis: each rank builds the same segments and keeps its shard of each, and the
+rerank gathers each candidate's tokens from the rank that owns its row (an
+ownership-masked gather and a sum all-reduce).  Every rank must make the same
+updates and searches in the same order.
 """
 
 from __future__ import annotations
@@ -92,11 +97,6 @@ class SegmentedHybridSearcher:
     ) -> None:
         self._kwargs = dict(build_kwargs)
         self.mesh = self._kwargs.pop("mesh", None)
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "SegmentedHybridSearcher(mesh=...): segments served as sharded searchers over a "
-                "mesh are not ported to fusion_tpu_torch yet (ROADMAP.md Queue 1, item 18)"
-            )
         self.device = resolve_device(self._kwargs.get("device", "cuda"))
         self._kwargs["device"] = self.device
         self.topk = int(build_kwargs.get("topk", 1000))
@@ -160,8 +160,16 @@ class SegmentedHybridSearcher:
         t0 = time.perf_counter()
         kwargs = {k: self._kwargs[k] for k in _BM25_KEYS if k in self._kwargs}
         corpus = dict(zip(self._bm25_ids, self._bm25_docs))
-        self.bm25_searcher = HybridSearcher.build(corpus, bm25_docs=self._bm25_docs, **kwargs)
+        self.bm25_searcher = self._maybe_shard(HybridSearcher.build(corpus, bm25_docs=self._bm25_docs, **kwargs))
         self.build_seconds["bm25"] = time.perf_counter() - t0
+
+    def _maybe_shard(self, seg: HybridSearcher):
+        """``seg`` itself, or with a mesh this rank's shard of it."""
+        if self.mesh is None:
+            return seg
+        from fusion_tpu_torch.serving_sharded import ShardedHybridSearcher
+
+        return ShardedHybridSearcher.from_searcher(seg, self.mesh, impact_cap=self._kwargs.get("impact_cap"))
 
     def _neural_kwargs(self) -> dict:
         kw = {k: v for k, v in self._kwargs.items() if k not in ("k1", "b", "bm25_preprocess")}
@@ -175,7 +183,7 @@ class SegmentedHybridSearcher:
         seg = HybridSearcher.build(corpus, bm25_docs=None, **self._neural_kwargs())
         if seg.ce_doc_tokens is not None and self._ce_len is None:
             self._ce_len = int(seg.ce_doc_tokens.shape[1])
-        self.segments.append(seg)
+        self.segments.append(self._maybe_shard(seg))
         self._corpora.append(corpus)
         self._refresh_ce_tables()
         self.build_seconds["segment"] = time.perf_counter() - t0
@@ -332,7 +340,8 @@ class SegmentedHybridSearcher:
         """The cross-encoder over the fused head, in the flat form (every
         pair padded to the segments' doc width).  External ids span
         segments: each segment's rows are gathered from its own table
-        ([Q, kr, Ld] per segment, combined by select masks)."""
+        ([Q, kr, Ld] per segment, combined by select masks); a sharded
+        segment's rows come from the ranks that own them."""
         ce = self.cross_encoder
         kr = min(self.rerank_depth, fused.depth)
         head_ids = fused.ids[:, :kr].cpu().numpy()
@@ -355,10 +364,15 @@ class SegmentedHybridSearcher:
                 pick = (segs[sl] == si) & valid[sl]
                 if not pick.any():
                     continue
-                r = torch.as_tensor(np.where(pick, rows[sl], 0), dtype=torch.long, device=seg.ce_doc_tokens.device)
-                m = torch.as_tensor(pick, device=self.device)[..., None].long()
-                ti = ce._token_ids(seg.ce_doc_tokens[r]).to(self.device) * m
-                tm = seg.ce_doc_mask[r].to(self.device).long() * m
+                if self.mesh is not None:
+                    r = torch.as_tensor(np.where(pick, rows[sl], -1), dtype=torch.long, device=self.device)
+                    ti, tm = seg._owned_tokens(r)
+                else:
+                    r = torch.as_tensor(np.where(pick, rows[sl], 0), dtype=torch.long,
+                                        device=seg.ce_doc_tokens.device)
+                    m = torch.as_tensor(pick, device=self.device)[..., None].long()
+                    ti = ce._token_ids(seg.ce_doc_tokens[r]).to(self.device) * m
+                    tm = seg.ce_doc_mask[r].to(self.device).long() * m
                 d_ids = ti if d_ids is None else d_ids + ti
                 d_mask = tm if d_mask is None else d_mask + tm
             if d_ids is None:  # every head slot is a pad

@@ -24,6 +24,11 @@ One process owns the card:
 ``start()`` warms the searcher with one padded batch first, and raises if
 that fails: a kernel that does not build or launch stops the server instead
 of surfacing as a 500 on the first request.
+
+A sharded searcher (``ShardedHybridSearcher``, or a segmented one built with
+``mesh=``) is served on a mesh of one rank.  Over more ranks it raises: only
+rank 0 would see the requests, and the other ranks would wait in their
+collectives forever (a multi-rank server is ROADMAP.md Queue 1, item 19).
 """
 
 from __future__ import annotations
@@ -69,6 +74,12 @@ class SearchServer:
         max_wait_ms: float = 5.0,
         default_topk: int = 10,
     ) -> None:
+        mesh = getattr(searcher, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"SearchServer over a mesh of {mesh.size} ranks: a server that feeds every rank the same "
+                "batches is not ported to fusion_tpu_torch yet (ROADMAP.md Queue 1, item 19)"
+            )
         self.searcher = searcher
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms

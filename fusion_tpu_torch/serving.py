@@ -558,6 +558,21 @@ class HybridSearcher:
             self.splade_rescore_store = build_rescore_store(sp)
             self.splade_rescore_depth = int(rescore_depth)
 
+    # which query encodings a batch needs (the sharded searcher, whose
+    # indexes live in shard fields, overrides them)
+    @property
+    def _dense_active(self) -> bool:
+        return self.dense_corpus is not None
+
+    @property
+    def _colbert_active(self) -> bool:
+        return self.colbert_index is not None
+
+    @property
+    def _cap_guard_index(self):
+        """The capped lexical index the query-time guard reads (or None)."""
+        return self.bm25_impact_index
+
     @property
     def _splade_active(self) -> bool:
         return self.splade_model is not None and (
@@ -571,11 +586,11 @@ class HybridSearcher:
         systems = []
         if self.bm25 is not None:
             systems.append("bm25")
-        if self.dense_corpus is not None:
+        if self._dense_active:
             systems.append("dpr")
         if self._splade_active:
             systems.append("splade")
-        if self.colbert_index is not None:
+        if self._colbert_active:
             systems.append("colbert")
         if self._rerank_active:
             systems.append("monobert")
@@ -745,7 +760,7 @@ class HybridSearcher:
         ``frac_threshold`` of real BM25 query terms hit posting lists capped
         past CAP_SAFE_DF_RATIO·cap (the signature of unpreprocessed queries
         against a capped index)."""
-        idx = self.bm25_impact_index
+        idx = self._cap_guard_index
         if self._cap_guard_warned or idx is None:
             return
         frac = idx.unsafe_query_term_frac(q_terms)
@@ -775,7 +790,7 @@ class HybridSearcher:
         # each encoder tokenizes with ITS OWN text encoder (checkpoints may
         # differ in tokenizer, prefix or max length)
         dense_te = None
-        if self.dense_corpus is not None:
+        if self._dense_active:
             dense_te = self.dense_model.text_encoder
             ids, mask = dense_te.encode(chunk, query_mode=True)
             inputs["q_ids"], inputs["q_mask"] = token_tensors(ids, mask, self.device)
@@ -786,7 +801,7 @@ class HybridSearcher:
             else:
                 ids, mask = te.encode(chunk, query_mode=True)
                 inputs["sp_ids"], inputs["sp_mask"] = token_tensors(ids, mask, self.device)
-        if self.colbert_index is not None:
+        if self._colbert_active:
             ids, mask = self.colbert_model.text_encoder.encode(chunk, query_mode=True)
             inputs["cb_ids"], inputs["cb_mask"] = token_tensors(ids, mask, self.device)
         if self._rerank_active:
@@ -859,11 +874,11 @@ class HybridSearcher:
         results: dict[str, RankedLists] = {}
         if self.bm25 is not None:
             results["bm25"] = self._bm25_leg(inputs)
-        if self.dense_corpus is not None:
+        if self._dense_active:
             results["dpr"] = self._dpr_leg(inputs)
         if self._splade_active:
             results["splade"] = self._splade_leg(inputs)
-        if self.colbert_index is not None:
+        if self._colbert_active:
             results["colbert"] = self._colbert_leg(inputs)
         return results
 

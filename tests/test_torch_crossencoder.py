@@ -176,6 +176,21 @@ def test_plan_and_assembled_rows_match(pair, tokens, row_width, rpc):
         np.testing.assert_array_equal(g_arr.numpy(), np.asarray(w_arr))
 
 
+@pytest.mark.parametrize("chunk_multiple", [1, 2, 8])
+@pytest.mark.parametrize("row_width, rpc", [(48, 1), (64, 2), (None, None)])
+def test_plan_chunk_multiple_matches_jax(pair, tokens, row_width, rpc, chunk_multiple):
+    """The sharded packed rerank's plan: the chunk count rounded up to a
+    multiple of the ranks, so each scores whole chunks; JAX's arrays."""
+    want, got = pair
+    (_, _, w_lens), _, (_, q_mask) = tokens
+    args = (HEAD, w_lens, q_mask.sum(axis=1).astype(np.int32), 6, 24, len(DOCS))
+    kw = dict(row_width=row_width, rows_per_chunk=rpc, chunk_multiple=chunk_multiple)
+    w_plan, g_plan = want.plan_packed(*args, **kw), got.plan_packed(*args, **kw)
+    for g_arr, w_arr in zip(g_plan, w_plan):
+        np.testing.assert_array_equal(g_arr, w_arr)
+    assert g_plan[3] % chunk_multiple == 0 and g_plan[1].shape[0] == g_plan[3]
+
+
 @pytest.mark.parametrize("row_width, rpc", [(128, None), (64, 2), (None, None)])
 def test_rerank_tokens_packed_matches_jax_and_flat(pair, tokens, row_width, rpc):
     want, got = pair

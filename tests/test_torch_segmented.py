@@ -18,9 +18,20 @@ Two kinds of checks:
     compared as sets inside runs of scores that tie within the bound; after
     an add, after a delete and after compact.
 
-Besides: the merge's tie order against ``lax.top_k``, ``mesh=`` raising
-with ROADMAP.md Queue 1 item 18 named, and ``/healthz`` of a segmented
-searcher served by ``SearchServer``."""
+Sharded segments (``mesh=``), in a pod of two port processes joined over
+gloo (``tests/torch_pod.py``): ``tests/test_segmented.py``'s two sharded
+cases on the port (add, delete, compact against a sharded rebuild of the
+union: the same top 1, the top 8 overlapping in all but one RRF tie swap,
+agreeing ids' scores within rtol 2e-3 / atol 2e-4; the compressed ColBERT
+leg sharded against unsharded over the same segments: the same ids, scores
+within 1e-3), and the port's sharded segmented searcher against JAX's over
+an index = 2 mesh after the add, the delete and compact (see
+``test_sharded_segmented_matches_jax``).
+
+Besides: the merge's tie order against ``lax.top_k``, ``mesh=`` on a mesh of
+one rank (the sharded searcher in each segment) and a mesh on another device
+than the build's refused, and ``/healthz`` of a segmented searcher served by
+``SearchServer``."""
 
 import json
 import urllib.request
@@ -320,9 +331,29 @@ def test_merge_tie_order_matches_lax_top_k():
     assert segmented._merge_ranked([one], 2) is one
 
 
-def test_mesh_raises_with_item_18(models):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        SegmentedHybridSearcher({0: "chat"}, dense_model=models["dense_model"], mesh=object(), device=DEVICE)
+def test_mesh_raises_with_item_18(models, prep):
+    """``mesh=`` raised (naming item 18) until the sharded segments were
+    ported: on a mesh of one rank every segment and the BM25 index are now
+    sharded searchers that rank as the unsharded ones do; a mesh whose rank
+    lives on another device than the build's raises."""
+    from fusion_tpu_torch.parallel.sharding import make_mesh
+    from fusion_tpu_torch.serving_sharded import ShardedHybridSearcher
+
+    a, b = _corpus(8, seed=7, base_id=0), _corpus(6, seed=8, base_id=300)
+    # scale mode: the sharded BM25 leg is the impact index, as here
+    kwargs = {k: v for k, v in _common_kwargs(models, prep).items() if k != "colbert_model"}
+    kwargs.update(scale_mode=True, impact_cap=64)
+    mesh = make_mesh(index=1, devices=[DEVICE])
+    seg = SegmentedHybridSearcher(a, bm25_docs=_bm25(prep, a), mesh=mesh, **kwargs)
+    plain = SegmentedHybridSearcher(a, bm25_docs=_bm25(prep, a), **kwargs)
+    for s in (seg, plain):
+        s.add_documents(b, bm25_docs=_bm25(prep, b))
+    assert all(isinstance(x, ShardedHybridSearcher) for x in [seg.bm25_searcher, *seg.segments])
+    (want, _), (got, _) = plain.search(QUERIES, batch_size=4), seg.search(QUERIES, batch_size=4)
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.scores, want.scores)
+    meta = make_mesh(index=1, devices=["meta"])
+    with pytest.raises(ValueError, match="mesh's rank"):
+        SegmentedHybridSearcher({0: "chat"}, dense_model=models["dense_model"], mesh=meta, device=DEVICE)
 
 
 def test_healthz_serves_a_segmented_searcher(models, prep):
@@ -358,3 +389,109 @@ def test_healthz_serves_a_segmented_searcher(models, prep):
         assert top not in search(QUERIES[0])["ids"]
     finally:
         srv.stop()
+
+
+# ----------------------------------------------------------------------
+# sharded segments in a pod of two processes, and against JAX's
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def sharded_pod(tmp_path_factory):
+    """The pod's sharded segmented searchers (weights converted from the
+    JAX models) and JAX's over an index = 2 mesh, computed while the pod
+    runs: (per-rank reports, JAX's lists after the add, delete, compact)."""
+    import jax
+    from torch_pod import start_pod
+
+    from fusion_tpu.parallel.sharding import make_mesh as jax_make_mesh
+
+    jcfg = JaxConfig.tiny(vocab_size=512)
+    kw = dict(max_query_length=8, max_doc_length=16)
+    jd, js = JaxBiEncoder(jcfg, head="dense", **kw), JaxBiEncoder(jcfg, head="splade", **kw)
+    jc, jce = JaxColBERT(jcfg, dim=16, **kw), JaxCrossEncoder(jcfg, max_length=32)
+    a, b = _corpus(14, seed=3, base_id=100), _corpus(10, seed=4, base_id=500)
+    payload = {
+        "models": {"dense": convert.encoder_state_dict(jd.params),
+                   "splade": convert.encoder_with_mlm_state_dict(js.params),
+                   "colbert": convert.colbert_state_dict(jc.params),
+                   "ce": convert.crossencoder_state_dict(jce.params)},
+        "queries": SEARCH_QUERIES, "seg_a": a, "seg_b": b,
+        "seg_c": _corpus(12, seed=11, base_id=0), "seg_d": _corpus(8, seed=12, base_id=300),
+    }
+    d = tmp_path_factory.mktemp("segmented_pod")
+    torch.save(payload, d / "payload.pt")
+    pod = start_pod(d, "segmented", timeout=300)
+
+    prep = TextPreprocessor(spacy_model=None)
+    mesh = jax_make_mesh(data=1, model=1, index=2, devices=jax.devices()[:2])
+    seg = jax_segmented.SegmentedHybridSearcher(
+        a, bm25_docs=_bm25(prep, a), mesh=mesh, dense_model=jd, splade_model=js, cross_encoder=jce,
+        rerank_depth=4, batch_size=4, topk=8, bm25_preprocess=lambda t: prep.preprocess(list(t)),
+        int8_corpus=True, ce_max_doc_tokens=24,
+    )
+    want = {}
+
+    def lists():
+        r, _ = seg.search(SEARCH_QUERIES, batch_size=4, use_pallas=False)
+        return {"ids": np.asarray(r.ids), "scores": np.asarray(r.scores)}
+
+    seg.add_documents(b, bm25_docs=_bm25(prep, b))
+    want["two_segments"] = (lists(), _merged(seg, jax_segmented, use_pallas=False))
+    seg.delete_documents(sorted(b)[:3])
+    want["tombstoned"] = (lists(), _merged(seg, jax_segmented, use_pallas=False))
+    seg.compact()
+    want["compacted"] = (lists(), _merged(seg, jax_segmented, use_pallas=False))
+    return pod.results(), want
+
+
+def test_sharded_segmented_add_delete_compact_matches_full_rebuild(sharded_pod):
+    """``tests/test_segmented.py``'s sharded case on the port, two ranks."""
+    ranks, _ = sharded_pod
+    for report in ranks:
+        assert report["two_segments"]["n"] == 2
+        assert report["two_segments"]["systems"] == ["bm25", "dpr", "splade", "monobert"]
+        assert report["compacted"]["n"] == 1 and report["compacted"]["tombstones"] == []
+        want, got = report["rebuild"], report["compacted"]["search"]
+        w_ids, g_ids, w_sc, g_sc = want["ids"], got["ids"], want["scores"], got["scores"]
+        for qi in range(len(SEARCH_QUERIES)):
+            assert g_ids[qi, 0] == w_ids[qi, 0], (qi, g_ids[qi], w_ids[qi])
+            assert len(set(g_ids[qi].tolist()) & set(w_ids[qi].tolist())) >= g_ids.shape[1] - 1
+            agree = (g_ids[qi] == w_ids[qi]) & np.isfinite(w_sc[qi])
+            np.testing.assert_allclose(g_sc[qi][agree], w_sc[qi][agree], rtol=2e-3, atol=2e-4)
+        assert not set(report["victims"]) & set(report["tombstoned"]["search"]["ids"].ravel().tolist())
+    for key in ("two_segments", "compacted"):
+        np.testing.assert_array_equal(ranks[0][key]["search"]["ids"], ranks[1][key]["search"]["ids"])
+
+
+def test_sharded_segmented_colbert_leg_matches_unsharded(sharded_pod):
+    ranks, _ = sharded_pod
+    for report in ranks:
+        assert report["colbert"]["systems"] == ["colbert"]
+        want, got = report["colbert"]["plain"], report["colbert"]["sharded"]
+        for qi in range(len(SEARCH_QUERIES)):
+            f = np.isfinite(want["scores"][qi]) & np.isfinite(got["scores"][qi])
+            assert set(got["ids"][qi][f].tolist()) == set(want["ids"][qi][f].tolist()), qi
+            np.testing.assert_allclose(np.sort(got["scores"][qi][f]), np.sort(want["scores"][qi][f]),
+                                       rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("step", ["two_segments", "tombstoned", "compacted"])
+def test_sharded_segmented_matches_jax(sharded_pod, step):
+    """Each system's merged list within its leg's bound (BM25 1e-5; the
+    sharded int8 DPR and SPLADE legs round an f32 query to bf16: 2^-8), ids
+    equal but inside runs of tied scores; the reranked lists as JAX's own
+    sharded segment test holds them (a near-tie swap in a leg moves an RRF
+    score by a rank): the same top 1, the same reranked head, all but one of
+    the top 8."""
+    ranks, want_all = sharded_pod
+    want, want_legs = want_all[step]
+    got, got_legs = ranks[0][step]["search"], ranks[0][step]["legs"]
+    assert set(got_legs) == set(want_legs) == {"bm25", "dpr", "splade"}
+    for name, w in want_legs.items():
+        assert_ranked_match(got_legs[name]["ids"], got_legs[name]["scores"], w.ids, w.scores,
+                            atol=1e-5 if name == "bm25" else 2.0**-8, cut_ties=True)
+    w_ids, g_ids = want["ids"], got["ids"]
+    for qi in range(len(SEARCH_QUERIES)):
+        assert g_ids[qi, 0] == w_ids[qi, 0]
+        assert set(g_ids[qi, :4]) == set(w_ids[qi, :4])
+        assert len(set(g_ids[qi].tolist()) & set(w_ids[qi].tolist())) >= g_ids.shape[1] - 1
+

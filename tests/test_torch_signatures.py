@@ -4,10 +4,11 @@ A positional call written for the JAX package binds the same way in the
 port: each public function or method that both packages define (same
 module path, same name) takes the JAX parameters, in the JAX order, as far
 as both go; the port's own parameters (``device``, ``dead_rows``,
-``outer_block``, ``timings``) come after them or are keyword-only, and the
-JAX package's TPU knobs (``use_pallas``, ``recall_target``,
-``query_chunk``, ``convert_to_numpy``, ``use_onehot``) are accepted,
-checked and dropped.  ``test_shared_positional_prefixes_agree`` reads both
+``outer_block``, ``timings``, the shard builders' ``rank``) come after them
+or are keyword-only, and the JAX package's TPU knobs (``use_pallas``,
+``recall_target``, ``query_chunk``, ``convert_to_numpy``, ``use_onehot``,
+``place``, ``dma_codes``, ``gather_impl``) are accepted, checked and
+dropped.  ``test_shared_positional_prefixes_agree`` reads both
 source trees with ``ast`` (no import) and names its exceptions.  The
 positional calls below equal the keyword calls exactly (the same
 computation).  ``local_topk='approx'`` is served by the exact select.
@@ -126,13 +127,59 @@ def test_hf_and_xmod_entry_points_are_checked():
     assert port[: len(jax)] == jax
 
 
+def test_multi_device_entry_points_are_checked():
+    """The mesh, the bootstrap, the sharded searcher and every sharded index
+    form are among the shared functions whose positional parameters
+    ``test_shared_positional_prefixes_agree`` holds to JAX's order."""
+    shared = {qual: (jax, port) for qual, jax, port in _shared()}
+    names = [
+        "parallel/sharding.py:make_mesh", "parallel/sharding.py:encoder_param_spec",
+        "parallel/sharding.py:shard_params", "parallel/multihost.py:initialize_multihost",
+        "parallel/multihost.py:pod_mesh", "parallel/multihost.py:is_primary_host",
+        "serving_sharded.py:ShardedHybridSearcher.from_searcher", "index/inverted.py:shard_impact_index",
+        "index/inverted.py:sharded_impact_search", "index/inverted.py:ShardedImpactIndex.unsafe_query_term_frac",
+        "ops/scatter_score.py:shard_chunked_impact_index", "ops/scatter_score.py:local_scatter_search",
+        "ops/scatter_score.py:sharded_scatter_search", "index/plaid.py:shard_plaid_index",
+        "index/plaid.py:sharded_plaid_search", "ops/mips.py:sharded_dense_search", "ops/mips.py:sharded_maxsim_search",
+        "ops/mips.py:sharded_maxsim_search_tm", "ops/mips.py:sharded_maxsim_search_compressed",
+        "models/crossencoder.py:PairRerankMixin.plan_packed",
+    ]
+    missing = [n for n in names if n not in shared]
+    assert not missing, missing
+    for name in names:  # the port takes all of JAX's positional parameters
+        jax, port = shared[name]
+        assert port[: len(jax)] == jax, name
+
+
+def test_multi_device_positional_calls():
+    """``make_mesh(data, model, index, devices)`` and ``from_searcher(searcher,
+    mesh, impact_cap, ivf_cap, dense_local_topk, place)`` bind as in JAX."""
+    from fusion_tpu_torch.parallel.sharding import make_mesh
+    from fusion_tpu_torch.serving_sharded import ShardedHybridSearcher
+
+    mesh = make_mesh(1, 1, 1, [DEVICE])
+    assert mesh.shape == {"data": 1, "model": 1, "index": 1}
+    cfg = EncoderConfig.tiny(vocab_size=512)
+    dense = BiEncoder(cfg, head="dense", max_query_length=8, max_doc_length=16, device=DEVICE)
+    single = HybridSearcher.build(CORPUS, list(CORPUS.values()), dense, batch_size=4, device=DEVICE)
+    got = ShardedHybridSearcher.from_searcher(single, mesh, 8, None, "approx", True)
+    assert got.dense_local_topk == "approx" and got.bm25_shards.cap == 8
+    want, _ = ShardedHybridSearcher.from_searcher(single, mesh, impact_cap=8, dense_local_topk="approx").search(
+        QUERIES, batch_size=4)
+    ranked, _ = got.search(QUERIES, 4, False)
+    assert torch.equal(ranked.ids, want.ids) and torch.equal(ranked.scores, want.scores)
+
+
 def test_port_parameters_are_keyword_only_or_last():
     """The port's own parameters on the functions F1 named."""
     import inspect
 
     from fusion_tpu_torch.index.compression import CompressedTokenIndex, compress_token_index
+    from fusion_tpu_torch.index.inverted import shard_impact_index
+    from fusion_tpu_torch.index.plaid import shard_plaid_index
     from fusion_tpu_torch.models.bm25 import BM25Index
     from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.ops.scatter_score import shard_chunked_impact_index
 
     kw_only = inspect.Parameter.KEYWORD_ONLY
     for fn, name in ((HybridSearcher.build, "device"), (dense_topk.fused_dense_topk, "dead_rows"),
@@ -141,7 +188,8 @@ def test_port_parameters_are_keyword_only_or_last():
                      (compress_token_index, "timings"), (CompressedTokenIndex.load, "device"),
                      (BiEncoder.from_pretrained_hf, "dtype"), (ColBERT.from_pretrained_hf, "dtype"),
                      (CrossEncoder.from_pretrained_hf, "dtype"), (BiEncoder.from_xmod, "dtype"),
-                     (ColBERT.from_xmod, "dtype")):
+                     (ColBERT.from_xmod, "dtype"), (shard_impact_index, "rank"),
+                     (shard_chunked_impact_index, "rank"), (shard_plaid_index, "rank")):
         assert inspect.signature(fn).parameters[name].kind == kw_only, (fn, name)
 
 
