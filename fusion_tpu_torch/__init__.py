@@ -41,44 +41,36 @@ sharded segments).
 
 __version__ = "0.1.0"
 
+from fusion_tpu_torch._lazy import lazy_exports
 from fusion_tpu_torch.core.ranked import PAD_ID, RankedLists
 
 # Heavier public classes resolve lazily so `import fusion_tpu_torch` stays cheap.
 _LAZY = {
-    "BM25Index": "fusion_tpu_torch.models.bm25",
-    "BiEncoder": "fusion_tpu_torch.models.biencoder",
-    "ColBERT": "fusion_tpu_torch.models.colbert",
-    "CrossEncoder": "fusion_tpu_torch.models.crossencoder",
-    "T5CrossEncoder": "fusion_tpu_torch.models.t5",
-    "EncoderConfig": "fusion_tpu_torch.models.encoder",
-    "Aggregator": "fusion_tpu_torch.fusion.aggregator",
-    "HybridPipeline": "fusion_tpu_torch.hybrid",
-    "HybridSearcher": "fusion_tpu_torch.serving",
-    "SegmentedHybridSearcher": "fusion_tpu_torch.segmented",
-    "SearchServer": "fusion_tpu_torch.server",
-    "Metrics": "fusion_tpu_torch.eval.metrics",
-    "InformationRetrievalEvaluator": "fusion_tpu_torch.eval.evaluators",
-    "RerankingEvaluator": "fusion_tpu_torch.eval.evaluators",
+    "BM25Index": "models.bm25",
+    "BiEncoder": "models.biencoder",
+    "ColBERT": "models.colbert",
+    "CrossEncoder": "models.crossencoder",
+    "T5CrossEncoder": "models.t5",
+    "EncoderConfig": "models.encoder",
+    "Aggregator": "fusion.aggregator",
+    "HybridPipeline": "hybrid",
+    "HybridSearcher": "serving",
+    "SegmentedHybridSearcher": "segmented",
+    "SearchServer": "server",
+    "Metrics": "eval.metrics",
+    "InformationRetrievalEvaluator": "eval.evaluators",
+    "RerankingEvaluator": "eval.evaluators",
     # index forms
-    "ImpactIndex": "fusion_tpu_torch.index.inverted",
-    "ChunkedImpactIndex": "fusion_tpu_torch.index.inverted",
-    "scatter_impact_search": "fusion_tpu_torch.ops.scatter_score",
-    "SparseIndex": "fusion_tpu_torch.index.sparse",
-    "QuantizedDenseIndex": "fusion_tpu_torch.index.dense_quant",
-    "CompressedTokenIndex": "fusion_tpu_torch.index.compression",
-    "IVFIndex": "fusion_tpu_torch.index.plaid",
+    "ImpactIndex": "index.inverted",
+    "ChunkedImpactIndex": "index.inverted",
+    "scatter_impact_search": "ops.scatter_score",
+    "SparseIndex": "index.sparse",
+    "QuantizedDenseIndex": "index.dense_quant",
+    "CompressedTokenIndex": "index.compression",
+    "IVFIndex": "index.plaid",
     # multilingual trunk
-    "XmodConfig": "fusion_tpu_torch.models.xmod",
-    "XmodEncoder": "fusion_tpu_torch.models.xmod",
+    "XmodConfig": "models.xmod",
+    "XmodEncoder": "models.xmod",
 }
-
-
-def __getattr__(name):
-    if name in _LAZY:
-        import importlib
-
-        return getattr(importlib.import_module(_LAZY[name]), name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-__all__ = ["RankedLists", "PAD_ID", "__version__", *sorted(_LAZY)]
+__getattr__, _lazy_names = lazy_exports(__name__, _LAZY)
+__all__ = ["RankedLists", "PAD_ID", "__version__", *sorted(_lazy_names)]

@@ -21,19 +21,25 @@ given ``--device cpu``).  Models load from ``--*_path`` checkpoints (either
 package's) and compute in the ``--bf16`` dtype (f32 with ``--no_bf16`` or
 ``--tiny``); without a path a model is built untrained from its seed.
 Training keeps f32 master weights and computes in that dtype, with each
-layer recomputed in the backward pass unless ``--no_remat``; it runs on one
-device, and raises with more than one visible card unless
-``--no_data_parallel``.  ``--attention_impl`` picks the encoders' attention
-form (``einsum``, ``einsum_bf16``, ``flash``; ``--tiny`` keeps the tiny
-config's, as the JAX CLI does); ``serve`` adds ``--ce_attention`` (default
+layer recomputed in the backward pass unless ``--no_remat``, and is
+data-parallel by default, as the JAX CLI's: the ``data`` axis takes the
+largest divisor of the batch that is at most the number of ranks
+(``_training_mesh``).  Under torchrun's environment (``torchrun
+--nproc_per_node N -m fusion_tpu_torch.cli.main ...``) each process joins
+the group through ``parallel.multihost.initialize_multihost`` (NCCL on
+``cuda:{LOCAL_RANK}``, gloo with ``--device cpu``); a plain process that
+sees several cards spawns one NCCL rank per card it uses and waits for them;
+``--no_data_parallel`` keeps one card.  Rank 0 logs and writes ``final/``.
+``--attention_impl`` picks the encoders' attention form (``einsum``,
+``einsum_bf16``, ``flash``; ``--tiny`` keeps the tiny config's, as the JAX
+CLI does); ``serve`` adds ``--ce_attention`` (default
 ``einsum_bf16``, the JAX CLI's), ``--encoders_attention``, ``--ce_int8``,
 ``--encoders_int8``, ``--rerank_buckets`` and ``--rerank_cascade``;
 ``monobert --backbone t5`` builds a T5 cross-encoder, and a checkpoint's
 ``model_type`` picks the backbone it loads as.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md item:
-data-parallel training.  The datasets' network sources (the HF hub,
-ir_datasets) are not ported either: without ``--fixture`` a loader raises.
+The datasets' network sources (the HF hub, ir_datasets) are not ported:
+without ``--fixture`` a loader raises.
 """
 
 from __future__ import annotations
@@ -41,14 +47,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
+import subprocess
 import sys
 
 import numpy as np
 import torch
 
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to fusion_tpu_torch yet (ROADMAP.md Queue 1, {item})")
+from fusion_tpu_torch.core.device import resolve_device
 
 
 def _read_fixture(args):
@@ -174,14 +180,119 @@ def cmd_bm25(args):
 # ----------------------------------------------------------------------
 # training commands
 # ----------------------------------------------------------------------
-def _check_one_device(args) -> None:
-    """The port trains on one device: with several visible cards, data
-    parallelism is asked for unless --no_data_parallel, and it is not
-    ported."""
-    if torch.device(args.device).type == "cuda" and args.data_parallel and torch.cuda.device_count() > 1:
-        raise _not_ported(
-            f"data-parallel training over the {torch.cuda.device_count()} visible cards (pass "
-            "--no_data_parallel to train on one)", "item 18")
+def _data_ranks(batch_size: int, n: int) -> int:
+    """The size of the ``data`` axis: the largest divisor of ``batch_size``
+    that is at most ``n`` (a tiny batch on many cards trains on fewer; batch
+    24 on 16 cards takes 12, not gcd's 8)."""
+    return max((k for k in range(1, min(batch_size, n) + 1) if batch_size % k == 0), default=1)
+
+
+def _training_mesh(args, batch_size: int):
+    """``(mesh, batch_size)`` of a training run: a data-parallel mesh over
+    the ranks of the process group (joined from torchrun's environment by
+    ``main``), or ``None`` on one device.  Every rank is given the global
+    batch and keeps its rows, so the batch must split over the ranks: a
+    group whose size is not a divisor of the batch raises (run it with
+    ``--nproc_per_node`` at ``_data_ranks``)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None, batch_size
+    from fusion_tpu_torch.parallel.multihost import is_primary_host
+    from fusion_tpu_torch.parallel.sharding import make_mesh
+
+    world = dist.get_world_size()
+    if _data_ranks(batch_size, world) != world:
+        raise ValueError(
+            f"batch {batch_size} does not split over {world} ranks: run {_data_ranks(batch_size, world)} ranks")
+    if is_primary_host():
+        print(f"[train] data-parallel over {world} ranks (batch {batch_size})")
+    return make_mesh(data=world), batch_size
+
+
+def _train_samples(args, loader):
+    """The training samples of the command ``args`` names: the
+    cross-encoder's pairs, or the bi-encoders' and ColBERT's sampler."""
+    if args.command == "monobert":
+        return loader.crossencoder_pairs(neg_per_pos=args.neg_per_pos, seed=args.seed)
+    return loader.biencoder_sampler(negs_per_query=args.negs_per_query, seed=args.seed)
+
+
+def _train_batch_size(args, samples) -> int:
+    """The global batch of the training command ``args`` names over
+    ``samples``: ``--train_batch_size``, else the preset's, at most the
+    samples (and at least 2).  Each command and ``_start_training`` (which
+    picks the number of ranks to spawn from it) take it from here."""
+    from fusion_tpu_torch.cli.presets import train_preset
+
+    return args.train_batch_size or min(train_preset(args.command, args.dataset).batch_size, max(len(samples), 2))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(argv: list[str], ranks: int) -> None:
+    """Run this command as ``ranks`` NCCL ranks, one process per card
+    (``cuda:0`` ... ``cuda:{ranks-1}``), under torchrun's environment
+    variables; wait for them and raise if one failed."""
+    port = str(_free_port())
+    procs = []
+    for rank in range(ranks):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(rank), WORLD_SIZE=str(ranks),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(ranks))
+        procs.append(subprocess.Popen([sys.executable, "-m", "fusion_tpu_torch.cli.main", *argv], env=env))
+    codes = [p.wait() for p in procs]
+    if any(codes):
+        raise SystemExit(f"data-parallel training failed: exit codes {codes} of ranks 0..{ranks - 1}")
+
+
+def _start_training(args, argv: list[str]) -> bool:
+    """Before a training command: under torchrun's environment, join the
+    process group (NCCL on this rank's card, gloo on the CPU) → False; as a
+    plain process with several visible cards and ``--data_parallel``, spawn
+    the ranks, which train → True (nothing left to do here); else train on
+    one device, saying so when cards were left idle → False."""
+    from fusion_tpu_torch.parallel.multihost import initialize_multihost
+
+    cuda = resolve_device(args.device).type == "cuda"
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if not args.data_parallel:
+            raise SystemExit("--no_data_parallel trains on one device: run it without torchrun")
+        if cuda:
+            initialize_multihost(backend="nccl")
+            args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        else:
+            initialize_multihost(backend="gloo", device="cpu")
+        return False
+    cards = torch.cuda.device_count() if cuda else 0
+    if cards > 1 and args.data_parallel:
+        batch = _train_batch_size(args, _train_samples(args, _load_lleqa(args)))
+        ranks = _data_ranks(batch, cards)
+        if ranks > 1:
+            print(f"[train] spawning {ranks} data-parallel ranks, one per card (batch {batch})")
+            _spawn_ranks(argv, ranks)
+            return True
+        print(f"[train] batch {batch} does not split over the {cards} cards: training on one")
+    elif cards > 1:
+        print(f"[train] --no_data_parallel: training on {args.device} alone of {cards} cards")
+    return False
+
+
+def _train_and_save(model, step_fn, state, batches, cfg, schedule, args, record: dict):
+    """``fit``, then rank 0 writes ``final/`` (whole parameters) and prints
+    ``record``."""
+    from fusion_tpu_torch.parallel.multihost import is_primary_host
+    from fusion_tpu_torch.train.trainer import fit, whole_parameters
+
+    fit(model, step_fn, batches, cfg, schedule=schedule, state=state)
+    with whole_parameters(model, getattr(step_fn, "mesh", None)):
+        if is_primary_host():
+            model.save(os.path.join(args.output_dir, "final"))
+            print(json.dumps(record))
+    return model
 
 
 def _fit_config(args, preset, steps: int, batch_size: int, **kw):
@@ -215,26 +326,27 @@ def _make_biencoder(args, head: str, train: bool):
 
 def _train_biencoder(args, model, preset, rank_loss, reg_loss):
     from fusion_tpu_torch.data.datasets import Batches, collate_biencoder
-    from fusion_tpu_torch.train.trainer import fit, init_train_state, make_biencoder_train_step
+    from fusion_tpu_torch.train.trainer import init_train_state, make_biencoder_train_step
     from fusion_tpu_torch.utils.loggers import WandbLogger
 
-    sampler = _load_lleqa(args).biencoder_sampler(negs_per_query=args.negs_per_query, seed=args.seed)
+    sampler = _train_samples(args, _load_lleqa(args))
     steps = args.steps or preset.steps or (
         (preset.epochs or 1) * max(len(sampler) // min(preset.batch_size, len(sampler)), 1))
-    batch_size = args.train_batch_size or min(preset.batch_size, max(len(sampler), 2))
+    batch_size = _train_batch_size(args, sampler)
     logger = WandbLogger(args.dataset, f"{args.model_name}-{args.seed}", log_dir=os.path.join(args.output_dir, "logs"))
     cfg = _fit_config(
         args, preset, steps, batch_size, log_every_n_steps=args.log_every, log_callback=logger.log_training,
         ckpt_path=os.path.join(args.output_dir, "checkpoints"), ckpt_save_steps=args.ckpt_save_steps,
     )
     state, tx, schedule = init_train_state(model, cfg)
-    step_fn = make_biencoder_train_step(model, tx, rank_loss, reg_loss, total_steps=steps)
+    mesh, batch_size = _training_mesh(args, batch_size)
+    step_fn = make_biencoder_train_step(model, tx, rank_loss, reg_loss, total_steps=steps, mesh=mesh)
+    if mesh is not None:
+        state = step_fn.place_state(state)
     batches = Batches(
         sampler.epochs, lambda s: collate_biencoder(model.text_encoder, s, args.negs_per_query), batch_size)
-    fit(model, step_fn, batches, cfg, schedule=schedule, state=state)
-    model.save(os.path.join(args.output_dir, "final"))
-    print(json.dumps({"trained_steps": steps, "saved": os.path.join(args.output_dir, "final")}))
-    return model
+    return _train_and_save(model, step_fn, state, batches, cfg, schedule, args,
+                           {"trained_steps": steps, "saved": os.path.join(args.output_dir, "final")})
 
 
 def _test_biencoder(args, model):
@@ -267,7 +379,6 @@ def _biencoder_command(args, head: str, rank_loss: dict, reg_loss: dict | None):
     from fusion_tpu_torch.models.biencoder import BiEncoder
 
     if args.task == "train":
-        _check_one_device(args)
 
         def one():
             model, preset = _make_biencoder(args, head, train=True)
@@ -296,8 +407,6 @@ def cmd_colbert(args):
 
     preset = train_preset("colbert", args.dataset)
     train = args.task == "train"
-    if train:
-        _check_one_device(args)
     if args.model_path:
         model = _load_model(ColBERT, args.model_path, args) if not train else ColBERT.load(
             args.model_path, device=args.device, dtype=_encoder_config(args).dtype, param_dtype=torch.float32)
@@ -314,14 +423,17 @@ def cmd_colbert(args):
 
     if train:
         from fusion_tpu_torch.data.datasets import Batches, collate_biencoder
-        from fusion_tpu_torch.train.trainer import fit, init_train_state, make_colbert_train_step
+        from fusion_tpu_torch.train.trainer import init_train_state, make_colbert_train_step
 
-        sampler = loader.biencoder_sampler(negs_per_query=args.negs_per_query, seed=args.seed)
+        sampler = _train_samples(args, loader)
         steps = args.steps or 100
-        batch_size = args.train_batch_size or min(preset.batch_size, max(len(sampler), 2))
+        batch_size = _train_batch_size(args, sampler)
         cfg = _fit_config(args, preset, steps, batch_size, weight_decay=preset.weight_decay)
         state, tx, schedule = init_train_state(model, cfg)
-        step_fn = make_colbert_train_step(model, tx, loss_name=args.colbert_loss)
+        mesh, batch_size = _training_mesh(args, batch_size)
+        step_fn = make_colbert_train_step(model, tx, loss_name=args.colbert_loss, mesh=mesh)
+        if mesh is not None:
+            state = step_fn.place_state(state)
 
         def collate(samples):
             b = collate_biencoder(model.text_encoder, samples, args.negs_per_query)
@@ -329,10 +441,8 @@ def cmd_colbert(args):
                 b[k] = b[k].astype(np.float32)
             return b
 
-        fit(model, step_fn, Batches(sampler.epochs, collate, batch_size), cfg, schedule=schedule, state=state)
-        model.save(os.path.join(args.output_dir, "final"))
-        print(json.dumps({"trained_steps": steps}))
-        return model
+        return _train_and_save(model, step_fn, state, Batches(sampler.epochs, collate, batch_size), cfg, schedule,
+                               args, {"trained_steps": steps})
 
     if args.task == "index":
         docs = list(data.corpus.values())
@@ -376,8 +486,6 @@ def cmd_monobert(args):
 
     preset = train_preset("monobert", args.dataset)
     train = args.task == "train"
-    if train:
-        _check_one_device(args)
     cfg = _encoder_config(args)
     max_len = 32 if args.tiny else preset.max_doc_length
     param_dtype = torch.float32 if train else None
@@ -398,13 +506,17 @@ def cmd_monobert(args):
 
     if train:
         from fusion_tpu_torch.data.datasets import Batches, collate_crossencoder
-        from fusion_tpu_torch.train.trainer import fit, init_train_state, make_crossencoder_train_step
+        from fusion_tpu_torch.train.trainer import init_train_state, make_crossencoder_train_step
 
-        pairs = loader.crossencoder_pairs(neg_per_pos=args.neg_per_pos, seed=args.seed)
+        pairs = _train_samples(args, loader)
         steps = args.steps or max(len(pairs) // 4, 1)
-        batch_size = args.train_batch_size or min(preset.batch_size, max(len(pairs), 2))
+        batch_size = _train_batch_size(args, pairs)
         cfg = _fit_config(args, preset, steps, batch_size, weight_decay=preset.weight_decay)
         state, tx, schedule = init_train_state(model, cfg)
+        mesh, batch_size = _training_mesh(args, batch_size)
+        step_fn = make_crossencoder_train_step(model, tx, mesh=mesh)
+        if mesh is not None:
+            state = step_fn.place_state(state)
 
         def sample_stream():
             while True:
@@ -416,10 +528,7 @@ def cmd_monobert(args):
                                            model.max_length),
             batch_size,
         )
-        fit(model, make_crossencoder_train_step(model, tx), batches, cfg, schedule=schedule, state=state)
-        model.save(os.path.join(args.output_dir, "final"))
-        print(json.dumps({"trained_steps": steps}))
-        return model
+        return _train_and_save(model, step_fn, state, batches, cfg, schedule, args, {"trained_steps": steps})
 
     from fusion_tpu_torch.eval.evaluators import RerankingEvaluator
 
@@ -774,10 +883,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args, unknown = build_parser().parse_known_args(argv)
     if unknown:
         print(f"# WARNING: ignoring unknown arguments: {unknown}", file=sys.stderr)
     args.model_name = args.command
+    if getattr(args, "task", None) == "train" and _start_training(args, argv):
+        return None
     return args.fn(args)
 
 

@@ -14,12 +14,18 @@ gives no such order, so every top-k in this package goes through
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
 
+from fusion_tpu_torch.core.device import resolve_device
+
 # Sentinel for empty slots. Real corpus ids must be >= 0.
 PAD_ID = -1
+
+# Score of an empty slot: strictly below any real score.
+PAD_SCORE = float("-inf")
 
 
 def stable_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -42,6 +48,36 @@ class RankedLists:
     @property
     def depth(self) -> int:
         return self.ids.shape[1]
+
+    def topk(self, k: int) -> "RankedLists":
+        """The top ``k`` entries of each row (rows are sorted already)."""
+        return RankedLists(self.ids[:, :k], self.scores[:, :k])
+
+    @classmethod
+    def from_python(cls, results: Sequence[Sequence[tuple]], k: int | None = None, *, device="cuda") -> "RankedLists":
+        """Build from per-query ``[(corpus_id, score), ...]`` lists, cut or
+        padded (``PAD_ID`` / ``PAD_SCORE``) to depth ``k`` (default: the
+        longest list), on ``device``."""
+        q = len(results)
+        k = k if k is not None else max((len(r) for r in results), default=0)
+        ids = np.full((q, k), PAD_ID, dtype=np.int32)
+        scores = np.full((q, k), PAD_SCORE, dtype=np.float32)
+        for i, row in enumerate(results):
+            row = list(row)[:k]
+            if row:
+                ids[i, : len(row)] = [int(c) for c, _ in row]
+                scores[i, : len(row)] = [float(s) for _, s in row]
+        device = resolve_device(device)
+        return cls(torch.from_numpy(ids).to(device), torch.from_numpy(scores).to(device))
+
+    def to_python(self) -> list[list[dict]]:
+        """Per-query ``[{"corpus_id": id, "score": s}, ...]`` (host-side),
+        pads stripped."""
+        out = []
+        for row_ids, row_scores in zip(self.ids.cpu().numpy(), self.scores.float().cpu().numpy()):
+            valid = row_ids != PAD_ID
+            out.append([{"corpus_id": int(c), "score": float(s)} for c, s in zip(row_ids[valid], row_scores[valid])])
+        return out
 
     def id_lists(self) -> list[list[int]]:
         """Per-query ranked id lists (host-side), pads stripped."""

@@ -39,6 +39,7 @@ from fusion_tpu_torch.data.tokenization import (
     tokenizer_from_config,
 )
 from fusion_tpu_torch.models import checkpoint, convert, heads
+from fusion_tpu_torch.models.checkpoint import CONFIG_FILENAME  # noqa: F401 - the JAX module's name
 from fusion_tpu_torch.models.encoder import (
     DropoutKey,
     Encoder,
@@ -57,6 +58,7 @@ from fusion_tpu_torch.models.xmod import (
     set_module_language,
 )
 from fusion_tpu_torch.ops.mips import dense_search
+from fusion_tpu_torch.parallel.sharding import MODEL_AXIS, all_gather_cat
 
 _FLOPS_REGS = {"query_reg": "FlopsLoss", "query_reg_weight": 3e-4, "doc_reg": "FlopsLoss", "doc_reg_weight": 1e-4}
 _HARD = {"training_sample_format": "tuple_with_scores", "negs_type": "hard", "negs_per_query": 1}
@@ -186,6 +188,9 @@ class BiEncoder(EncoderViews):
         if self.head == "splade":
             _, logits = self.module(input_ids, attention_mask, drop)
             acts = heads.splade_activation(logits, attention_mask, self.pooling)
+            # under model > 1 the logits are this rank's vocabulary columns;
+            # log1p∘relu∘max acts per column, so gather the activations
+            acts = all_gather_cat(acts, getattr(self.module, "tp_mesh", None), MODEL_AXIS, dim=-1)
             if self.pruning_topk is not None and not train:
                 acts, _ = heads.prune_topk(acts, self.pruning_topk)
             return acts

@@ -289,6 +289,17 @@ class BM25Index:
             device=self.device,
         )
 
+    def to_chunked_impact_index(self, docs_per_chunk: int = 4096, cap_per_chunk: int = 512):
+        """Doc-range-chunked impact index (``index/inverted.py``'s
+        ``ChunkedImpactIndex``), on the index's device."""
+        from fusion_tpu_torch.index.inverted import build_chunked_impact_index
+
+        term, doc, impacts = self._impacts_host()
+        return build_chunked_impact_index(
+            term, doc, impacts, vocab_size=self.vocab_size, n_docs=self.n_docs, docs_per_chunk=docs_per_chunk,
+            cap_per_chunk=cap_per_chunk, device=self.device,
+        )
+
     def build_dense_impacts(self, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         """The [V+1, N] impact matrix for the current (k1, b), built on the
         index's device.  Postings are unique (doc, term) pairs, so each cell

@@ -35,6 +35,7 @@ from fusion_tpu_torch.data.tokenization import (
 )
 from fusion_tpu_torch.index.compression import compress_token_index, maxsim_search_compressed
 from fusion_tpu_torch.models import checkpoint, convert
+from fusion_tpu_torch.models.checkpoint import CONFIG_FILENAME  # noqa: F401 - the JAX module's name
 from fusion_tpu_torch.models.encoder import (
     DropoutKey,
     Encoder,

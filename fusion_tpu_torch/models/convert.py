@@ -141,7 +141,10 @@ def flax_layouts(module: nn.Module, num_heads: int) -> dict[str, FlaxLayout]:
     ``kernel`` (the fused qkv ``[H, 3, heads, hd]``, the attention out
     ``[heads, hd, H]``), an Embedding's weight its ``embedding``, a
     LayerNorm's or RMSNorm's weight its ``scale``; any other parameter (T5's
-    ``relative_attention_bias``) keeps its name and layout."""
+    ``relative_attention_bias``) keeps its name and layout.  The views take
+    the head dim from the hidden width, which tensor parallelism never
+    splits, so they also read a rank's slice of the heads
+    (``parallel/sharding.shard_module``)."""
     owners = dict(module.named_modules())
     out = {}
     for name, param in module.named_parameters():
@@ -160,22 +163,21 @@ def flax_layouts(module: nn.Module, num_heads: int) -> dict[str, FlaxLayout]:
             leaf = "embedding"
         elif leaf == "weight" and isinstance(owner, nn.Linear):
             leaf = "kernel"
-            h_out, h_in = param.shape
             if mod_path[-2:] == ["attention", "qkv"]:
-                hd = h_in // num_heads
-                to_flax = lambda t, h=h_in, hd=hd: t.T.reshape(h, 3, num_heads, hd)  # noqa: E731
-                from_flax = lambda t, s=tuple(param.shape): t.reshape(s[1], s[0]).T  # noqa: E731
+                hd = param.shape[1] // num_heads
+                to_flax = lambda t, hd=hd: t.T.reshape(t.shape[1], 3, -1, hd)  # noqa: E731
+                from_flax = lambda t: t.reshape(t.shape[0], -1).T  # noqa: E731
             elif mod_path[-2:] == ["attention", "out"]:
-                hd = h_in // num_heads
-                to_flax = lambda t, h=h_out, hd=hd: t.T.reshape(num_heads, hd, h)  # noqa: E731
-                from_flax = lambda t, s=tuple(param.shape): t.reshape(s[1], s[0]).T  # noqa: E731
+                hd = param.shape[0] // num_heads
+                to_flax = lambda t, hd=hd: t.T.reshape(-1, hd, t.shape[0])  # noqa: E731
+                from_flax = lambda t: t.reshape(-1, t.shape[-1]).T  # noqa: E731
             else:
                 to_flax, from_flax = _transpose, _transpose
         elif leaf == "weight":  # LayerNorm
             leaf = "scale"
         elif leaf == "bias" and mod_path[-2:] == ["attention", "qkv"]:
-            hd = param.shape[0] // 3 // num_heads
-            to_flax = lambda t, hd=hd: t.reshape(3, num_heads, hd)  # noqa: E731
+            hd = owner.weight.shape[1] // num_heads
+            to_flax = lambda t, hd=hd: t.reshape(3, -1, hd)  # noqa: E731
             from_flax = lambda t: t.reshape(-1)  # noqa: E731
         out[name] = FlaxLayout(tuple(keys) + (leaf,), to_flax, from_flax)
     return out

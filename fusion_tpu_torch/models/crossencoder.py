@@ -58,6 +58,7 @@ from fusion_tpu_torch.data.tokenization import (
     tokenizer_from_config,
 )
 from fusion_tpu_torch.models import checkpoint, convert
+from fusion_tpu_torch.models.checkpoint import CONFIG_FILENAME  # noqa: F401 - the JAX module's name
 from fusion_tpu_torch.models.encoder import (
     DropoutKey,
     Encoder,

@@ -30,6 +30,13 @@ The same trunk as ``fusion_tpu/models/encoder.py``, layer for layer:
     per use, as flax's ``param_dtype`` f32 / ``dtype`` bf16 modules do, and
     their gradients reach the optimizer in f32.
 
+Under tensor parallelism (``parallel/sharding.shard_module`` gives the
+modules their ``tp_mesh``) the layers run Megatron's split: the fused qkv
+holds this rank's heads and ``ffn_in`` this rank's inner columns, each
+behind ``copy_to_model``; ``out`` and ``ffn_out`` are row-parallel, their
+products summed over ``model`` before the replicated bias is added once;
+the MLM decoder holds this rank's vocabulary columns.
+
 Serving runs the forward under ``torch.inference_mode`` in the models that
 use these modules.  Training passes a ``DropoutKey`` (dropout at the JAX
 package's four einsum-attention sites, each mask drawn from a generator
@@ -68,6 +75,7 @@ from torch.utils.checkpoint import checkpoint
 
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.ops.attention import allowed_keys, masked_attention, split_qkv
+from fusion_tpu_torch.parallel.sharding import copy_to_model, reduce_from_model
 
 
 ATTENTION_IMPLS = ("einsum", "einsum_bf16", "flash")
@@ -144,11 +152,19 @@ class DropoutKey:
     """Where a train-mode forward draws its dropout masks: one generator per
     ``(seed, step, stream, layer, site)``, so a resumed run and a remat
     recompute draw the masks they drew before.  ``stream`` tells apart the
-    forwards of one step (query, positive and negative batches)."""
+    forwards of one step (query, positive and negative batches).
+
+    ``data`` and ``model`` are this rank's (coordinate, size) on the mesh
+    axes of a parallel step: a mask is drawn at the global shape (every
+    rank's rows; every head for the attention probabilities) and the rank
+    keeps its own rows and heads, so a parallel step draws the masks of the
+    one-device step over the global batch."""
 
     seed: int
     step: int
     stream: int = 0
+    data: tuple[int, int] = (0, 1)
+    model: tuple[int, int] = (0, 1)
 
     def generator(self, device, layer: int, site: int) -> torch.Generator:
         entropy = [self.seed, self.step, self.stream, layer + 1, site]
@@ -162,7 +178,15 @@ def dropout(x: torch.Tensor, rate: float, key: DropoutKey | None, layer: int, si
     without a key or at rate 0."""
     if key is None or rate == 0.0:
         return x
-    u = torch.rand(x.shape, generator=key.generator(x.device, layer, site), device=x.device)
+    shape, (row, rows), (head, heads) = list(x.shape), key.data, key.model
+    heads = heads if site == SITE_ATTN_PROBS else 1  # only the probabilities [B, heads, L, L] split by heads
+    shape[0] *= rows
+    if heads > 1:
+        shape[1] *= heads
+    u = torch.rand(shape, generator=key.generator(x.device, layer, site), device=x.device)
+    u = u.narrow(0, row * x.shape[0], x.shape[0])
+    if heads > 1:
+        u = u.narrow(1, head * x.shape[1], x.shape[1])
     return torch.where(u >= rate, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -299,7 +323,21 @@ class Embeddings(nn.Module):
         return dropout(self.ln(x), c.dropout, drop, -1, SITE_EMBEDDINGS).to(c.dtype)
 
 
+def row_parallel(layer: nn.Linear, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """A row-parallel linear layer under ``model > 1``: this rank's part of
+    the product, summed over ``model``, then the (replicated) bias added once;
+    the layer itself on one rank."""
+    if mesh is None:
+        return trunk_linear(layer, x, cfg)
+    out = reduce_from_model(F.linear(x, layer.weight.to(x.dtype)), mesh)
+    return out + layer.bias.to(x.dtype)
+
+
 class SelfAttention(nn.Module):
+    # the mesh of tensor parallelism (parallel/sharding.shard_module): the
+    # fused qkv holds this rank's heads, ``out`` is row-parallel
+    tp_mesh = None
+
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
@@ -317,15 +355,19 @@ class SelfAttention(nn.Module):
     ) -> torch.Tensor:
         c = self.cfg
         b, length, h = x.shape
-        qkv = trunk_linear(self.qkv, x, c).view(b, length, 3, c.num_heads, h // c.num_heads)
+        hd = h // c.num_heads
+        heads = self.qkv.weight.shape[0] // (3 * hd)  # this rank's heads
+        qkv = trunk_linear(self.qkv, copy_to_model(x, self.tp_mesh), c).view(b, length, 3, heads, hd)
         q, k, v = split_qkv(qkv)  # [B, L, heads, hd]
         # segments make the allowed keys block-diagonal: pairs packed into
         # one row never attend across
         ctx = attention(q, k, v, attention_mask, segment_ids, c, drop, layer)
-        return trunk_linear(self.out, ctx.reshape(b, length, h), c)
+        return row_parallel(self.out, ctx.reshape(b, length, heads * hd), c, self.tp_mesh)
 
 
 class TransformerLayer(nn.Module):
+    tp_mesh = None  # ffn_in column-parallel, ffn_out row-parallel under model > 1
+
     def __init__(self, cfg: EncoderConfig, index: int = 0):
         super().__init__()
         self.cfg = cfg
@@ -346,7 +388,8 @@ class TransformerLayer(nn.Module):
         c, i = self.cfg, self.index
         attn = self.attention(x, attention_mask, segment_ids, drop, i)
         x = self.attn_ln(x + dropout(attn, c.dropout, drop, i, SITE_ATTN_OUT)).to(c.dtype)
-        h = trunk_linear(self.ffn_out, F.gelu(trunk_linear(self.ffn_in, x, c), approximate="none"), c)
+        inner = F.gelu(trunk_linear(self.ffn_in, copy_to_model(x, self.tp_mesh), c), approximate="none")
+        h = row_parallel(self.ffn_out, inner, c, self.tp_mesh)
         return self.ffn_ln(x + dropout(h, c.dropout, drop, i, SITE_FFN_OUT)).to(c.dtype)
 
 
@@ -379,7 +422,11 @@ class Encoder(nn.Module):
 
 
 class MLMHead(nn.Module):
-    """Masked-LM head: dense → gelu → LN → vocab projection (SPLADE input)."""
+    """Masked-LM head: dense → gelu → LN → vocab projection (SPLADE input).
+    Under ``model > 1`` the decoder is column-parallel: the logits are this
+    rank's vocabulary columns."""
+
+    tp_mesh = None
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -390,7 +437,7 @@ class MLMHead(nn.Module):
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
         h = F.gelu(self.transform(hidden), approximate="none")
-        return self.decoder(self.ln(h).to(self.cfg.dtype))
+        return self.decoder(copy_to_model(self.ln(h).to(self.cfg.dtype), self.tp_mesh))
 
 
 class EncoderWithMLM(nn.Module):

@@ -23,26 +23,59 @@ without ``init_process_group``.  A larger mesh needs the group
 (``parallel.multihost.initialize_multihost``); each axis of more than one
 rank gets its own group from ``dist.new_group`` under the caller's backend.
 
-The collectives live here and nowhere else: ``all_gather`` (a ``[Q, k]`` list
-into ``[S, Q, k]``), ``all_reduce_sum`` and ``merge_shards``.  Under ``gloo``
-a CUDA tensor is copied to host memory and back around the call (gloo stages
-CUDA tensors through the host in any case; doing the copy here keeps the
-kernels on the card whatever a torch build's gloo accepts).  NCCL refuses two
-ranks on one card, so two ranks sharing a card use gloo.  ``COLLECTIVES``
-counts each rank's calls, bytes and host seconds inside them.
+The collectives live here and nowhere else.  Serving: ``all_gather`` (a
+``[Q, k]`` list into ``[S, Q, k]``), ``all_reduce_sum`` and ``merge_shards``.
+Training, each an autograd function where a gradient crosses it:
+
+  * ``all_gather_cat`` — every rank's rows along ``data`` (or columns along
+    ``model``: SPLADE's vocabulary), concatenated; the backward keeps this
+    rank's slice of the upstream gradient.  Every rank computes the same
+    loss from the gathered rows, so that slice is the whole gradient of its
+    rows, and the parameter gradients are then summed over ``data``
+    (``all_reduce_flat``), not averaged: the pair that sums the gradient
+    once.  (The other pair, a reduce-scatter backward, sums the same
+    upstream gradient from every rank, and the gradients must then be
+    averaged.)
+  * ``copy_to_model`` / ``reduce_from_model`` — Megatron's pair over
+    ``model``: the identity forward and an all-reduce backward at the input
+    of a column-parallel layer, an all-reduce forward and the identity
+    backward at the output of a row-parallel one;
+  * ``all_reduce_flat`` — one all-reduce of a flat bucket of tensors (the
+    gradients of every trainable leaf), not one call per leaf;
+  * ``all_gather_flat`` — one all-gather of a flat bucket (the sharded
+    gradients and parameters, whole again for the optimizer).
+
+Under ``gloo`` a CUDA tensor is copied to host memory and back around the
+call, inside the autograd functions too (gloo stages CUDA tensors through the
+host in any case; doing the copy here keeps the kernels on the card whatever
+a torch build's gloo accepts).  NCCL refuses two ranks on one card, so two
+ranks sharing a card use gloo.  ``COLLECTIVES`` counts each rank's calls,
+bytes and host seconds inside them.
+
+Tensor parallelism follows JAX's rules (``_ENCODER_TP_RULES``, regexes over
+the Flax parameter paths): the fused qkv and the FFN's inner dimension are
+column-parallel over ``model`` (attention by heads), the attention ``out``
+and ``ffn_out`` row-parallel with their biases replicated, SPLADE's MLM
+decoder column-parallel over the vocabulary; everything else is replicated.
+``encoder_param_spec`` returns JAX's specs as tuples (``P()`` is ``()``),
+``shard_params`` a rank's slice of a Flax tree, and ``shard_module`` slices a
+port module's parameters in place through their Flax layouts
+(``convert.flax_layouts``): each sliced parameter carries ``tp_shard``, its
+layout and split dimension, from which ``gather_whole`` and
+``unshard_module`` make it whole again.
 
 The JAX module's ``cached_shard_program`` and its ``NamedSharding`` helpers
 (``replicated``, ``data_sharding``, ``index_sharding``) have no counterpart:
 there is no compiled mesh program to cache, and a rank's shard is an ordinary
-tensor on its device.  ``encoder_param_spec`` / ``shard_params`` (tensor
-parallelism) belong to the training half and raise.
+tensor on its device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 import time
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
@@ -60,11 +93,6 @@ COLLECTIVES = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
 # the device initialize_multihost gave this process (make_mesh's default)
 _DEFAULT_DEVICE: list = [None]
-
-_TRAINING_HALF = (
-    "the training half of the multi-device tier (data- and tensor-parallel training) is not ported "
-    "to fusion_tpu_torch yet (ROADMAP.md Queue 1, item 18)"
-)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -209,9 +237,238 @@ def globalize(local: RankedLists, rank: int, per: int) -> torch.Tensor:
     return torch.where(local.ids >= 0, local.ids + rank * per, PAD_ID).to(torch.int32)
 
 
+
+
+# ----------------------------------------------------------------------
+# the training collectives
+# ----------------------------------------------------------------------
+def _active(mesh: Mesh | None, axis: str) -> bool:
+    return mesh is not None and mesh.groups[axis] is not None
+
+
+class _AllGatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, x.shape[dim]
+        return torch.cat(list(all_gather(x, mesh, axis).unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.mesh.coords[ctx.axis] * ctx.n
+        return grad.narrow(ctx.dim, start, ctx.n), None, None, None
+
+
+def all_gather_cat(x: torch.Tensor, mesh: Mesh | None, axis: str = DATA_AXIS, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in
+    coordinate order; the backward keeps this rank's slice of the gradient
+    (see the module's note on summing the gradients once).  The identity on
+    an axis of one rank."""
+    if not _active(mesh, axis):
+        return x
+    return _AllGatherCat.apply(x, mesh, axis, dim)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.mesh, MODEL_AXIS), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce_sum(x, mesh, MODEL_AXIS)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The input of a column-parallel layer: the identity forward, the sum
+    of every ``model`` rank's gradient backward."""
+    return _CopyToModel.apply(x, mesh) if _active(mesh, MODEL_AXIS) else x
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The output of a row-parallel layer: the sum over ``model`` forward,
+    the identity backward."""
+    return _ReduceFromModel.apply(x, mesh) if _active(mesh, MODEL_AXIS) else x
+
+
+def all_reduce_flat(tensors: list[torch.Tensor], mesh: Mesh | None, axis: str = DATA_AXIS) -> None:
+    """Sum ``tensors`` over ``axis`` in place, through one flat f32 bucket
+    (one collective for all of them)."""
+    if not _active(mesh, axis) or not tensors:
+        return
+    flat = all_reduce_sum(torch.cat([t.reshape(-1).float() for t in tensors]), mesh, axis)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset : offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def all_gather_flat(tensors: list[torch.Tensor], mesh: Mesh, axis: str = MODEL_AXIS) -> list[list[torch.Tensor]]:
+    """Every rank's ``tensors`` along ``axis`` through one flat f32 bucket:
+    ``out[i][r]`` is rank ``r``'s ``tensors[i]`` (each rank's tensors have
+    the same shapes)."""
+    if not tensors:
+        return []
+    parts = all_gather(torch.cat([t.reshape(-1).float() for t in tensors]), mesh, axis)
+    out, offset = [], 0
+    for t in tensors:
+        out.append([parts[r, offset : offset + t.numel()].view(t.shape) for r in range(parts.shape[0])])
+        offset += t.numel()
+    return out
+
+
+# ----------------------------------------------------------------------
+# encoder tensor-parallel rules
+# ----------------------------------------------------------------------
+# path regex → spec over the Flax parameter tree, as JAX's rules: attention
+# shards over heads, the FFN over its inner dimension, the MLM decoder over
+# the vocabulary; the word embeddings and everything else are replicated
+_ENCODER_TP_RULES: list[tuple[str, tuple]] = [
+    (r".*attention/qkv/kernel", (None, None, MODEL_AXIS, None)),
+    (r".*attention/qkv/bias", (None, MODEL_AXIS, None)),
+    (r".*attention/out/kernel", (MODEL_AXIS, None, None)),
+    (r".*attention/out/bias", ()),
+    (r".*ffn_in/kernel", (None, MODEL_AXIS)),
+    (r".*ffn_in/bias", (MODEL_AXIS,)),
+    (r".*ffn_out/kernel", (MODEL_AXIS, None)),
+    (r".*ffn_out/bias", ()),
+    (r".*embeddings/word/embedding", (None, None)),
+    (r".*mlm/decoder/kernel", (None, MODEL_AXIS)),
+    (r".*mlm/decoder/bias", (MODEL_AXIS,)),
+    (r".*", ()),
+]
+
+
+def param_spec(path: Sequence[str]) -> tuple:
+    """The spec of the Flax leaf at ``path``: a tuple of axis names or None
+    per dimension (``()``: replicated)."""
+    key = "/".join(str(k) for k in path)
+    for pattern, spec in _ENCODER_TP_RULES:
+        if re.fullmatch(pattern, key):
+            return spec
+    return ()
+
+
 def encoder_param_spec(params) -> dict:
-    raise NotImplementedError(f"encoder_param_spec: {_TRAINING_HALF}")
+    """The spec tree of a Flax encoder parameter tree (nested dicts), leaf
+    for leaf as JAX's ``PartitionSpec`` tree (``tuple(P(...))``)."""
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return param_spec(path)
+
+    return walk(params, ())
+
+
+def _split_dim(spec: tuple, mesh: Mesh) -> int | None:
+    """The dimension ``spec`` splits over ``model`` on ``mesh`` (None:
+    whole on every rank)."""
+    if MODEL_AXIS not in spec or mesh.shape[MODEL_AXIS] == 1:
+        return None
+    return spec.index(MODEL_AXIS)
+
+
+def _local(x, dim: int, mesh: Mesh):
+    size, coord = mesh.shape[MODEL_AXIS], mesh.coords[MODEL_AXIS]
+    n = x.shape[dim]
+    if n % size:
+        raise ValueError(f"dimension {dim} of size {n} does not split over {size} model ranks")
+    per = n // size
+    if isinstance(x, torch.Tensor):
+        return x.narrow(dim, coord * per, per)
+    return x.take(range(coord * per, (coord + 1) * per), axis=dim)
 
 
 def shard_params(params, mesh: Mesh):
-    raise NotImplementedError(f"shard_params: {_TRAINING_HALF}")
+    """This rank's slice of a Flax tree (numpy or tensor leaves) by
+    ``encoder_param_spec``: JAX's ``addressable_shards`` of the rank."""
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        dim = _split_dim(param_spec(path), mesh)
+        return node if dim is None else _local(node, dim, mesh)
+
+    return walk(params, ())
+
+
+class TPShard(NamedTuple):
+    """How a parameter was sliced: its Flax layout and the dimension of
+    that layout split over ``model``."""
+
+    layout: object  # convert.FlaxLayout
+    dim: int
+
+
+def shard_module(module: torch.nn.Module, mesh: Mesh, num_heads: int) -> None:
+    """Slice ``module``'s parameters in place to this rank's part by
+    ``encoder_param_spec`` over their Flax layouts, and give every submodule
+    the mesh (``tp_mesh``) its forward runs the collectives on.  Idempotent.
+    T5 and X-MOD trunks under ``model > 1`` raise (ROADMAP.md item 20)."""
+    from fusion_tpu_torch.models import convert
+
+    if mesh.shape[MODEL_AXIS] == 1 or getattr(module, "tp_mesh", None) is not None:
+        return
+    kinds = {type(m).__module__.rsplit(".", 1)[-1] for m in module.modules()}
+    if kinds & {"t5", "xmod"}:
+        raise NotImplementedError(
+            "tensor parallelism (model > 1) of the T5 and X-MOD trunks is not ported to fusion_tpu_torch yet "
+            "(ROADMAP.md Queue 1, item 20); train them data-parallel")
+    for name, lay in convert.flax_layouts(module, num_heads).items():
+        dim = _split_dim(param_spec(lay.path), mesh)
+        if dim is None:
+            continue
+        p = module.get_parameter(name)
+        with torch.no_grad():
+            p.data = lay.from_flax(_local(lay.to_flax(p.detach()), dim, mesh)).contiguous()
+        p.tp_shard = TPShard(lay, dim)
+    for m in module.modules():
+        m.tp_mesh = mesh
+
+
+def gather_whole(pairs: list, mesh: Mesh, mean: Sequence[torch.Tensor] = ()) -> list[torch.Tensor]:
+    """``[(parameter, tensor)]`` of sliced parameters (each tensor shaped as
+    its parameter: the parameter itself, or its gradient) → each tensor
+    whole over ``model`` in the parameter's Flax layout, followed by each
+    tensor of ``mean`` averaged over ``model``, through one
+    ``all_gather_flat``.  (``mean`` takes the replicated parameters'
+    gradients: every ``model`` rank computes them whole, but a kernel with
+    atomics, such as the embedding backward on the card, may round them
+    otherwise on each rank; their mean is the same bits everywhere.)"""
+    local = [p.tp_shard.layout.to_flax(t).contiguous() for p, t in pairs] + [t.contiguous() for t in mean]
+    gathered = all_gather_flat(local, mesh, MODEL_AXIS)
+    whole = [torch.cat(parts, dim=p.tp_shard.dim).to(t.dtype) for (p, t), parts in zip(pairs, gathered)]
+    return whole + [torch.stack(parts).mean(0).to(t.dtype) for t, parts in zip(mean, gathered[len(pairs):])]
+
+
+def local_slice(whole_flax: torch.Tensor, param, mesh: Mesh) -> torch.Tensor:
+    """This rank's part of a whole Flax-layout tensor of ``param``, in the
+    port's layout."""
+    shard = param.tp_shard
+    return shard.layout.from_flax(_local(whole_flax, shard.dim, mesh))
+
+
+def unshard_module(module: torch.nn.Module, mesh: Mesh) -> None:
+    """Make ``module``'s sliced parameters whole again (every rank calls it),
+    so the model saves and serves as on one device."""
+    if getattr(module, "tp_mesh", None) is None:
+        return
+    sharded = [p for p in module.parameters() if hasattr(p, "tp_shard")]
+    whole = gather_whole([(p, p.detach()) for p in sharded], mesh)
+    with torch.no_grad():
+        for p, flax_whole in zip(sharded, whole):
+            p.data = p.tp_shard.layout.from_flax(flax_whole).contiguous()
+            del p.tp_shard
+    for m in module.modules():
+        m.tp_mesh = None

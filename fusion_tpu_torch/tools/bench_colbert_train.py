@@ -6,7 +6,9 @@ CamemBERT-base trunk at dropout 0 in bf16 over f32 master weights with
 per-layer remat, AdamW at a constant lr 5e-6, the CE loss; the same random
 token batch from ``np.random.default_rng(0)``.  It times the whole step (3
 encoder forwards + batched n-way MaxSim + loss + backward + AdamW update)
-with CUDA events over ``--steps`` steps after one warm-up step.
+with CUDA events over ``--steps`` steps after one warm-up step.  Its FLOPs
+and MFU come from ``utils/profiling.py`` (``colbert_step_flops``, against
+the H100's dense bf16 peak).
 
 ``--attention flash`` trains through the hand-written attention kernels:
 each layer's forward runs FA in residual mode (and again in the remat
@@ -27,9 +29,6 @@ import time
 import numpy as np
 import torch
 
-H100_BF16_FLOPS = 989e12  # dense bf16 peak of the H100 SXM data sheet
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -42,27 +41,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="flash = the hand-written attention kernels, forward and backward")
     ap.add_argument("--device", default="cuda", help="cuda (the measurement) or cpu (--tiny smoke runs)")
     return ap.parse_args(argv)
-
-
-def step_flops(cfg, bs: int, nway: int, lq: int, ld: int, dim: int) -> tuple[float, float]:
-    """(useful, hardware) FLOPs of one step.  Useful, as the JAX script
-    counts it: 3 × 2 × the trunk's matmul parameters × the encoded tokens
-    (forward and backward, attention and heads left out).  Hardware: 3 ×
-    the whole forward (trunk matmuls, attention's two L² products, the
-    projection and the n-way MaxSim) plus, under remat, one more forward of
-    the trunk."""
-    h, layers = cfg.hidden_size, cfg.num_layers
-    p_matmul = layers * 12 * h * h
-    tokens = bs * (lq + ld * nway)
-    useful = 3 * 2 * p_matmul * tokens
-
-    def trunk(n, length):
-        return n * length * 2 * p_matmul + n * layers * 4 * length * length * h
-
-    trunk_fwd = trunk(bs, lq) + trunk(bs * nway, ld)
-    heads = tokens * 2 * h * dim + 2.0 * bs * nway * lq * ld * dim
-    hardware = 3 * (trunk_fwd + heads) + (trunk_fwd if cfg.remat else 0)
-    return float(useful), float(hardware)
 
 
 def setup(args: argparse.Namespace):
@@ -120,6 +98,7 @@ def run(args: argparse.Namespace, trace: bool = False) -> dict:
     """Warm up, time ``args.steps`` steps (and with ``trace``, on the card,
     trace one more); returns the JSON record."""
     from fusion_tpu_torch.ops.attention import masked_attention_backward_cuda, masked_attention_cuda
+    from fusion_tpu_torch.utils import profiling
 
     model, step_fn, state, batch, cfg = setup(args)
     cuda = model.device.type == "cuda"
@@ -158,7 +137,7 @@ def run(args: argparse.Namespace, trace: bool = False) -> dict:
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite ColBERT train loss: {losses}")
     bs, lq, ld = args.batch, args.query_len, args.doc_len
-    useful, hardware = step_flops(cfg, bs, args.nway, lq, ld, model.dim)
+    useful, hardware = profiling.colbert_step_flops(cfg, bs, args.nway, lq, ld, model.dim)
     detail = {
         "batch": bs, "nway": args.nway, "query_len": lq, "doc_len": ld, "steps": args.steps,
         "examples_per_s": bs / dt,
@@ -170,8 +149,8 @@ def run(args: argparse.Namespace, trace: bool = False) -> dict:
         "hw_tflop_per_step": hardware / 1e12,
         "useful_tflops_per_s": useful / dt / 1e12 if cuda else None,
         "hw_tflops_per_s": hardware / dt / 1e12 if cuda else None,
-        "useful_mfu": useful / dt / H100_BF16_FLOPS if cuda else None,
-        "mfu_hw": hardware / dt / H100_BF16_FLOPS if cuda else None,
+        "useful_mfu": profiling.utilization(useful, dt) if cuda else None,
+        "mfu_hw": profiling.utilization(hardware, dt) if cuda else None,
         "peak_mem_gib": torch.cuda.max_memory_allocated(model.device) / 2**30 if cuda else None,
         "fa_launches_per_step": fa,
         "fa_bwd_launches_per_step": fa_bwd,

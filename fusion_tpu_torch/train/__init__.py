@@ -1,0 +1,3 @@
+from fusion_tpu_torch._lazy import lazy_exports
+
+__getattr__, __all__ = lazy_exports(__name__, {"losses": "", "optim": "", "schedules": ""})

@@ -12,14 +12,41 @@ A step runs the forward in the model's compute dtype over f32 master
 weights (the model built with ``param_dtype=torch.float32``), backpropagates,
 reads each gradient in the JAX package's layout (``convert.flax_layouts``)
 and applies the optimizer chain of ``train/optim.py`` in place.  Dropout
-masks come from ``DropoutKey(seed, step, stream)``, so a resumed run draws
-the masks an uninterrupted one would.  ``freeze_layers_except_last_n``
-leaves the frozen parameters out of the chain: they neither move nor enter
-the clip norm (optax's ``multi_transform`` with ``set_to_zero``).
+masks come from ``DropoutKey(dropout_seed, step, stream)``: the factory's
+``dropout_seed`` (JAX's parameter, default 0) is their one source, so a
+resumed run draws the masks an uninterrupted one would.
+``freeze_layers_except_last_n`` leaves the frozen parameters out of the
+chain: they neither move nor enter the clip norm (optax's
+``multi_transform`` with ``set_to_zero``).
+
+With a ``mesh`` (``parallel.sharding.make_mesh``: one process per rank,
+joined by ``parallel.multihost.initialize_multihost``) a factory returns the
+data- and tensor-parallel step of ``_finalize_step``, whose loss is the loss
+of the global batch, as JAX's jitted step over a sharded batch computes it:
+
+  * every rank is given the global batch and takes its rows along ``data``;
+  * each loss gathers its per-row values over ``data`` with their gradient
+    before it reduces them: the embeddings of the bi-encoders (MNRL's and
+    InfoNCE's in-batch negatives and the FLOPS regularizer span every
+    rank's rows), ColBERT's scores, the cross-encoder's logits;
+  * the gradients are summed over ``data`` through one flat bucket
+    (``sharding.all_reduce_flat``; the gather's backward keeps a rank's own
+    slice, so the sum counts each row once);
+  * under ``model > 1`` the trunk runs tensor-parallel (``place_state``
+    slices the parameters by ``encoder_param_spec``), and the optimizer runs
+    on whole leaves, as JAX's replicated optimizer state does: the sliced
+    gradients and parameters are gathered over ``model`` (one bucket, with
+    the replicated gradients averaged in it, so every rank holds the same
+    bits), the chain runs the same on every rank, and each rank keeps its
+    slice of the update;
+  * dropout masks are drawn at the global shape and each rank keeps its rows
+    and heads, so the parallel step equals the one-device step over the
+    global batch at any rate.
 
 The train state is saved with ``torch.save`` (params, optimizer state, step
-and dropout seed); the JAX package saves its own with Orbax, and neither
-reads the other's.  The port trains on one device.
+and the ``FitConfig`` seed it was made with); the JAX package saves its own
+with Orbax, and neither reads the other's.  Under a mesh, rank 0 alone logs
+and writes, and a saved state holds whole parameters.
 """
 
 from __future__ import annotations
@@ -37,6 +64,9 @@ import torch
 
 from fusion_tpu_torch.models import checkpoint, convert, heads
 from fusion_tpu_torch.models.encoder import DropoutKey
+from fusion_tpu_torch.parallel import sharding
+from fusion_tpu_torch.parallel.multihost import is_primary_host
+from fusion_tpu_torch.parallel.sharding import DATA_AXIS, MODEL_AXIS, all_gather_cat
 from fusion_tpu_torch.train import losses
 from fusion_tpu_torch.train.optim import (
     AdamState,
@@ -53,7 +83,7 @@ class TrainState(NamedTuple):
     params: dict  # name → the module's trainable parameter (updated in place)
     opt_state: Any
     step: int
-    seed: int = 0  # dropout seed
+    seed: int = 0  # the FitConfig seed the state was made with (the masks take the factory's dropout_seed)
 
 
 @dataclass
@@ -232,47 +262,119 @@ def init_train_state(model, cfg: FitConfig):
     return TrainState(params, opt_state, 0, cfg.seed), tx, schedule
 
 
-def _make_step(model, tx, loss_fn):
+def _dropout_key(seed: int, step: int, stream: int, mesh) -> DropoutKey:
+    """The step's ``DropoutKey`` of ``stream``, with this rank's place on
+    the mesh's ``data`` and ``model`` axes."""
+    if mesh is None:
+        return DropoutKey(seed, step, stream)
+    return DropoutKey(seed, step, stream, (mesh.coords[DATA_AXIS], mesh.shape[DATA_AXIS]),
+                      (mesh.coords[MODEL_AXIS], mesh.shape[MODEL_AXIS]))
+
+
+def reduce_gradients(params: dict, mesh) -> tuple[dict, dict, dict]:
+    """The gradients of ``params`` (name → parameter, after a backward) as
+    the parallel step updates with them: summed over ``data`` through one
+    flat bucket, and under ``model > 1`` the sliced ones gathered whole (with
+    their parameters) and the replicated ones averaged over ``model``,
+    through one all-gather.  → (gradients by name in the port's layout,
+    whole gradients and whole parameters of the sliced names in the Flax
+    layout)."""
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
+    sharding.all_reduce_flat(list(grads.values()), mesh, DATA_AXIS)
+    if mesh is None or mesh.shape[MODEL_AXIS] == 1:
+        return grads, {}, {}
+    sliced = [n for n, p in params.items() if hasattr(p, "tp_shard")]
+    replicated = [n for n in params if n not in sliced]
+    pairs = [(params[n], grads[n]) for n in sliced] + [(params[n], params[n].detach()) for n in sliced]
+    out = sharding.gather_whole(pairs, mesh, mean=[grads[n] for n in replicated])
+    k = len(sliced)
+    grads.update(zip(replicated, out[2 * k:]))
+    return grads, dict(zip(sliced, out[:k])), dict(zip(sliced, out[k : 2 * k]))
+
+
+def _make_step(model, tx, loss_fn, mesh=None, dropout_seed: int = 0):
     """``(state, batch) → (state, metrics)``: one forward and backward of
-    ``loss_fn(batch, step, seed)``, then the optimizer chain over the
-    gradients in the JAX layout, applied in place."""
+    ``loss_fn(batch, step, dropout_seed, mesh)``, the gradients reduced over
+    the mesh (``reduce_gradients``), then the optimizer chain over them in
+    the JAX layout, applied in place (a sliced parameter takes its slice of
+    the update)."""
     layouts = _layouts(model)
+    tensor_parallel = mesh is not None and mesh.shape[MODEL_AXIS] > 1
 
     def train_step(state: TrainState, batch: dict):
+        if tensor_parallel and getattr(model.module, "tp_mesh", None) is None:
+            raise ValueError("a step with model > 1 runs on sliced parameters: call step.place_state(state) first")
         for p in state.params.values():
             p.grad = None
-        loss, metrics = loss_fn(batch, state.step, state.seed)
+        loss, metrics = loss_fn(batch, state.step, dropout_seed, mesh)
         loss.backward()
+        local_grads, whole_grads, whole_params = reduce_gradients(state.params, mesh)
         grads, views = {}, {}
         for name, p in state.params.items():
             lay = layouts[name]
-            grads[lay.path] = lay.to_flax(p.grad)
-            views[lay.path] = lay.to_flax(p.detach())
+            grads[lay.path] = whole_grads[name] if name in whole_grads else lay.to_flax(local_grads[name])
+            views[lay.path] = whole_params[name] if name in whole_params else lay.to_flax(p.detach())
         updates, opt_state = tx.update(grads, state.opt_state, views)
         with torch.no_grad():
             for name, p in state.params.items():
-                lay = layouts[name]
-                p.add_(lay.from_flax(updates[lay.path]))
+                update = updates[layouts[name].path]
+                sliced = name in whole_params
+                p.add_(sharding.local_slice(update, p, mesh) if sliced else layouts[name].from_flax(update))
                 p.grad = None
         return TrainState(state.params, opt_state, state.step + 1, state.seed), {
             k: v.detach() for k, v in metrics.items()
         }
 
-    return train_step
+    return _finalize_step(model, train_step, mesh)
+
+
+def _local_rows(value, mesh):
+    """This rank's rows of a global batch array along ``data``."""
+    rows, coord = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
+    n = value.shape[0]
+    if n % rows:
+        raise ValueError(f"a batch of {n} rows does not split over {rows} data ranks")
+    per = n // rows
+    return value[coord * per : (coord + 1) * per]
+
+
+def _finalize_step(model, train_step, mesh):
+    """``train_step`` as it is without a mesh; with one, a step that takes
+    the global batch (as JAX's callers give it) and runs on this rank's rows,
+    with ``place_state(state)``: the parameters sliced by
+    ``encoder_param_spec`` in place (under ``model > 1``; call it after
+    ``init_train_state`` and before the first step), the optimizer state
+    kept whole, as JAX's at ``P()``."""
+    if mesh is None:
+        return train_step
+
+    def sharded_step(state: TrainState, batch: dict):
+        return train_step(state, {k: _local_rows(v, mesh) for k, v in batch.items()})
+
+    def place_state(state: TrainState) -> TrainState:
+        sharding.shard_module(model.module, mesh, model.cfg.num_heads)
+        return state
+
+    sharded_step.place_state = place_state
+    sharded_step.mesh = mesh
+    return sharded_step
 
 
 # ----------------------------------------------------------------------
 # bi-encoder (dense MNRL / SPLADE InfoNCE+regs / MarginMSE / KLD)
 # ----------------------------------------------------------------------
 def biencoder_loss(model, batch: dict, step: int, rank_loss_config: dict, reg_loss_config: dict | None,
-                   total_steps: int, seed: int = 0):
+                   total_steps: int, seed: int = 0, mesh=None):
     """Shared loss of dense and sparse bi-encoders → (loss, metrics).
 
     Batch: query_ids/mask [B, Lq], pos_ids/mask [B, Ld], neg_ids/mask
-    [B*N, Ld]; optional teacher_pos [B] / teacher_neg [B*N]."""
-    q = model.embed_tokens_train(batch["query_ids"], batch["query_mask"], DropoutKey(seed, step, 0))
-    p = model.embed_tokens_train(batch["pos_ids"], batch["pos_mask"], DropoutKey(seed, step, 1))
-    n = model.embed_tokens_train(batch["neg_ids"], batch["neg_mask"], DropoutKey(seed, step, 2))
+    [B*N, Ld]; optional teacher_pos [B] / teacher_neg [B*N].  With a
+    ``mesh`` the batch is this rank's rows and the embeddings are gathered
+    over ``data`` first: the loss of the global batch."""
+    q = model.embed_tokens_train(batch["query_ids"], batch["query_mask"], _dropout_key(seed, step, 0, mesh))
+    p = model.embed_tokens_train(batch["pos_ids"], batch["pos_mask"], _dropout_key(seed, step, 1, mesh))
+    n = model.embed_tokens_train(batch["neg_ids"], batch["neg_mask"], _dropout_key(seed, step, 2, mesh))
+    q, p, n = (all_gather_cat(x, mesh) for x in (q, p, n))
     bs = q.shape[0]
     npq = n.shape[0] // bs
     sim = model.similarity
@@ -293,7 +395,8 @@ def biencoder_loss(model, batch: dict, step: int, rank_loss_config: dict, reg_lo
             rank_loss = losses.info_nce(pos_scores, neg_all, temperature=rank_loss_config.get("temperature", 1.0))
         elif name in ("MarginMSELoss", "KLDLoss"):
             fn = losses.margin_mse if name == "MarginMSELoss" else losses.kld
-            rank_loss = fn(pos_scores, neg_scores, batch["teacher_pos"], batch["teacher_neg"].reshape(bs, npq),
+            teacher_pos, teacher_neg = (all_gather_cat(batch[k], mesh) for k in ("teacher_pos", "teacher_neg"))
+            rank_loss = fn(pos_scores, neg_scores, teacher_pos, teacher_neg.reshape(bs, npq),
                            teacher_scale=rank_loss_config.get("teacher_scale", 1.0))
         else:
             raise ValueError(f"unknown rank loss {name!r}")
@@ -314,47 +417,61 @@ def biencoder_loss(model, batch: dict, step: int, rank_loss_config: dict, reg_lo
     return total, metrics
 
 
-def make_biencoder_train_step(model, tx, rank_loss_config: dict, reg_loss_config: dict | None, total_steps: int):
-    return _make_step(model, tx, lambda batch, step, seed: biencoder_loss(
-        model, batch, step, rank_loss_config, reg_loss_config, total_steps, seed))
+def make_biencoder_train_step(model, tx, rank_loss_config: dict, reg_loss_config: dict | None, total_steps: int,
+                              mesh=None, dropout_seed: int = 0):
+    """The bi-encoder step; with ``mesh``, data- and tensor-parallel (see
+    the module's note)."""
+    return _make_step(model, tx, lambda batch, step, seed, mesh: biencoder_loss(
+        model, batch, step, rank_loss_config, reg_loss_config, total_steps, seed, mesh), mesh, dropout_seed)
 
 
 # ----------------------------------------------------------------------
 # ColBERT (late interaction over token embeddings)
 # ----------------------------------------------------------------------
-def colbert_loss(model, batch: dict, step: int, loss_name: str = "ce", seed: int = 0):
-    """CE over [pos, negs] MaxSim scores, or KLD against teacher scores."""
-    q_tok = model.embed_tokens_train(batch["query_ids"], batch["query_mask"], DropoutKey(seed, step, 0))
-    p_tok = model.embed_tokens_train(batch["pos_ids"], batch["pos_mask"], DropoutKey(seed, step, 1))
-    n_tok = model.embed_tokens_train(batch["neg_ids"], batch["neg_mask"], DropoutKey(seed, step, 2))
+def colbert_loss(model, batch: dict, step: int, loss_name: str = "ce", seed: int = 0, mesh=None):
+    """CE over [pos, negs] MaxSim scores, or KLD against teacher scores;
+    with a ``mesh``, over the scores of every ``data`` rank."""
+    q_tok = model.embed_tokens_train(batch["query_ids"], batch["query_mask"], _dropout_key(seed, step, 0, mesh))
+    p_tok = model.embed_tokens_train(batch["pos_ids"], batch["pos_mask"], _dropout_key(seed, step, 1, mesh))
+    n_tok = model.embed_tokens_train(batch["neg_ids"], batch["neg_mask"], _dropout_key(seed, step, 2, mesh))
     bs, ld = q_tok.shape[0], n_tok.shape[1]
     npq = n_tok.shape[0] // bs
     q_mask = batch["query_mask"].float()
     pos_scores = model.pairwise_maxsim(q_tok, q_mask, p_tok, batch["pos_mask"])
     neg_scores = model.nway_maxsim(q_tok, q_mask, n_tok.reshape(bs, npq, ld, -1),
                                    batch["neg_mask"].reshape(bs, npq, ld))
+    pos_scores, neg_scores = all_gather_cat(pos_scores, mesh), all_gather_cat(neg_scores, mesh)
     if loss_name == "kld":
-        loss = losses.kld(pos_scores, neg_scores, batch["teacher_pos"], batch["teacher_neg"].reshape(bs, npq))
+        teacher_pos, teacher_neg = (all_gather_cat(batch[k], mesh) for k in ("teacher_pos", "teacher_neg"))
+        loss = losses.kld(pos_scores, neg_scores, teacher_pos, teacher_neg.reshape(pos_scores.shape[0], npq))
     else:
         loss = losses.info_nce(pos_scores, neg_scores)
     return loss, {"loss": loss}
 
 
-def make_colbert_train_step(model, tx, loss_name: str = "ce"):
-    return _make_step(model, tx, lambda batch, step, seed: colbert_loss(model, batch, step, loss_name, seed))
+def make_colbert_train_step(model, tx, loss_name: str = "ce", total_steps: int = 0, dropout_seed: int = 0,
+                            mesh=None):
+    """The ColBERT step (``total_steps`` is JAX's parameter, unused by the
+    loss); with ``mesh``, data- and tensor-parallel."""
+    return _make_step(model, tx, lambda batch, step, seed, mesh: colbert_loss(
+        model, batch, step, loss_name, seed, mesh), mesh, dropout_seed)
 
 
 # ----------------------------------------------------------------------
 # cross-encoder (pointwise BCE)
 # ----------------------------------------------------------------------
-def crossencoder_loss(model, batch: dict, step: int, seed: int = 0):
-    logits = model.score_tokens_train(batch["pair_ids"], batch["pair_mask"], DropoutKey(seed, step, 0))
-    loss = losses.bce_logits(logits, batch["labels"])
+def crossencoder_loss(model, batch: dict, step: int, seed: int = 0, mesh=None):
+    """Pointwise BCE; with a ``mesh``, over the logits of every ``data``
+    rank."""
+    logits = model.score_tokens_train(batch["pair_ids"], batch["pair_mask"], _dropout_key(seed, step, 0, mesh))
+    loss = losses.bce_logits(all_gather_cat(logits, mesh), all_gather_cat(batch["labels"], mesh))
     return loss, {"loss": loss}
 
 
-def make_crossencoder_train_step(model, tx):
-    return _make_step(model, tx, lambda batch, step, seed: crossencoder_loss(model, batch, step, seed))
+def make_crossencoder_train_step(model, tx, dropout_seed: int = 0, mesh=None):
+    """The cross-encoder step; with ``mesh``, data- and tensor-parallel."""
+    return _make_step(model, tx, lambda batch, step, seed, mesh: crossencoder_loss(model, batch, step, seed, mesh),
+                      mesh, dropout_seed)
 
 
 # ----------------------------------------------------------------------
@@ -367,27 +484,54 @@ def fit(model, train_step, data_iterator: Iterable[dict] | Iterator[dict], cfg: 
     counted on the host from ``state.step``; logging goes through
     ``cfg.log_callback(epoch, steps_per_epoch, step, lr, value, name)``,
     rolling checkpoints to ``cfg.ckpt_path``, evaluation through
-    ``cfg.eval_callback(model, step)``."""
+    ``cfg.eval_callback(model, step)``.  Under a parallel step (one with a
+    ``mesh``) every rank runs the loop; rank 0 alone logs and writes the
+    checkpoints, whole (every rank takes part in gathering them)."""
     if state is None:
         raise ValueError("pass an initialized TrainState (use init_train_state)")
+    mesh = getattr(train_step, "mesh", None)
+    primary = is_primary_host()
+    log = cfg.log_callback if primary else None
     base_step = int(state.step)
     t0 = time.perf_counter()
     device = getattr(model, "device", None)
     for local_step, batch in enumerate(_prefetch_batches(data_iterator, cfg.steps, cfg.prefetch, device)):
         state, metrics = train_step(state, batch)
         step_num = base_step + local_step + 1
-        if cfg.log_callback is not None and cfg.log_every_n_steps > 0 and (local_step + 1) % cfg.log_every_n_steps == 0:
+        if log is not None and cfg.log_every_n_steps > 0 and (local_step + 1) % cfg.log_every_n_steps == 0:
             lr = float(schedule(step_num)) if schedule is not None else cfg.learning_rate
             for name, value in metrics.items():
-                cfg.log_callback(0, 0, step_num, lr, float(value), name)
+                log(0, 0, step_num, lr, float(value), name)
         if cfg.ckpt_path and cfg.ckpt_save_steps and (local_step + 1) % cfg.ckpt_save_steps == 0:
-            checkpoint.save_step(model, cfg.ckpt_path, step_num, cfg.ckpt_save_limit)
+            with whole_parameters(model, mesh):
+                if primary:
+                    checkpoint.save_step(model, cfg.ckpt_path, step_num, cfg.ckpt_save_limit)
         if cfg.eval_callback is not None and cfg.eval_every_n_steps > 0 and (local_step + 1) % cfg.eval_every_n_steps == 0:
             cfg.eval_callback(model, step_num)
     elapsed = time.perf_counter() - t0
-    if cfg.log_callback is not None and cfg.log_every_n_steps:
-        cfg.log_callback(0, 0, int(state.step), 0.0, elapsed / max(cfg.steps, 1), "sec_per_step")
+    if log is not None and cfg.log_every_n_steps:
+        log(0, 0, int(state.step), 0.0, elapsed / max(cfg.steps, 1), "sec_per_step")
     return state
+
+
+class whole_parameters:
+    """Context: ``model``'s parameters whole over the mesh's ``model`` axis
+    inside the block (every rank enters it), sliced again after; nothing to
+    do without tensor parallelism."""
+
+    def __init__(self, model, mesh):
+        self.model, self.mesh = model, mesh
+        self.sliced = mesh is not None and getattr(model.module, "tp_mesh", None) is not None
+
+    def __enter__(self):
+        if self.sliced:
+            sharding.unshard_module(self.model.module, self.mesh)
+        return self.model
+
+    def __exit__(self, *exc):
+        if self.sliced:
+            sharding.shard_module(self.model.module, self.mesh, self.model.cfg.num_heads)
+        return False
 
 
 # ----------------------------------------------------------------------
@@ -407,21 +551,31 @@ def _map_tensors(x, fn):
     return x
 
 
-def save_train_state(path: str, state: TrainState) -> None:
-    """``path/train_state.pt``: params, optimizer state, step and dropout
-    seed (host copies)."""
+def save_train_state(path: str, state: TrainState, mesh=None) -> None:
+    """``path/train_state.pt``: params, optimizer state, step and seed (host
+    copies).  Under ``mesh`` every rank calls it: the sliced parameters are
+    gathered whole over ``model``, and rank 0 writes."""
+    params = {k: p.detach() for k, p in state.params.items()}
+    sliced = [k for k, p in state.params.items() if hasattr(p, "tp_shard")]
+    if sliced:
+        whole = sharding.gather_whole([(state.params[k], params[k]) for k in sliced], mesh)
+        for k, w in zip(sliced, whole):
+            params[k] = state.params[k].tp_shard.layout.from_flax(w)
+    if not is_primary_host():
+        return
     os.makedirs(path, exist_ok=True)
     torch.save({
-        "params": {k: p.detach().cpu() for k, p in state.params.items()},
+        "params": {k: p.cpu() for k, p in params.items()},
         "opt_state": _map_tensors(state.opt_state, lambda t: t.detach().cpu()),
         "step": int(state.step),
         "seed": int(state.seed),
     }, os.path.join(path, _STATE_FILE))
 
 
-def restore_train_state(path: str, template: TrainState) -> TrainState:
+def restore_train_state(path: str, template: TrainState, mesh=None) -> TrainState:
     """Load a saved train state into ``template``'s parameters (in place)
-    and onto their device."""
+    and onto their device; a sliced parameter (after ``place_state`` under
+    ``mesh``) takes its slice of the saved whole one."""
     torch.serialization.add_safe_globals(list(_STATE_CLASSES))
     saved = torch.load(os.path.join(path, _STATE_FILE), weights_only=True)
     if set(saved["params"]) != set(template.params):
@@ -429,6 +583,9 @@ def restore_train_state(path: str, template: TrainState) -> TrainState:
     device = next(iter(template.params.values())).device if template.params else torch.device("cpu")
     with torch.no_grad():
         for k, p in template.params.items():
-            p.copy_(saved["params"][k])
+            value = saved["params"][k]
+            if hasattr(p, "tp_shard"):
+                value = sharding.local_slice(p.tp_shard.layout.to_flax(value), p, mesh)
+            p.copy_(value)
     return TrainState(template.params, _map_tensors(saved["opt_state"], lambda t: t.to(device)),
                       saved["step"], saved["seed"])

@@ -163,14 +163,26 @@ def test_unported_options_raise(trained, argv):
 
 
 def test_training_needs_the_card_unless_asked_for_the_cpu(trained, monkeypatch):
+    """Without a card a training command raises unless given ``--device
+    cpu``, data-parallel or not; with several cards a plain process spawns
+    one rank per card it uses (here the spawn is recorded, not run)."""
+    from fusion_tpu_torch.cli import main as cli_main
+
     root, fx = trained
     base = ["--fixture", fx, "--output_dir", str(root / "nocard"), "--tiny"]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        main(["colbert", *TRAIN, *base])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            main(["dpr", *TRAIN, "--no_data_parallel", *base])
+        for argv in (["colbert", *TRAIN, *base], ["dpr", *TRAIN, "--no_data_parallel", *base]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main(argv)
+    spawned = []
+    monkeypatch.setattr(cli_main, "resolve_device", torch.device)
+    monkeypatch.setattr(cli_main, "_spawn_ranks", lambda argv, ranks: spawned.append((argv, ranks)))
+    assert main(["colbert", *TRAIN, *base]) is None
+    assert spawned == [(["colbert", *TRAIN, *base], 2)]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)  # batch 2 over 3 cards: 2 ranks
+    main(["monobert", *TRAIN, *base])
+    assert spawned[-1] == (["monobert", *TRAIN, *base], 2)
 
 
 def test_training_modules_leave_jax_out():

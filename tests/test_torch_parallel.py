@@ -27,6 +27,8 @@ no mesh program.  The collective path in real processes is
 ``tests/test_torch_serving_sharded.py`` and ``test_torch_multihost.py``.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -113,12 +115,26 @@ def test_merge_shards_tie_order_matches_lax_top_k():
 
 
 def test_training_half_raises_with_item_18():
+    """The training half (item 18) is ported: the specs and a rank's slice
+    come back (held to JAX's in ``test_torch_train_parallel.py``); what
+    still raises is tensor parallelism of the T5 and X-MOD trunks, with its
+    item."""
+    from fusion_tpu_torch.models.t5 import T5Config, T5CrossEncoder
     from fusion_tpu_torch.parallel import encoder_param_spec, shard_params
+    from fusion_tpu_torch.parallel.sharding import shard_module
 
-    with pytest.raises(NotImplementedError, match="item 18"):
-        encoder_param_spec({})
-    with pytest.raises(NotImplementedError, match="item 18"):
-        shard_params({}, None)
+    tree = {"layer_0": {"ffn_in": {"kernel": np.arange(12.0).reshape(3, 4), "bias": np.arange(4.0)}}}
+    assert encoder_param_spec(tree) == {"layer_0": {"ffn_in": {"kernel": (None, "model"), "bias": ("model",)}}}
+    mesh = sharding.make_mesh(1, 1, 1, [DEVICE])
+    assert shard_params(tree, mesh) is not tree and shard_params(tree, mesh)["layer_0"]["ffn_in"]["bias"] is tree[
+        "layer_0"]["ffn_in"]["bias"]
+    two = dataclasses.replace(mesh, shape={**mesh.shape, "model": 2}, coords={**mesh.coords, "model": 1})
+    got = shard_params(tree, two)["layer_0"]["ffn_in"]
+    np.testing.assert_array_equal(got["kernel"], tree["layer_0"]["ffn_in"]["kernel"][:, 2:])
+    np.testing.assert_array_equal(got["bias"], [2.0, 3.0])
+    t5 = T5CrossEncoder(T5Config.tiny(), max_length=16, device=DEVICE)
+    with pytest.raises(NotImplementedError, match="item 20"):
+        shard_module(t5.module, two, t5.cfg.num_heads)
 
 
 # ----------------------------------------------------------------------

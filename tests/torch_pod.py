@@ -29,7 +29,14 @@ Modes:
     against the single-device one, and each ``sharded_*`` function against
     its single-device search;
   * ``env`` — the bootstrap from torchrun's environment variables, then the
-    ``multihost`` mode's dense search.
+    ``multihost`` mode's dense search;
+  * ``train`` — ``payload["parallel"]``'s cases: each train step on the
+    pod's mesh (``data`` = 2, or ``data`` = 2 × ``model`` = 2 in a pod of 4)
+    for 3 steps from the converted weights, its losses and its whole
+    parameters after them; ``payload["alone"]``'s on one device (rank 0);
+    and ``tests/multihost_worker.py``'s gradient half;
+  * ``cli_train`` — the port's CLI commands of ``payload["cli"]``, each
+    joining the group from torchrun's variables itself (``init='env'``).
 """
 
 from __future__ import annotations
@@ -107,8 +114,8 @@ class Pod:
         return "\n".join(f"--- rank {r}:\n{open(log).read()[-6000:]}" for r, log in enumerate(self.logs))
 
 
-def start_pod(outdir, mode: str, init: str = "file", timeout: float = 240.0) -> Pod:
-    """Launch the ``NPROC`` workers of ``mode`` (they run while the caller
+def start_pod(outdir, mode: str, init: str = "file", timeout: float = 240.0, nproc: int = NPROC) -> Pod:
+    """Launch the ``nproc`` workers of ``mode`` (they run while the caller
     computes the JAX side).  ``init``: 'file' (a FileStore under ``outdir``),
     'tcp' (a free port on 127.0.0.1) or 'env' (torchrun's variables)."""
     env = dict(os.environ)
@@ -116,16 +123,16 @@ def start_pod(outdir, mode: str, init: str = "file", timeout: float = 240.0) -> 
     env.pop("JAX_PLATFORMS", None)
     spec = f"file://{outdir}/store" if init == "file" else f"127.0.0.1:{_free_port()}"
     procs, logs = [], []
-    for rank in range(NPROC):
+    for rank in range(nproc):
         if init == "env":
             host, port = spec.split(":")
-            env.update(MASTER_ADDR=host, MASTER_PORT=port, RANK=str(rank), WORLD_SIZE=str(NPROC),
+            env.update(MASTER_ADDR=host, MASTER_PORT=port, RANK=str(rank), WORLD_SIZE=str(nproc),
                        LOCAL_RANK=str(rank))
         log = os.path.join(str(outdir), f"{mode}_{rank}.log")
         logs.append(log)
         with open(log, "w") as out:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), mode, str(rank), str(NPROC), str(outdir),
+                [sys.executable, os.path.abspath(__file__), mode, str(rank), str(nproc), str(outdir),
                  "env" if init == "env" else spec],
                 env=dict(env), stdout=out, stderr=subprocess.STDOUT,
             ))
@@ -382,6 +389,111 @@ def run_multihost(mesh, payload, rank: int, world: int) -> dict:
     return out
 
 
+def _train_model(case: dict):
+    import torch
+
+    from fusion_tpu_torch.models.biencoder import BiEncoder
+    from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+    from fusion_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = EncoderConfig.tiny(**case["cfg"])
+    kw = dict(params=case["state_dict"], device="cpu", param_dtype=torch.float32)
+    if case["kind"] == "colbert":
+        return ColBERT(cfg, dim=16, **kw)
+    if case["kind"] == "crossencoder":
+        return CrossEncoder(cfg, max_length=20, **kw)
+    return BiEncoder(cfg, head=case["head"], **kw)
+
+
+def train_steps(case: dict, mesh) -> dict:
+    """Three steps of ``case``'s train step on ``mesh`` (None: one device)
+    from its converted weights: the losses and the whole parameters as a
+    Flax tree."""
+    from fusion_tpu_torch.parallel.sharding import COLLECTIVES
+    from fusion_tpu_torch.train import trainer as tt
+
+    model = _train_model(case)
+    state, tx, _ = tt.init_train_state(model, tt.FitConfig(**case["fit"]))
+    if case["kind"] == "colbert":
+        step = tt.make_colbert_train_step(model, tx, "ce", mesh=mesh)
+    elif case["kind"] == "crossencoder":
+        step = tt.make_crossencoder_train_step(model, tx, mesh=mesh)
+    else:
+        step = tt.make_biencoder_train_step(model, tx, case["rank"], case["reg"], 10, mesh=mesh)
+    if mesh is not None:
+        state = step.place_state(state)
+    batch = tt._to_device(case["batch"], model.device)
+    calls0, losses = COLLECTIVES["calls"], []
+    for _ in range(3):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    with tt.whole_parameters(model, mesh):
+        tree = model.flax_tree(model.module.state_dict())
+    return {"losses": losses, "params": tree, "collectives_per_step": (COLLECTIVES["calls"] - calls0) / 3}
+
+
+def gradient_half(mesh) -> dict:
+    """``tests/multihost_worker.py``'s gradient half: the gradient of
+    ``mean((x @ w) ** 2)`` over the rows of every ``data`` rank, against the
+    gradient of the full batch computed here alone."""
+    import numpy as np
+    import torch
+
+    from fusion_tpu_torch.parallel.sharding import DATA_AXIS, all_gather_cat, all_reduce_flat
+
+    rng = np.random.default_rng(0)  # the same arrays on every process
+    x = torch.from_numpy(rng.normal(size=(8, 4)).astype(np.float32))
+    w0 = rng.normal(size=(4, 3)).astype(np.float32)
+    rows, coord = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
+    per = x.shape[0] // rows
+    w = torch.tensor(w0, requires_grad=True)
+    (all_gather_cat(x[coord * per : (coord + 1) * per] @ w, mesh) ** 2).mean().backward()
+    all_reduce_flat([w.grad], mesh)
+    full = torch.tensor(w0, requires_grad=True)
+    ((x @ full) ** 2).mean().backward()
+    return {"sharded": w.grad.numpy(), "full": full.grad.numpy()}
+
+
+def run_train(mesh, payload, rank: int) -> dict:
+    """``payload["parallel"]``'s cases on the mesh; on rank 0 also
+    ``payload["alone"]``'s on one device (the parent compares the two)."""
+    cases = payload["cases"]
+    out = {"cases": {name: train_steps(cases[name], mesh) for name in payload["parallel"]},
+           "gradient_half": gradient_half(mesh)}
+    if rank == 0:
+        out["alone"] = {name: train_steps(cases[name], None) for name in payload["alone"]}
+    return out
+
+
+def run_cli_train(payload, rank: int) -> dict:
+    """Each command line of ``payload["cli"]``; where ``payload["init"]``
+    names a checkpoint for it, the command trains that checkpoint (the JAX
+    CLI's starting weights: the two packages' seeds give different ones) in
+    place of the model it builds from its seed."""
+    import torch
+
+    from fusion_tpu_torch.cli import main as cli
+    from fusion_tpu_torch.models.biencoder import BiEncoder
+
+    make = cli._make_biencoder
+    for i, argv in enumerate(payload["cli"]):
+        init = payload.get("init", {}).get(i)
+
+        def make_from_init(args, head, train, init=init):
+            model, preset = make(args, head, train)
+            if init is not None:
+                model = BiEncoder.load(init, device=args.device, dtype=model.cfg.dtype, param_dtype=torch.float32)
+            return model, preset
+
+        cli._make_biencoder = make_from_init
+        try:
+            cli.main(argv)
+        finally:
+            cli._make_biencoder = make
+    return {}
+
+
 def main() -> None:
     mode, rank, world, outdir, init = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
     import torch
@@ -390,15 +502,24 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from fusion_tpu_torch.parallel.multihost import initialize_multihost, pod_mesh
 
+    if mode == "cli_train":  # the CLI joins the group from torchrun's variables itself
+        payload = torch.load(os.path.join(outdir, "payload.pt"), weights_only=False)
+        run_cli_train(payload, rank)
+        torch.save({}, os.path.join(outdir, f"{mode}_{rank}.pt"))
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+        return
     if init == "env":
         initialize_multihost(backend="gloo", device="cpu")
     else:
         initialize_multihost(init, world, rank, backend="gloo", device="cpu")
         # a second call is a no-op, not a crash
         initialize_multihost(init, world, rank, backend="gloo", device="cpu")
-    mesh = pod_mesh(index=world)
     payload = torch.load(os.path.join(outdir, "payload.pt"), weights_only=False)
-    if mode == "serving":
+    mesh = pod_mesh(model=world // 2) if mode == "train" else pod_mesh(index=world)
+    if mode == "train":
+        out = run_train(mesh, payload, rank)
+    elif mode == "serving":
         out = run_serving(mesh, payload)
     elif mode == "segmented":
         out = run_segmented(mesh, payload)
