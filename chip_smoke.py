@@ -72,6 +72,19 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 train then --task test (ColBERT's through K1, its launches
                 counted); each final/ reloaded encodes as the trained model
                 does;
+     train_parallel — data- and tensor-parallel training on two ranks
+                sharing the card over gloo (children of this script): ColBERT
+                flash on data = 2 and on model = 2 (6 heads a rank), DPR on
+                data = 2, X-MOD SPLADE (xmod-base widths, the fr_XX adapter
+                of fr_XX / en_XX) flash on model = 2 and the T5
+                cross-encoder (--backbone t5 widths, its trunk whole on each
+                rank) on model = 2; each an f32 pass at 2 layers held to one
+                rank's step over the global batch (AGREE_GATES) and a
+                full-depth bf16 pass held to one rank's bf16 step
+                (TRAIN_PARALLEL_BF16_GATES) and measured: ms a step,
+                collective ms / MB / calls, peak memory, MFU, FA and FA-bwd
+                launches (72 / 36 a step in flash); the ranks end with the
+                same parameters;
   3. kernel   — K1 (MaxSim, the wgmma/TMA kernel) against its plain version
                 at the serving shape (Ld 128, N 28,032, D 128, QL 64x32),
                 bit-identical over 10 more launches, with its achieved
@@ -249,7 +262,9 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 cross-encoder) saved in the JAX package's checkpoint format
                 and loaded back in bf16: query encodings (192 queries) and
                 logits bit-equal to the originals'; seconds and bytes each;
-     persist  — the slice with the cross-encoder's doc tokens saved with
+     persist  — the slice's searcher over its first PERSIST_DOCS (4,096)
+                docs, built with the same models and options, with the
+                cross-encoder's doc tokens, saved with
                 save_indexes to a temporary directory and reloaded into a
                 fresh HybridSearcher: every reloaded array equals the
                 in-memory one after the format's own f16 rounding (the bf16
@@ -368,6 +383,19 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 bytes per batch, peak memory per rank (the two ranks share
                 one card's SMs: no speed-up figure); a rank's failure or a
                 timeout fails the phase;
+     sharded_server — the same two ranks serve that sharded searcher over
+                HTTP: SearchServer on both, rank 0 listening on 127.0.0.1
+                and sending each coalesced batch to both; 224 single-query
+                requests (the 192 queries, the first 32 again; topk 3 / 5 /
+                10 by turns) from 32 client threads in a process of their
+                own: every answer its batch's own lists on the searcher (ids
+                exact, scores within 1e-5), mean top-k overlap >= 0.75 with
+                the lists in the slice's batches, the ranks running the same
+                batches; a batch that raises on both ranks gets a 500 and
+                the next request is served; /healthz counts all 27,940 docs;
+                requests/s, p50 / p99, batches, collective ms / MB / calls a
+                batch and K1-K4 / FA launches per rank (counts zeroed before
+                the server starts, read after it stops);
  13. scale_mmarco — the three-leg scale-mode searcher (BM25 impact index, int8
                 DPR, SPLADE scatter + exact rescore) at mMARCO's 8,912,896 docs:
                 the query side is real (tokenizers, the zipf BM25Index, the
@@ -409,7 +437,8 @@ two-segment search beside them, the four-leg mMARCO search for
 K2, K3 and K4, the two bench runs for K1-v1 and K1-v2, the probe tools'
 runs for P3, P4 and P5, the packed flash search of [rerank_forms] for FA
 and [train_flash]'s flash run for FA-bwd, and for K1-K4 and FA the
-launches on [sharded]'s two-rank path beside them; ms are CUDA-event medians for
+launches on [sharded]'s two-rank path and [sharded_server]'s beside them,
+for FA and FA-bwd [train_parallel]'s, in all and by run; ms are CUDA-event medians for
 K1-K3, K1-v1, K1-v2, P3-P5, FA and FA-bwd and queued device times for K4;
 bound_ms is the least time an H100 SXM could take for the same work, from
 this run's shapes and data; library_ms is index_select's time for K4,
@@ -466,6 +495,10 @@ ENCODER_FORM_OVERLAP, ENCODER_INT8_OVERLAP = 0.95, 0.9
 # [cli]: the fixture's docs, the first CLI_DOCS of the slice's corpus (cut
 # to keep the whole run well inside its time limit)
 CLI_DOCS = 4_096
+# [persist] slice: the docs of the searcher it saves and reloads (cut from
+# the whole slice to keep the run inside its time limit: the f16 token
+# index's savez_compressed took ~85 s over 27,940 docs)
+PERSIST_DOCS = 4_096
 N_DOCS, BATCH, N_QUERIES, TOPK, LQ, LD, DIM = 27_940, 64, 192, 1000, 32, 128, 128
 RUNS = 10  # alternating kernel / plain timing runs
 REPEATS = 10  # repeated launches that must give bit-identical outputs
@@ -2736,6 +2769,9 @@ AGREE_GATES = {
     "colbert": {"grad_max_rel": 1e-3, "param_max_abs_over_lr": 0.2},
     "monobert": {"grad_max_rel": 1e-3, "param_max_abs_over_lr": 0.2},
 }
+# [train_parallel]'s X-MOD SPLADE and T5 cross-encoder runs take the gates of
+# the families whose losses they share
+AGREE_FAMILY = {"xmod_splade": "splade", "t5": "monobert"}
 REMAT_GRAD_TOL = 2.0 ** -8  # [train_fit] remat on vs off, bf16: per leaf ||a - b|| / ||b||
 
 
@@ -2743,7 +2779,7 @@ def train_batch(np, family, b, lq, ld, n_neg, vocab, seed):
     """A batch of random ids at full length (every token real)."""
     rng = np.random.default_rng(seed)
     ids = lambda n, length: rng.integers(5, vocab, size=(n, length), dtype=np.int64)  # noqa: E731
-    if family == "monobert":
+    if family in ("monobert", "t5"):
         return {"pair_ids": ids(b, ld), "pair_mask": np.ones((b, ld), np.int32),
                 "labels": (rng.random(b) < 0.5).astype(np.float32)}
     mask = lambda n, length: np.ones((n, length), np.float32 if family == "colbert" else np.int32)  # noqa: E731
@@ -2751,31 +2787,38 @@ def train_batch(np, family, b, lq, ld, n_neg, vocab, seed):
             "neg_ids": ids(b * n_neg, ld), "neg_mask": mask(b * n_neg, ld)}
 
 
-def train_model(torch, family, cfg, seed, device):
-    """A family's model with f32 master weights."""
+def train_model(torch, family, cfg, seed, device, params=None):
+    """A family's model with f32 master weights: ``seed``'s, or ``params``
+    (a state dict of them)."""
     from fusion_tpu_torch.models.biencoder import BiEncoder
     from fusion_tpu_torch.models.colbert import ColBERT
     from fusion_tpu_torch.models.crossencoder import CrossEncoder
 
-    kw = dict(seed=seed, device=device, param_dtype=torch.float32)
+    from fusion_tpu_torch.models.t5 import T5CrossEncoder
+
+    kw = dict(seed=seed, params=params, device=device, param_dtype=torch.float32)
     if family in ("dpr", "splade"):
         return BiEncoder(cfg, head="dense" if family == "dpr" else "splade", **kw)
+    if family == "xmod_splade":
+        return BiEncoder(cfg, head="splade", **kw).set_language(XMOD_LANGUAGES[0])
     if family == "colbert":
         return ColBERT(cfg, dim=DIM, **kw)
+    if family == "t5":
+        return T5CrossEncoder(cfg, **kw)
     return CrossEncoder(cfg, **kw)
 
 
 def train_loss(family, model, batch, step, seed=0, total_steps=30, mesh=None):
-    """The family's training loss (DPR MNRL, SPLADE spladev2, ColBERT CE,
-    monoBERT BCE) → (loss, metrics); with ``mesh``, over every data rank's
-    rows."""
+    """The family's training loss (DPR MNRL, SPLADE spladev2 on either
+    trunk, ColBERT CE, the BCE of monoBERT and of T5) → (loss, metrics);
+    with ``mesh``, over every data rank's rows."""
     from fusion_tpu_torch.models.biencoder import SPLADE_PRESETS
     from fusion_tpu_torch.train import trainer
 
     if family == "dpr":
         return trainer.biencoder_loss(model, batch, step, {"name": "MNRLoss", "scale": 20.0}, None, total_steps, seed,
                                       mesh)
-    if family == "splade":
+    if family in ("splade", "xmod_splade"):
         v = SPLADE_PRESETS["spladev2"]
         return trainer.biencoder_loss(model, batch, step, v["rank_loss"], v["reg_loss"], total_steps, seed, mesh)
     if family == "colbert":
@@ -2792,7 +2835,7 @@ def train_step_fn(family, model, tx, total_steps=30, mesh=None):
     if family == "dpr":
         return trainer.make_biencoder_train_step(model, tx, {"name": "MNRLoss", "scale": 20.0}, None, total_steps,
                                                  mesh=mesh)
-    if family == "splade":
+    if family in ("splade", "xmod_splade"):
         v = SPLADE_PRESETS["spladev2"]
         return trainer.make_biencoder_train_step(model, tx, v["rank_loss"], v["reg_loss"], total_steps, mesh=mesh)
     if family == "colbert":
@@ -3628,11 +3671,161 @@ def sharded_rank_main(rank: int, workdir: str, port: int, device: str = "cuda:0"
     for name, n in standalone["launches"].items():
         expect(n > 0, f"the sharded functions never launched {name}")
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    out["server"] = sharded_server_rank(torch, np, sh, queries, kernels, expect)
+    out["server"]["s"] = time.perf_counter() - t0
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
     return 1 if out["failed"] else 0
+
+
+# [sharded_server]: the requests (the slice's queries, the first
+# SHARDED_SERVER_REPEATS of them again, topk by turns), the client threads,
+# and the mean top-k overlap the answers must keep with the searcher's own
+# lists in the slice's batches (a query rides in another batch there: the
+# packed rerank packs its pairs among others, FA sums their keys in another
+# order, and K3's atomics vary; the random-weight cross-encoder's logits lie
+# close, so its order moves: mean 0.920, least 0.6 on an H100, NVIDIA H100
+# 80GB HBM3 at 700 W; the gate catches a wrong fan-out, near 0, not that noise)
+SHARDED_SERVER_REPEATS, SHARDED_SERVER_CLIENTS, SHARDED_SERVER_TOPKS = 32, 32, (3, 5, 10)
+SHARDED_SERVER_MEAN_OVERLAP = 0.75
+
+# the clients of [sharded_server]: argv = base url, a JSON file of request
+# bodies, the thread count; prints one JSON object with (request, results,
+# ms) per request
+_BODY_CLIENTS = """
+import concurrent.futures, json, sys, time, urllib.request
+url, path, threads = sys.argv[1], sys.argv[2], int(sys.argv[3])
+bodies = json.load(open(path))
+def one(i):
+    t = time.perf_counter()
+    req = urllib.request.Request(url + "/search", data=json.dumps(bodies[i]).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        res = json.loads(r.read())["results"]
+    return i, res, (time.perf_counter() - t) * 1000
+t0 = time.perf_counter()
+with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+    answers = list(pool.map(one, range(len(bodies))))
+print(json.dumps({"wall_s": time.perf_counter() - t0, "answers": answers}))
+"""
+
+
+def sharded_server_rank(torch, np, sh, queries, kernels, expect) -> dict:
+    """[sharded_server] on this rank: a SearchServer over the two-rank
+    searcher ``sh`` on both ranks (max_batch BATCH), rank 0 listening on
+    127.0.0.1 and driving ``sharded_server_clients``.  Every batch the
+    server runs is recorded on both ranks with its lists (the searcher's
+    own); the ranks must run the same batches.  The launch counts are set
+    to 0 just before the server starts (its warm-up included) and read
+    after it stops; the collectives are counted over the same span."""
+    from fusion_tpu_torch.parallel import sharding
+    from fusion_tpu_torch.server import SearchServer
+
+    direct, _ = sh.search(queries, batch_size=BATCH)
+    search, ran = sh.search, []
+
+    def recording(batch, batch_size=32, **kw):  # both ranks run the same calls
+        if "RAISE" in batch:
+            raise ValueError("a batch that raises on every rank")
+        ranked, ms = search(batch, batch_size=batch_size, **kw)
+        ran.append((list(batch), ranked.ids.cpu().numpy(), ranked.scores.cpu().numpy()))
+        return ranked, ms
+
+    out: dict = {}
+    sh.search = recording
+    try:
+        reset_sharded_counts(kernels)
+        before = dict(sharding.COLLECTIVES)
+        t0 = time.perf_counter()
+        srv = SearchServer(sh, host="127.0.0.1", port=0, max_batch=BATCH, max_wait_ms=5.0)
+        srv.start()
+        out["start_s"] = time.perf_counter() - t0
+        try:
+            if srv.leader:
+                host, port = srv.address
+                out.update(sharded_server_clients(np, f"http://{host}:{port}", queries, direct.ids.cpu().numpy(),
+                                                  ran, expect))
+        finally:
+            srv.stop()  # on rank 1: returns when rank 0's stop arrives
+    finally:
+        sh.search = search
+    out["launches"] = sharded_counts(kernels)
+    coll = {k: sharding.COLLECTIVES[k] - before[k] for k in before}
+    out["searches"] = len(ran)  # the warm-up and every batch, on this rank
+    out["batch_digest"] = [len(batch) for batch, _, _ in ran]
+    out["collective_ms_per_batch"] = coll["seconds"] * 1e3 / max(len(ran), 1)
+    out["collective_mb_per_batch"] = coll["bytes"] / 1e6 / max(len(ran), 1)
+    out["collective_calls_per_batch"] = coll["calls"] / max(len(ran), 1)
+    for name in ("K2", "K3", "K4"):
+        expect(out["launches"][name] > 0, f"sharded_server: {name} never launched")
+    return out
+
+
+def sharded_server_clients(np, url, queries, d_ids, ran, expect) -> dict:
+    """[sharded_server]'s requests to the leader at ``url``: the slice's
+    queries one a request, the first SHARDED_SERVER_REPEATS again, topk by
+    turns, from SHARDED_SERVER_CLIENTS threads in a process of their own.
+    Each answer must be its query's row in a batch the server ran (``ran``:
+    ids exact, scores within the server's rounding), and the answers keep
+    a mean top-k overlap of SHARDED_SERVER_MEAN_OVERLAP with ``d_ids``, the
+    searcher's lists in the slice's batches.  Then a batch that raises on both ranks
+    gets a 500, the next request is served, and /healthz counts the whole
+    corpus."""
+    import urllib.error
+    import urllib.request
+
+    def rows(q):  # q's lists in every batch it rode in
+        return [(b_ids[j], b_scores[j]) for batch, b_ids, b_scores in ran for j, bq in enumerate(batch) if bq == q]
+
+    topks = SHARDED_SERVER_TOPKS
+    bodies = [{"queries": [queries[i % len(queries)]], "topk": topks[i % len(topks)]}
+              for i in range(len(queries) + SHARDED_SERVER_REPEATS)]
+    with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+        json.dump(bodies, f)
+    try:
+        run = subprocess.run([sys.executable, "-c", _BODY_CLIENTS, url, f.name, str(SHARDED_SERVER_CLIENTS)],
+                             capture_output=True, text=True, timeout=600)
+    finally:
+        os.unlink(f.name)
+    check(run.returncode == 0, f"sharded_server: the clients failed: {run.stderr[-2000:]}")
+    clients = json.loads(run.stdout)
+    exact, overlaps = 0, []
+    for i, results, _ in clients["answers"]:
+        q, k = bodies[i]["queries"][0], bodies[i]["topk"]
+        ids, scores = results[0]["ids"], np.asarray(results[0]["scores"])
+        exact += any(len(ids) == k and ids == r_ids[:k].tolist() and bool(np.abs(scores - r_sc[:k]).max() <= 1e-5)
+                     for r_ids, r_sc in rows(q))
+        overlaps.append(len(set(ids) & set(d_ids[queries.index(q)][:k].tolist())) / k)
+    expect(exact == len(bodies), f"sharded_server: {len(bodies) - exact} of {len(bodies)} answers are not their "
+           "batch's own lists")
+    expect(np.mean(overlaps) >= SHARDED_SERVER_MEAN_OVERLAP,
+           f"sharded_server: mean top-k overlap with the slice's batches {np.mean(overlaps)}")
+    lat = sorted(a[2] for a in clients["answers"])
+    out = {"requests": len(bodies), "answers_exact": exact, "client_threads": SHARDED_SERVER_CLIENTS,
+           "requests_per_s": len(bodies) / clients["wall_s"], "p50_request_ms": lat[len(lat) // 2],
+           "p99_request_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+           "topk_overlap_vs_slice_batches": {"min": min(overlaps), "mean": float(np.mean(overlaps))}}
+    try:
+        _post(f"{url}/search", {"queries": ["RAISE"], "topk": 3})
+        expect(False, "sharded_server: the raising batch was answered")
+    except urllib.error.HTTPError as e:
+        out["raising_batch"] = {"code": e.code, "error": json.loads(e.read()).get("error")}
+        expect(e.code == 500, f"sharded_server: the raising batch got HTTP {e.code}")
+    after = _post(f"{url}/search", {"queries": [queries[0]], "topk": 10})["results"][0]["ids"]
+    out["served_after_500"] = any(after == r_ids[:10].tolist() for r_ids, _ in rows(queries[0]))
+    expect(out["served_after_500"], "sharded_server: the request after the 500 got another list")
+    with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+        out["healthz_corpus_docs"] = json.loads(r.read())["corpus_docs"]
+    expect(out["healthz_corpus_docs"] == N_DOCS, f"sharded_server: /healthz {out['healthz_corpus_docs']}")
+    with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
+        stats = json.loads(r.read())
+    out.update(batches=stats["batches"], errors=stats["errors"], mean_batch_ms=stats["mean_batch_ms"])
+    expect(stats["batches"] < stats["requests"], f"sharded_server: {stats['batches']} batches for "
+           f"{stats['requests']} requests")
+    return out
 
 
 def run_ranks(label: str, work: str, ranks: int, timeout: float, device: str) -> list[dict]:
@@ -3693,8 +3886,17 @@ def sharded_check(torch, np, src, queries, kernels, backend="nccl", device="cuda
     check(ranks[0]["merged_lists_digest"] == ranks[1]["merged_lists_digest"]
           and ranks[0]["final_ids_head"] == ranks[1]["final_ids_head"], "sharded: the two ranks' lists differ")
     check(sum(r["launches"]["FA"] for r in ranks) > 0, "sharded: FA never launched on the sharded path")
+    servers = [r["server"] for r in ranks]
+    check(servers[0]["batch_digest"] == servers[1]["batch_digest"], "sharded_server: the ranks ran other batches")
+    check(sum(v["launches"]["FA"] for v in servers) > 0, "sharded_server: FA never launched")
+    out["server"] = {
+        **{k: v for k, v in servers[0].items() if k not in ("launches", "batch_digest")},
+        "launches_per_rank": [v["launches"] for v in servers],
+        "per_rank": [{k: v[k] for k in ("collective_ms_per_batch", "collective_mb_per_batch",
+                                        "collective_calls_per_batch", "searches", "s")} for v in servers],
+    }
     out["two_ranks"] = {
-        "s": time.perf_counter() - t0, "backend": ranks[0]["backend"],
+        "s": time.perf_counter() - t0 - servers[0]["s"], "backend": ranks[0]["backend"],
         "note": "two ranks share one card's SMs: these times are no speed-up figure",
         **{k: ranks[0][k] for k in ("leg_top100_overlap_vs_plain", "leg_top100_overlap_vs_single",
                                     "bm25_equal_single_device", "fa_logit_gap_vs_plain", "standalone", "save_s")},
@@ -3712,13 +3914,25 @@ def sharded_check(torch, np, src, queries, kernels, backend="nccl", device="cuda
 # [train_parallel]: data- and tensor-parallel training, two ranks on the card
 # ----------------------------------------------------------------------
 # run → (family, data ranks, model ranks, attention form); shapes by family:
-# (global batch, query length, doc length, negatives per query)
+# (global batch, query length, doc length, negatives per query).  X-MOD
+# SPLADE's batch is cut to 8 queries: its logits span xmod-base's 250,002
+# terms, and one rank's f64 reference at 2 layers holds [2,304 tokens,
+# 250,002] several times.  T5 has no flash form (its attention is the
+# einsum with the relative bias) and trains at the CLI's monoBERT pair length.
 TRAIN_PARALLEL_RUNS = {
     "colbert_data2": ("colbert", 2, 1, "flash"),
     "dpr_data2": ("dpr", 2, 1, "einsum"),
     "colbert_model2": ("colbert", 1, 2, "flash"),
+    "xmod_splade_model2": ("xmod_splade", 1, 2, "flash"),
+    "t5_model2": ("t5", 1, 2, "einsum"),
 }
-TRAIN_PARALLEL_SHAPES = {"colbert": (32, 32, 256, 3), "dpr": (32, 64, 256, 1)}
+TRAIN_PARALLEL_SHAPES = {"colbert": (32, 32, 256, 3), "dpr": (32, 64, 256, 1), "xmod_splade": (8, 32, 128, 1),
+                         "t5": (32, 0, 256, 0)}
+XMOD_LANGUAGES = ("fr_XX", "en_XX")  # the adapters; the runs train through fr_XX
+# the bf16 pass's depth where it is not the trunk's: ColBERT model = 2 at
+# half depth keeps the script inside its time limit (its 12-layer pass took
+# 28 s, nearly all of it in gloo's per-layer all-reduces)
+TRAIN_PARALLEL_BF16_LAYERS = {"colbert_model2": 6}
 TRAIN_PARALLEL_STEPS, TRAIN_PARALLEL_LR = 2, 1e-3
 TRAIN_PARALLEL_RANKS, TRAIN_PARALLEL_TIMEOUT = 2, 600
 # the 12-layer bf16 pass against one rank's bf16 step over the global batch,
@@ -3731,14 +3945,60 @@ TRAIN_PARALLEL_RANKS, TRAIN_PARALLEL_TIMEOUT = 2, 600
 # itself 0.13 / 0.19 / 0.18 from the f32 one: bf16 rounding at 12 layers.
 # A wrong sum or a wrong head slice moves each by O(1).
 TRAIN_PARALLEL_BF16_GATES = {"loss_rel": 5e-3, "grad_max_rel": 0.5, "grad_rel": 0.35, "grad_rel_vs_f32_ratio": 1.5}
+# X-MOD SPLADE's bf16 gradient is far noisier: SPLADE's max over 250,002
+# terms routes each term's gradient to one token, and bf16 flips near-ties.
+# Read on an H100 (NVIDIA H100 80GB HBM3, 700 W): one rank's own bf16
+# gradient stands 0.30 (all leaves) / 0.80 (worst leaf) from the f32 one,
+# so two bf16 gradients may stand up to twice that apart; its gradient
+# gates are twice the run's own reference distance to f32 (or the gates
+# above, where larger), and its loss and ratio gates are the ones above.
 
 
-def train_parallel_config(torch, form, dtype, layers=12):
-    """CamemBERT-base at full width computing in ``dtype`` over f32 master
-    weights, remat, dropout 0, at ``layers`` layers."""
+def bf16_gates(family, res) -> dict:
+    """The bf16 pass's gates for ``family`` in the run ``res``."""
+    gates = dict(TRAIN_PARALLEL_BF16_GATES)
+    if family == "xmod_splade":
+        ref = res["bf16"]["f32"]
+        gates["grad_rel"] = max(gates["grad_rel"], 2 * ref["reference_grad_rel"])
+        gates["grad_max_rel"] = max(gates["grad_max_rel"], 2 * ref["reference_max_rel"])
+    return gates
+
+
+def train_parallel_config(torch, form, dtype, layers=None, family="colbert"):
+    """``family``'s trunk at full width computing in ``dtype`` over f32
+    master weights, dropout 0, at ``layers`` layers (None: the full depth):
+    CamemBERT-base, or xmod-base (``XmodConfig``'s defaults, the adapters
+    of XMOD_LANGUAGES) with remat; T5 at the CLI's ``--backbone t5`` widths
+    (``T5Config(vocab_size=32,005)``: 6 layers, no remat)."""
     from fusion_tpu_torch.models.encoder import EncoderConfig
+    from fusion_tpu_torch.models.t5 import T5Config
+    from fusion_tpu_torch.models.xmod import XmodConfig
 
-    return EncoderConfig(dtype=dtype, remat=True, dropout=0.0, attention_impl=form, num_layers=layers)
+    depth = {} if layers is None else {"num_layers": layers}
+    if family == "t5":
+        return T5Config(vocab_size=SPLADE_VOCAB, dtype=dtype, **depth)
+    build = XmodConfig if family == "xmod_splade" else EncoderConfig
+    extra = {"languages": XMOD_LANGUAGES} if family == "xmod_splade" else {}
+    return build(dtype=dtype, remat=True, dropout=0.0, attention_impl=form, **depth, **extra)
+
+
+def parallel_step_flops(cfg, family, b, lq, ld, n_neg) -> float:
+    """The model FLOPs of one train step of ``family``: ``profiling``'s for
+    the BERT-style families (X-MOD SPLADE as SPLADE, plus its adapters: 4 H
+    × the bottleneck a token a layer); for T5, 3 × the forward of its
+    projections (q, k, v, o: 8 d·inner a token; the FFN 4 d·d_ff), its
+    attention (4 L² inner a sequence) and the head, a layer at a time."""
+    from fusion_tpu_torch.utils import profiling
+
+    if family == "t5":
+        inner = cfg.num_heads * cfg.d_kv
+        layer = b * (ld * (8 * cfg.d_model * inner + 4 * cfg.d_model * cfg.d_ff) + 4 * ld * ld * inner)
+        return 3 * (cfg.num_layers * layer + b * 2 * cfg.d_model * cfg.d_model)
+    model, _ = profiling.train_step_flops(cfg, "splade" if family == "xmod_splade" else family, b, lq, ld, n_neg, DIM)
+    if family == "xmod_splade":
+        tokens = b * lq + b * (1 + n_neg) * ld
+        model += 3 * tokens * cfg.num_layers * 4 * cfg.hidden_size * cfg.bottleneck_size
+    return model
 
 
 def whole_grads(torch, family, model, batch, mesh) -> tuple[float, dict]:
@@ -3787,10 +4047,11 @@ def train_parallel_run(torch, np, name, rank, device) -> dict:
         the gradient and the parameters after the steps.  The same
         gradient in f64 (the einsum form; its gap to f32's is the f32
         rounding) tells a leaf that rounds badly from a wrong sum.
-      * bf16 at 12 layers (the measured pass, through FA and FA-bwd at 12
-        or 6 heads a rank): the first step's loss and the gradient, at
-        TRAIN_PARALLEL_BF16_GATES; and both bf16 gradients against the f32
-        one of the einsum form at 12 layers (one rank), where the parallel
+      * bf16 at the trunk's depth or TRAIN_PARALLEL_BF16_LAYERS' (the
+        measured pass, through FA and FA-bwd at 12 or 6 heads a rank): the
+        first step's loss and the gradient, at ``bf16_gates``; and both bf16
+        gradients against the f32 one of the einsum form at that depth (one
+        rank), where the parallel
         one may stand at most ``grad_rel_vs_f32_ratio`` times as far as one
         rank's.  The parameters after the steps are reported, not
         gated: the ranks' products sum in another order than one device's,
@@ -3810,13 +4071,18 @@ def train_parallel_run(torch, np, name, rank, device) -> dict:
     family, data, model_ranks, form = TRAIN_PARALLEL_RUNS[name]
     b, lq, ld, n_neg = TRAIN_PARALLEL_SHAPES[family]
     seed = 400 + list(TRAIN_PARALLEL_RUNS).index(name)
-    host = train_batch(np, family, b, lq, ld, n_neg, train_parallel_config(torch, form, torch.float32).vocab_size,
-                       seed)
+    host = train_batch(np, family, b, lq, ld, n_neg,
+                       train_parallel_config(torch, form, torch.float32, family=family).vocab_size, seed)
     fit_cfg = trainer.FitConfig(steps=TRAIN_PARALLEL_STEPS, learning_rate=TRAIN_PARALLEL_LR, scheduler="constant")
     mesh = sharding.make_mesh(data=data, model=model_ranks, devices=[device] * TRAIN_PARALLEL_RANKS)
+    # the seed's f32 master weights by depth, drawn once on the host: every
+    # pass of a depth starts from them (xmod-base's take ~9 s to draw)
+    initial: dict = {}
 
     def run(cfg, mesh, steps=TRAIN_PARALLEL_STEPS):
-        model = train_model(torch, family, cfg, seed, device)
+        model = train_model(torch, family, cfg, seed, device, initial.get(cfg.num_layers))
+        if cfg.num_layers not in initial:
+            initial[cfg.num_layers] = {k: v.detach().to("cpu", copy=True) for k, v in model.module.state_dict().items()}
         state, tx, _ = trainer.init_train_state(model, fit_cfg)
         step = train_step_fn(family, model, tx, TRAIN_PARALLEL_STEPS, mesh=mesh)
         if mesh is not None:
@@ -3845,13 +4111,15 @@ def train_parallel_run(torch, np, name, rank, device) -> dict:
         torch.cuda.empty_cache()
         return losses, grads, params, stats
 
-    f32, bf16 = train_parallel_config(torch, form, torch.float32, 2), train_parallel_config(torch, form, torch.bfloat16)
-    f64 = train_parallel_config(torch, "einsum", torch.float64, 2)
+    depth = TRAIN_PARALLEL_BF16_LAYERS.get(name)
+    f32 = train_parallel_config(torch, form, torch.float32, 2, family)
+    bf16 = train_parallel_config(torch, form, torch.bfloat16, depth, family)
+    f64 = train_parallel_config(torch, "einsum", torch.float64, 2, family)
     t0 = time.perf_counter()
     if rank == 0:
         reference = run(f32, None)
         exact = run(f64, None, steps=0)[1]
-        bf16_exact = run(train_parallel_config(torch, "einsum", torch.float32), None, steps=0)[1]
+        bf16_exact = run(train_parallel_config(torch, "einsum", torch.float32, depth, family), None, steps=0)[1]
     dist.barrier()
     t1 = time.perf_counter()
     losses, grads, params, stats = run(f32, mesh)
@@ -3863,11 +4131,13 @@ def train_parallel_run(torch, np, name, rank, device) -> dict:
     pass_s = {"references_f32_f64": t1 - t0, "parallel_f32": t2 - t1, "reference_bf16": t3 - t2,
               "parallel_bf16": time.perf_counter() - t3}
     steps, ms = TRAIN_PARALLEL_STEPS, bf16_stats["times"][-1]
-    model_flops, _ = profiling.train_step_flops(bf16, family, b, lq, ld, n_neg, DIM)
+    model_flops = parallel_step_flops(bf16, family, b, lq, ld, n_neg)
     coll = bf16_stats["collectives"]
     out = {
-        "mesh": f"data{data}xmodel{model_ranks}", "form": form,
-        "shape": f"B{b}xLq{lq}xLd{ld}xneg{n_neg}", "heads_per_rank": bf16.num_heads // model_ranks,
+        "mesh": f"data{data}xmodel{model_ranks}", "form": form, "bf16_layers": bf16.num_layers,
+        "shape": f"B{b}xLq{lq}xLd{ld}xneg{n_neg}",
+        # T5's trunk is whole on every model rank (no rule splits its leaves)
+        "heads_per_rank": bf16.num_heads // (1 if family == "t5" else model_ranks),
         "ms_per_step": ms, "ms_steps": bf16_stats["times"], "losses": bf16_losses, "f32_losses": losses,
         "f32_ms_steps": stats["times"],
         "collective_ms_per_step": coll["seconds"] * 1e3 / steps, "collective_mb_per_step": coll["bytes"] / 1e6 / steps,
@@ -3945,7 +4215,7 @@ def train_parallel_rank_main(rank: int, workdir: str, port: int, device: str = "
         print(f"[train_parallel rank {rank}] {name} {res['s']:.1f}s "
               + json.dumps({k: v for k, v in res.items() if k not in ("params_digest",)}), flush=True)
         # per step: 3 forwards × the layers × 2 (the remat recompute), 3 × the layers backward
-        for label, layers in (("launches", 12), ("f32_launches", 2)):
+        for label, layers in (("launches", res["bf16_layers"]), ("f32_launches", 2)):
             per_step = {"FA": TRAIN_PARALLEL_STEPS * 6 * layers, "FA-bwd": TRAIN_PARALLEL_STEPS * 3 * layers}
             if form == "flash" and res[label] != per_step:
                 out["failed"].append(f"{name}: {label} {res[label]} in {TRAIN_PARALLEL_STEPS} steps (want "
@@ -3955,9 +4225,10 @@ def train_parallel_rank_main(rank: int, workdir: str, port: int, device: str = "
         if not all(np.isfinite(res["losses"] + res["f32_losses"])):
             out["failed"].append(f"{name}: losses {res['losses']}")
         if rank == 0:
-            gates = {"loss_rel": AGREE_LOSS_RTOL, **AGREE_GATES[family]}
+            gates = {"loss_rel": AGREE_LOSS_RTOL, **AGREE_GATES[AGREE_FAMILY.get(family, family)]}
             bad = {k: (res[k], lim) for k, lim in gates.items() if k in res and not res[k] <= lim}
-            bad.update({f"bf16 {k}": (res["bf16"][k], lim) for k, lim in TRAIN_PARALLEL_BF16_GATES.items()
+            res["bf16"]["gates"] = bf16_gates(family, res)
+            bad.update({f"bf16 {k}": (res["bf16"][k], lim) for k, lim in res["bf16"]["gates"].items()
                         if not res["bf16"][k] <= lim})
             if bad:
                 out["failed"].append(f"{name}: against one rank's step over the global batch {bad}")
@@ -3982,14 +4253,16 @@ def train_parallel_check(torch, device="cuda:0") -> dict:
         check(len({tuple(r["params_digest"]) for r in runs}) == 1,
               f"train_parallel {name}: the ranks' parameters differ: {[r['params_digest'] for r in runs]}")
         first = runs[0]
-        out[name] = {k: first[k] for k in ("mesh", "form", "shape", "heads_per_rank", "losses", "f32_losses",
-                                           "reference_f32_losses", "reference_f32_ms_steps", "loss_rel",
+        out[name] = {k: first[k] for k in ("mesh", "form", "bf16_layers", "shape", "heads_per_rank", "losses",
+                                           "f32_losses", "reference_f32_losses", "reference_f32_ms_steps", "loss_rel",
                                            "grad_max_rel", "grad_worst_leaf", "grad_rel", "param_max_abs_over_lr",
                                            "param_farthest_leaf", "params_over_0.2_lr", "f64", "bf16")}
         out[name]["per_rank"] = [{k: r[k] for k in per_rank} for r in runs]
     # the measured (bf16) passes' launches, every rank and flash run
     flash = [n for n, run in TRAIN_PARALLEL_RUNS.items() if run[3] == "flash"]
     out["launches"] = {k: sum(r["runs"][n]["launches"][k] for r in reports for n in flash) for k in ("FA", "FA-bwd")}
+    out["launches_by_run"] = {n: {k: sum(r["runs"][n]["launches"][k] for r in reports) for k in ("FA", "FA-bwd")}
+                              for n in flash}
     return out
 
 
@@ -4392,8 +4665,11 @@ def main() -> int:
         corpus_ids=np.array([]), dense_model=dense, splade_model=splade, colbert_model=colbert,
         cross_encoder=ce, rerank_depth=100, topk=TOPK, fusion_method="rrf", device="cuda",
     )
-    persisted, reloaded = persist_check(torch, np, "slice", reranked, fresh, queries, kernels)
-    phase("persist", t0, searcher="slice", gpu=repr(smi), **persisted)
+    part = HybridSearcher.build(dict(enumerate(docs[:PERSIST_DOCS])), bm25_docs=docs[:PERSIST_DOCS], **index_kw)
+    build_s = time.perf_counter() - t0
+    persisted, reloaded = persist_check(torch, np, "slice", part, fresh, queries, kernels)
+    del part
+    phase("persist", t0, searcher="slice", docs=PERSIST_DOCS, build_s=build_s, gpu=repr(smi), **persisted)
     check(persisted["launches"]["K1"] > 0, "persist slice: K1 never launched")
     t0 = time.perf_counter()
     served = server_check(torch, np, dataclasses.replace(reloaded, rerank_depth=0), queries)
@@ -4517,8 +4793,11 @@ def main() -> int:
     src = dataclasses.replace(pb, cross_encoder=ce.with_attention("flash"), rerank_depth=100, rerank_packed=True,
                               **ce_tokens)
     sharded = sharded_check(torch, np, src, queries, kernels)
+    sharded_server = sharded.pop("server")
     phase("sharded", t0, gpu=repr(smi), **sharded)
+    phase("sharded_server", time.perf_counter() - sharded_server["s"], gpu=repr(smi), **sharded_server)
     sharded_launches = {**sharded["two_ranks"]["launches"], "K1": sharded["two_ranks"]["standalone"]["launches"]["K1"]}
+    server_launches = {k: sum(r[k] for r in sharded_server["launches_per_rank"]) for k in sharded_launches}
     del src, pb, cb, ranked, ce_tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -4615,14 +4894,17 @@ def main() -> int:
         # and the segmented path's 192-query search over two segments
         entry("maxsim_maxima_T", "maxsim.cu", "fusion_tpu/ops/maxsim.py:225", rerank["launches"]["K1"],
               k1_err, k1_ms, k1_plain, k1_bound, segmented_launches=seg_out["search_launches"]["K1"],
-              sharded_launches=sharded_launches["K1"]),
+              sharded_launches=sharded_launches["K1"], sharded_server_launches=server_launches["K1"]),
         entry("dense_binmax", "dense_topk.cu", "fusion_tpu/ops/dense_topk.py:102", mm4_counts["K2"],
-              k2_err, k2_ms, k2_plain, k2_bound, sharded_launches=sharded_launches["K2"]),
+              k2_err, k2_ms, k2_plain, k2_bound, sharded_launches=sharded_launches["K2"],
+              sharded_server_launches=server_launches["K2"]),
         entry("scatter_binmax", "scatter_score.cu", "fusion_tpu/ops/scatter_score.py:138",
-              mm4_counts["K3"], k3_err, k3_ms, k3_plain, k3_bound, sharded_launches=sharded_launches["K3"]),
+              mm4_counts["K3"], k3_err, k3_ms, k3_plain, k3_bound, sharded_launches=sharded_launches["K3"],
+              sharded_server_launches=server_launches["K3"]),
         # the library call of K4's function is index_select, its plain version
         entry("gather_rows", "gather_rows.cu", "fusion_tpu/ops/gather_rows.py:41", mm4_counts["K4"],
-              k4_err, k4_ms, k4_plain, k4_bound, library_ms=k4_plain, sharded_launches=sharded_launches["K4"]),
+              k4_err, k4_ms, k4_plain, k4_bound, library_ms=k4_plain, sharded_launches=sharded_launches["K4"],
+              sharded_server_launches=server_launches["K4"]),
         entry("maxsim_fused", "maxsim.cu",
               "fusion_tpu/ops/maxsim.py:67; scripts/bench_maxsim.py:55", variant_counts["K1-v1"],
               k1v1_err, k1v1_ms, k1v1_plain, k1v1_bound),
@@ -4647,7 +4929,9 @@ def main() -> int:
               forms["packed_flash"]["kernel_launches_search"], attn["max_abs_err"], attn["packed"]["ms"],
               attn["packed"]["plain_ms"], attn["packed"]["bound_ms"], library_ms=attn["packed"]["library_ms"],
               shapes={c: attention_shape(attn[c], ATTENTION_KERNELS[:1]) for c in ("packed", "bench_doc")},
-              sharded_launches=sharded_launches["FA"], parallel_launches=train_parallel["launches"]["FA"]),
+              sharded_launches=sharded_launches["FA"], sharded_server_launches=server_launches["FA"],
+              parallel_launches=train_parallel["launches"]["FA"],
+              parallel_launches_by_run={n: v["FA"] for n, v in train_parallel["launches_by_run"].items()}),
         # FA's backward (the D pass, dK/dV and dQ kernels): launches in
         # [train_flash]'s flash run (this slice's path), times at one layer's
         # doc call of that step, the library call scaled_dot_product_attention's
@@ -4660,7 +4944,8 @@ def main() -> int:
               (attn_bwd["bench_doc"]["bound_ms"], attn_bwd["bench_doc"]["bound_by"]),
               library_ms=attn_bwd["bench_doc"]["library_ms"],
               shapes={c: attention_shape(attn_bwd[c], ATTENTION_KERNELS[1:]) for c in ("bench_doc", "packed")},
-              parallel_launches=train_parallel["launches"]["FA-bwd"]),
+              parallel_launches=train_parallel["launches"]["FA-bwd"],
+              parallel_launches_by_run={n: v["FA-bwd"] for n, v in train_parallel["launches_by_run"].items()}),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

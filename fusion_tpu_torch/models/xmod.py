@@ -21,6 +21,12 @@ compute dtype.  ``load_hf_xmod_params`` maps an HF X-MOD checkpoint
 directory (read without ``transformers``), optionally subsetting the
 adapters to the languages served; ``xmod_finetune_labels`` gives the
 fine-tuning recipe's freeze labels (embeddings and adapters frozen).
+
+Under ``model > 1`` (``parallel/sharding.shard_module``) the trunk runs
+Megatron-parallel as the encoder's does: attention by heads, the FFN by its
+inner dimension, the MLM decoder by vocabulary.  JAX's rules match none of
+the adapters' or layer norms' paths, so they stay whole on every ``model``
+rank, and the step averages their gradients over ``model``.
 """
 
 from __future__ import annotations
@@ -49,8 +55,10 @@ from fusion_tpu_torch.models.encoder import (
     hf_model_prefix,
     hf_trunk_tree,
     hf_value,
+    row_parallel,
     trunk_linear,
 )
+from fusion_tpu_torch.parallel.sharding import copy_to_model
 
 SITE_ADAPTER = 4  # the adapter output's dropout site (after the encoder's four)
 
@@ -144,6 +152,11 @@ class StackedAdapters(nn.Module):
 
 
 class XmodLayer(nn.Module):
+    # under model > 1 (parallel/sharding.shard_module): ffn_in column-parallel,
+    # ffn_out row-parallel, as TransformerLayer's; the adapters and the layer
+    # norms stay whole on every model rank
+    tp_mesh = None
+
     def __init__(self, cfg: XmodConfig, index: int = 0):
         super().__init__()
         self.cfg = cfg
@@ -163,7 +176,8 @@ class XmodLayer(nn.Module):
         c, i = self.cfg, self.index
         attn = self.attention(x, attention_mask, None, drop, i)
         x = self.attn_ln(x + dropout(attn, c.dropout, drop, i, SITE_ATTN_OUT)).to(c.dtype)
-        h = trunk_linear(self.ffn_out, F.gelu(trunk_linear(self.ffn_in, x, c), approximate="none"), c)
+        inner = F.gelu(trunk_linear(self.ffn_in, copy_to_model(x, self.tp_mesh), c), approximate="none")
+        h = row_parallel(self.ffn_out, inner, c, self.tp_mesh)
         r = x + dropout(h, c.dropout, drop, i, SITE_FFN_OUT)
         if c.adapter_layer_norm:
             y = self.adapter_ln(r).to(c.dtype)

@@ -12,11 +12,13 @@ them.
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
 import torch.distributed as dist
 
+from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.parallel import sharding
 from fusion_tpu_torch.parallel.sharding import make_mesh
 
@@ -27,28 +29,34 @@ def initialize_multihost(
     process_id: int | None = None,
     backend: str = "nccl",
     device=None,
+    timeout: float | None = None,
 ) -> None:
     """Join the process group (idempotent: a second call is a no-op).
 
     ``coordinator_address`` is ``host:port`` (or a ``tcp://`` / ``file://``
     URL) of rank 0; with no arguments torchrun's environment variables drive
-    the bootstrap.  ``backend`` is ``nccl`` (the default, one card per rank:
-    ``device`` defaults to ``cuda:{LOCAL_RANK}``) or ``gloo`` (the CPU tests
-    pass ``device="cpu"``; two ranks sharing one card, which NCCL refuses,
-    pass a CUDA device).  ``device`` becomes ``make_mesh``'s default."""
+    the bootstrap.  ``backend`` is ``nccl`` (the default, one card per rank)
+    or ``gloo`` (two ranks sharing one card, which NCCL refuses).  ``device``
+    defaults to the card ``cuda:{LOCAL_RANK}`` under either backend, and
+    raises without one (``core.device.resolve_device``): the CPU tests pass
+    ``device="cpu"``.  It becomes ``make_mesh``'s default.  ``timeout``
+    (seconds; torch's default when None) bounds every collective of the
+    default group and of the mesh's and the server's groups (``parallel.sharding``):
+    a rank whose partner never arrives raises after it instead of waiting
+    forever."""
     local_rank = int(os.environ.get("LOCAL_RANK", "0"))
-    if device is None:
-        device = f"cuda:{local_rank}" if backend == "nccl" else "cpu"
-    device = torch.device(device)
+    device = resolve_device(f"cuda:{local_rank}" if device is None else device)
     if dist.is_initialized():
         return
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    sharding._GROUP_TIMEOUT[0] = kw.get("timeout")
     if coordinator_address is None:
-        dist.init_process_group(backend=backend)
+        dist.init_process_group(backend=backend, **kw)
     else:
         url = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
-        dist.init_process_group(backend=backend, init_method=url, world_size=num_processes, rank=process_id)
+        dist.init_process_group(backend=backend, init_method=url, world_size=num_processes, rank=process_id, **kw)
     sharding._DEFAULT_DEVICE[0] = device
 
 

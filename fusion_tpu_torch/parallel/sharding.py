@@ -24,7 +24,9 @@ without ``init_process_group``.  A larger mesh needs the group
 rank gets its own group from ``dist.new_group`` under the caller's backend.
 
 The collectives live here and nowhere else.  Serving: ``all_gather`` (a
-``[Q, k]`` list into ``[S, Q, k]``), ``all_reduce_sum`` and ``merge_shards``.
+``[Q, k]`` list into ``[S, Q, k]``), ``all_reduce_sum`` and ``merge_shards``;
+and ``Channel``, the HTTP server's group beside the mesh's (rank 0's
+messages to every rank, the count of the ranks that failed a step).
 Training, each an autograd function where a gradient crosses it:
 
   * ``all_gather_cat`` — every rank's rows along ``data`` (or columns along
@@ -56,7 +58,9 @@ Tensor parallelism follows JAX's rules (``_ENCODER_TP_RULES``, regexes over
 the Flax parameter paths): the fused qkv and the FFN's inner dimension are
 column-parallel over ``model`` (attention by heads), the attention ``out``
 and ``ffn_out`` row-parallel with their biases replicated, SPLADE's MLM
-decoder column-parallel over the vocabulary; everything else is replicated.
+decoder column-parallel over the vocabulary; everything else is replicated
+(X-MOD's adapters, and the whole of a T5 trunk, whose leaf names match no
+rule: every ``model`` rank computes it, as JAX's replicated leaves do).
 ``encoder_param_spec`` returns JAX's specs as tuples (``P()`` is ``()``),
 ``shard_params`` a rank's slice of a Flax tree, and ``shard_module`` slices a
 port module's parameters in place through their Flax layouts
@@ -73,6 +77,7 @@ tensor on its device.
 from __future__ import annotations
 
 import dataclasses
+import pickle
 import re
 import time
 from typing import NamedTuple, Sequence
@@ -88,11 +93,15 @@ MODEL_AXIS = "model"
 INDEX_AXIS = "index"
 AXES = (DATA_AXIS, MODEL_AXIS, INDEX_AXIS)
 
-# each rank's collective traffic: calls, bytes it contributes, host seconds
-COLLECTIVES = {"calls": 0, "bytes": 0, "seconds": 0.0}
+# each rank's collective traffic: calls, bytes it contributes, host seconds;
+# and the calls it entered (a call that never returns counts here alone)
+COLLECTIVES = {"calls": 0, "bytes": 0, "seconds": 0.0, "entered": 0}
 
-# the device initialize_multihost gave this process (make_mesh's default)
+# the device initialize_multihost gave this process (make_mesh's default),
+# and the timeout it gave the group (every group made here takes it; None:
+# torch's default)
 _DEFAULT_DEVICE: list = [None]
+_GROUP_TIMEOUT: list = [None]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -155,7 +164,7 @@ def make_mesh(
             if (base // strides[axis]) % shape[axis]:
                 continue
             members = [base + i * strides[axis] for i in range(shape[axis])]
-            group = dist.new_group(members)
+            group = dist.new_group(members, timeout=_GROUP_TIMEOUT[0])
             if rank in members:
                 groups[axis] = group
     return Mesh(shape=shape, coords=coords, groups=groups, device=resolve_device(device),
@@ -191,6 +200,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = INDEX_AXIS) -> torch.Ten
     group = mesh.groups[axis]
     if group is None:
         return x[None]
+    COLLECTIVES["entered"] += 1
     t0 = time.perf_counter()
     src = _host_staged(mesh, x.contiguous())
     parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
@@ -204,6 +214,7 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str = INDEX_AXIS) -> torch
     """The sum of every rank's ``x`` along ``axis`` (JAX's ``psum``)."""
     if mesh.groups[axis] is None:
         return x
+    COLLECTIVES["entered"] += 1
     t0 = time.perf_counter()
     buf = _host_staged(mesh, x.contiguous()).clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.groups[axis])
@@ -235,6 +246,61 @@ def merge_shards(local_ids: torch.Tensor, local_scores: torch.Tensor, k: int, me
 def globalize(local: RankedLists, rank: int, per: int) -> torch.Tensor:
     """A shard's local ids → global ids (``local + rank·per``, -1 kept)."""
     return torch.where(local.ids >= 0, local.ids + rank * per, PAD_ID).to(torch.int32)
+
+
+class Channel:
+    """A process group of every rank of ``mesh`` beside the searchers' own,
+    for a host program that drives them all from rank 0 (the HTTP server):
+    ``broadcast`` sends rank 0's picklable message to every rank (a length,
+    then the bytes as ``uint8``, on the rank's card under NCCL and in host
+    memory under gloo), and ``failures`` tells every rank how many ranks
+    failed a step and whether they failed at the same point.  A group of its
+    own keeps these calls from pairing with a searcher's: a rank that fails
+    before a collective waits here while the others wait there, and each
+    raises at the group's timeout.  Every rank builds it, in the same order
+    (``dist.new_group`` is collective)."""
+
+    def __init__(self, mesh: Mesh):
+        world = dist.get_world_size()
+        if mesh.size != world:
+            raise ValueError(f"a channel spans the whole group: the mesh holds {mesh.size} of {world} ranks")
+        self.size = world
+        self.group = dist.new_group(list(range(world)), timeout=_GROUP_TIMEOUT[0])
+        self.rank = dist.get_rank()
+        self.device = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+        # the longest a rank 0 with nothing to send may wait before it sends
+        # a message anyway: a quarter of the group's timeout, at most 5 s
+        timeout = _GROUP_TIMEOUT[0]
+        self.idle_s = 5.0 if timeout is None else min(5.0, timeout.total_seconds() / 4)
+
+    def broadcast(self, message=None):
+        """Rank 0's ``message`` on every rank (the others pass nothing)."""
+        t0 = time.perf_counter()
+        payload = pickle.dumps(message) if self.rank == 0 else b""
+        size = torch.tensor([len(payload)], dtype=torch.int64, device=self.device)
+        dist.broadcast(size, src=0, group=self.group)
+        if self.rank == 0:
+            buf = torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(self.device)
+        else:
+            buf = torch.empty(int(size.item()), dtype=torch.uint8, device=self.device)
+        dist.broadcast(buf, src=0, group=self.group)
+        _count(buf, t0)
+        if self.rank:  # a receiver's wait for the next message is idle time, not the call's
+            COLLECTIVES["seconds"] -= time.perf_counter() - t0
+        # rank 0 of this program wrote the bytes
+        return message if self.rank == 0 else pickle.loads(buf.cpu().numpy().tobytes())
+
+    def failures(self, failed: bool, entered: int) -> tuple[int, bool]:
+        """(ranks that failed the step, whether every rank entered the same
+        number of collectives in it), from this rank's ``failed`` and
+        ``entered`` (``COLLECTIVES["entered"]``'s growth over the step)."""
+        t0 = time.perf_counter()
+        mine = torch.tensor([int(failed), entered], dtype=torch.int64, device=self.device)
+        parts = [torch.empty_like(mine) for _ in range(self.size)]
+        dist.all_gather(parts, mine, group=self.group)
+        _count(mine, t0)
+        table = torch.stack(parts).cpu()
+        return int(table[:, 0].sum()), bool((table[:, 1] == table[0, 1]).all())
 
 
 
@@ -415,16 +481,13 @@ def shard_module(module: torch.nn.Module, mesh: Mesh, num_heads: int) -> None:
     """Slice ``module``'s parameters in place to this rank's part by
     ``encoder_param_spec`` over their Flax layouts, and give every submodule
     the mesh (``tp_mesh``) its forward runs the collectives on.  Idempotent.
-    T5 and X-MOD trunks under ``model > 1`` raise (ROADMAP.md item 20)."""
+    An X-MOD trunk splits as the encoder's (its adapters stay whole); none
+    of a T5 trunk's paths matches a rule, so it stays whole and every
+    ``model`` rank computes all of it, as in JAX."""
     from fusion_tpu_torch.models import convert
 
     if mesh.shape[MODEL_AXIS] == 1 or getattr(module, "tp_mesh", None) is not None:
         return
-    kinds = {type(m).__module__.rsplit(".", 1)[-1] for m in module.modules()}
-    if kinds & {"t5", "xmod"}:
-        raise NotImplementedError(
-            "tensor parallelism (model > 1) of the T5 and X-MOD trunks is not ported to fusion_tpu_torch yet "
-            "(ROADMAP.md Queue 1, item 20); train them data-parallel")
     for name, lay in convert.flax_layouts(module, num_heads).items():
         dim = _split_dim(param_spec(lay.path), mesh)
         if dim is None:

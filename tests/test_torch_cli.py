@@ -303,8 +303,7 @@ def options_index(setup):
     return index
 
 
-# The ids name the cases as they stood while the options raised (each with
-# its ROADMAP.md item).
+# The ids name each case's option (every one raised until its port landed).
 @pytest.mark.parametrize("argv, match", [
     (["monobert", "--task", "train", "--backbone", "t5"], None),
     (["dpr", "--task", "test", "--dataset", "mrtydi-en"], None),
@@ -315,8 +314,9 @@ def options_index(setup):
     (["serve", "--task", "search", "--rerank_buckets", "64", "128"], None),
     (["serve", "--task", "search", "--rerank_cascade", "10", "64"], None),
     (["serve", "--task", "search", "--ce_attention", "einsum_bf16"], None),
-], ids=["argv0-item 17", "argv1-item 15", "argv2-item 15", "argv3-item 2", "argv4-item 17", "argv5-item 17",
-        "argv6-item 9", "argv7-item 9", "argv8-item 2"])
+], ids=["argv0-backbone_t5", "argv1-dataset_mrtydi", "argv2-dataset_mmarco", "argv3-attention_impl_flash",
+        "argv4-ce_int8", "argv5-encoders_int8", "argv6-rerank_buckets", "argv7-rerank_cascade",
+        "argv8-ce_attention"])
 def test_unported_options_raise(setup, options_index, request, argv, match):
     """Every option runs in both packages and ranks alike: the datasets
     (from ``tests/test_cli.py``'s mMARCO-schema fixture, the DPR test on the

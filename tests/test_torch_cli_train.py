@@ -133,11 +133,11 @@ def test_freeze_and_optimizer_flags(trained):
         assert torch.equal(trained_sd[k], v) == frozen, k
 
 
-# the ids name the cases as they stood while the options raised
+# the ids name each case's option (both raised until their ports landed)
 @pytest.mark.parametrize("argv", [
     ["monobert", "--task", "train", "--backbone", "t5"],
     ["dpr", "--task", "train", "--attention_impl", "flash"],
-], ids=["argv0-NotImplementedError-item 17", "argv1-NotImplementedError-item 2"])
+], ids=["argv0-backbone_t5", "argv1-attention_impl_flash"])
 def test_unported_options_raise(trained, argv):
     """Both train now: the T5 backbone into a ``t5_crossencoder`` final/ that
     the JAX package scores as the port does; ``--attention_impl`` left at the

@@ -15,7 +15,8 @@ single-device searcher: the same top 1 and the same ids per query.  Besides,
 each ``sharded_*`` function of the index forms against its single-device
 search on the same rank's inputs (impact and scatter bit-equal; the MaxSim
 forms and PLAID within 1e-5; ids equal but inside runs of tied scores).  JAX's gradient half (data-parallel training)
-is ROADMAP.md Queue 1, item 18.
+runs in ``tests/test_torch_train_parallel.py``'s pods.  In process (F5): with no ``device`` the bootstrap takes the
+card ``cuda:{LOCAL_RANK}`` under either backend and raises without one.
 """
 
 import jax.numpy as jnp
@@ -88,3 +89,33 @@ def test_sharded_functions_match_their_single_device_search(pods, name):
         assert_ranked_match(r["got"]["ids"], r["got"]["scores"], r["want"]["ids"], r["want"]["scores"],
                             atol=0.0 if r["exact"] else 1e-5, cut_ties=True)
         assert (r["got"]["ids"] >= 0).all()
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_initialize_multihost_defaults_to_the_card(monkeypatch, backend):
+    """F5: with no ``device`` the rank's device is ``cuda:{LOCAL_RANK}``
+    under either backend, and without a card the bare call raises through
+    ``core.device.resolve_device`` before it joins any group; the CPU is
+    only ever asked for (``device="cpu"``, as the pods pass it)."""
+    import torch
+
+    from fusion_tpu_torch.core import device as core_device
+    from fusion_tpu_torch.parallel import multihost
+
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    joined = []
+    monkeypatch.setattr(multihost.dist, "init_process_group", lambda *a, **kw: joined.append(kw))
+    asked = []
+
+    def resolve(device):
+        asked.append(str(device))
+        return core_device.resolve_device(device)
+
+    monkeypatch.setattr(multihost, "resolve_device", resolve)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize_multihost(backend=backend)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize_multihost("127.0.0.1:1", 2, 1, backend=backend)
+    assert asked == ["cuda:1", "cuda:1"] and joined == []
+    assert multihost.resolve_device("cpu") == torch.device("cpu")

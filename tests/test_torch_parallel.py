@@ -116,9 +116,10 @@ def test_merge_shards_tie_order_matches_lax_top_k():
 
 def test_training_half_raises_with_item_18():
     """The training half (item 18) is ported: the specs and a rank's slice
-    come back (held to JAX's in ``test_torch_train_parallel.py``); what
-    still raises is tensor parallelism of the T5 and X-MOD trunks, with its
-    item."""
+    come back (held to JAX's in ``test_torch_train_parallel.py``); and
+    tensor parallelism of the T5 trunk no longer raises: under
+    ``model = 2`` ``shard_module`` keeps every T5 parameter whole, as JAX's
+    rules, which match none of its paths, do."""
     from fusion_tpu_torch.models.t5 import T5Config, T5CrossEncoder
     from fusion_tpu_torch.parallel import encoder_param_spec, shard_params
     from fusion_tpu_torch.parallel.sharding import shard_module
@@ -133,8 +134,10 @@ def test_training_half_raises_with_item_18():
     np.testing.assert_array_equal(got["kernel"], tree["layer_0"]["ffn_in"]["kernel"][:, 2:])
     np.testing.assert_array_equal(got["bias"], [2.0, 3.0])
     t5 = T5CrossEncoder(T5Config.tiny(), max_length=16, device=DEVICE)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        shard_module(t5.module, two, t5.cfg.num_heads)
+    shapes = {k: v.shape for k, v in t5.module.state_dict().items()}
+    shard_module(t5.module, two, t5.cfg.num_heads)
+    assert {k: v.shape for k, v in t5.module.state_dict().items()} == shapes
+    assert not any(hasattr(p, "tp_shard") for p in t5.module.parameters())
 
 
 # ----------------------------------------------------------------------

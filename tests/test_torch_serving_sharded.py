@@ -25,11 +25,12 @@ scatter index; ``search_systems`` of each.
 
 In process, without a process group: the sharded searcher on a mesh of one
 rank equals the single-device ``HybridSearcher`` bit for bit, and the HTTP
-server serves it; a mesh of more ranks is refused by the server (ROADMAP.md
-Queue 1, item 19).  JAX's ``test_sharded_programs_are_cached`` has no
+server serves it; a mesh with ``data`` or ``model`` ranks is refused by the
+server (a mesh of index ranks is served: ``tests/test_torch_server_sharded.py``).  JAX's ``test_sharded_programs_are_cached`` has no
 counterpart: there is no compiled mesh program.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -246,8 +247,12 @@ def test_server_serves_a_one_rank_mesh_and_refuses_more(port_single):
         srv.stop()
     want, _ = sharded.search(SEARCH_QUERIES[:1] * 4, batch_size=4)
     assert got == want.ids.numpy()[0, :3].tolist()
-    with pytest.raises(NotImplementedError, match="item 19"):
-        SearchServer(types.SimpleNamespace(mesh=types.SimpleNamespace(size=2)))
+    # a mesh of more ranks is served along index alone (tests/test_torch_server_sharded.py's
+    # pod); data or model ranks would repeat every search
+    mesh = make_mesh(index=1, devices=[DEVICE])
+    for shape in ({"data": 2, "model": 1, "index": 1}, {"data": 1, "model": 2, "index": 1}):
+        with pytest.raises(ValueError, match="along index alone"):
+            SearchServer(types.SimpleNamespace(mesh=dataclasses.replace(mesh, shape=shape)))
 
 
 def test_from_searcher_refusals(port_single, payload):

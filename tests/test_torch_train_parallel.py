@@ -3,7 +3,9 @@ with a mesh, ``parallel/sharding.py``'s training half, the CLI's
 data-parallel runs) against the JAX package's sharded steps.
 
 Each family's step (DPR MNRL, SPLADE InfoNCE with in-batch negatives and
-FLOPS regularizers, ColBERT CE, the cross-encoder's BCE) runs 3 steps in
+FLOPS regularizers, ColBERT CE, the cross-encoder's BCE, and the same SPLADE
+loss on an X-MOD trunk through its second adapter and the BCE on a T5
+cross-encoder, whose trunk every ``model`` rank computes whole) runs 3 steps in
 two gloo pods of the port (``tests/torch_pod.py``, mode ``train``): 2
 processes on a ``data`` = 2 mesh and 4 on ``data`` = 2 × ``model`` = 2.
 The parent runs JAX's step on ``make_mesh(data, model, 1,
@@ -54,7 +56,11 @@ FAMILIES = {
     "splade_infonce_ib_flops": ("biencoder", "splade", SPLADE[1], SPLADE[2], {}, FIT, {}),
     "colbert_ce": ("colbert", None, None, None, {}, FIT, {}),
     "crossencoder_bce": ("crossencoder", None, None, None, {}, FIT, {}),
+    "xmod_splade": ("biencoder", "splade", SPLADE[1], SPLADE[2], {}, FIT, {}),
+    "t5_crossencoder_bce": ("crossencoder", None, None, None, {}, FIT, {}),
 }
+# the trunk of each case that is not the BERT-style one (torch_train_parity.models)
+TRUNKS = {"xmod_splade": "xmod", "t5_crossencoder_bce": "t5"}
 OPTIMIZERS = {
     "adamw_clip": ("biencoder", "dense", DENSE[1], None, WIDE, dict(FIT, max_grad_norm=1e-3), {}),
     "adafactor": ("biencoder", "dense", DENSE[1], None, WIDE, dict(FIT, optimizer_name="Adafactor"),
@@ -87,7 +93,7 @@ def _jax_step(kind, jm, tx, rank, reg, mesh):
 
 def _jax_three_steps(name, n):
     kind, head, rank, reg, cfg_kw, fit, _ = CASES[name]
-    jm, _ = models(kind, head or "dense", **cfg_kw)
+    jm, _ = models(kind, head or "dense", TRUNKS.get(name, "bert"), **cfg_kw)
     state, tx, _ = jt.init_train_state(jm, jt.FitConfig(**fit))
     # the JAX Shampoo state holds one buffer twice, which the donation refuses
     state = state._replace(opt_state=jax.tree_util.tree_map(jnp.copy, state.opt_state))
@@ -109,8 +115,9 @@ def _payload(parallel, alone=()):
     cases = {}
     for name in CASES:
         kind, head, rank, reg, cfg_kw, fit, _ = CASES[name]
-        _, tm = models(kind, head or "dense", **cfg_kw)
-        cases[name] = {"kind": kind, "head": head, "rank": rank, "reg": reg, "fit": fit,
+        trunk = TRUNKS.get(name, "bert")
+        _, tm = models(kind, head or "dense", trunk, **cfg_kw)
+        cases[name] = {"kind": kind, "head": head, "trunk": trunk, "rank": rank, "reg": reg, "fit": fit,
                        "cfg": {"vocab_size": V, **cfg_kw}, "batch": _batch(kind),
                        "state_dict": {k: v.detach().clone() for k, v in tm.module.state_dict().items()}}
     return {"cases": cases, "parallel": list(parallel), "alone": list(alone)}
@@ -213,8 +220,9 @@ def test_every_rank_of_a_pod_ends_with_the_same_parameters(pods):
 # the tensor-parallel rules
 # ----------------------------------------------------------------------
 SPEC_MODELS = {
-    "trunk": ("biencoder", "dense"), "splade": ("biencoder", "splade"), "colbert": ("colbert", None),
-    "crossencoder": ("crossencoder", None),
+    "trunk": ("biencoder", "dense", "bert"), "splade": ("biencoder", "splade", "bert"),
+    "colbert": ("colbert", None, "bert"), "crossencoder": ("crossencoder", None, "bert"),
+    "xmod": ("biencoder", "splade", "xmod"), "t5": ("crossencoder", None, "t5"),
 }
 
 
@@ -230,15 +238,20 @@ def _leaves(tree, prefix=(), leaf=lambda x: x) -> dict:
 
 @pytest.mark.parametrize("which", sorted(SPEC_MODELS))
 def test_encoder_param_spec_equals_jax(which):
-    kind, head = SPEC_MODELS[which]
-    jm, tm = models(kind, head or "dense")
+    kind, head, trunk = SPEC_MODELS[which]
+    jm, tm = models(kind, head or "dense", trunk)
     want = _leaves(jsharding.encoder_param_spec(jm.params), leaf=tuple)
     got = _leaves(sharding.encoder_param_spec(tm.flax_tree(tm.module.state_dict())), leaf=tuple)
     assert set(got) == set(want)
     for k in want:
         assert got[k] == want[k], k
-    if which == "splade":
+    if which in ("splade", "xmod"):
         assert got[("mlm", "decoder", "kernel")] == (None, "model")
+    if which == "xmod":  # the adapters match no rule: whole on every rank
+        assert got[("encoder", "layer_0", "adapters", "down_kernel")] == ()
+        assert got[("encoder", "layer_0", "ffn_out", "kernel")] == ("model", None)
+    if which == "t5":  # none of T5's leaf names matches a rule
+        assert not any(got.values())
 
 
 def _rank_mesh(data, model, rank):
@@ -252,15 +265,15 @@ def test_shard_params_and_shard_module_equal_jax_addressable_shards(which):
     """Each rank's slice of the Flax tree (``shard_params``) and of the
     module's parameters (``shard_module``, in place) equals the shard JAX
     places on that rank's device of a (2, 2, 1) mesh."""
-    kind, head = SPEC_MODELS[which]
-    jm, tm = models(kind, head or "dense")
+    kind, head, trunk = SPEC_MODELS[which]
+    jm, tm = models(kind, head or "dense", trunk)
     mesh = jsharding.make_mesh(2, 2, 1, jax.devices()[:4])
     placed = _leaves(jsharding.shard_params(jm.params, mesh))
     devices = mesh.devices.reshape(-1).tolist()
     tree = tm.flax_tree(tm.module.state_dict())
     for rank in range(4):
         local = flat(sharding.shard_params(tree, _rank_mesh(2, 2, rank)))
-        _, part = models(kind, head or "dense")
+        _, part = models(kind, head or "dense", trunk)
         sharding.shard_module(part.module, _rank_mesh(2, 2, rank), part.cfg.num_heads)
         sliced = flat(part.flax_tree(part.module.state_dict()))
         for key, arr in placed.items():
@@ -270,11 +283,31 @@ def test_shard_params_and_shard_module_equal_jax_addressable_shards(which):
 
 
 def test_tensor_parallel_t5_raises_with_its_item():
+    """Tensor parallelism of the T5 trunk no longer raises:
+    ``shard_module`` under ``model = 2`` slices none of its parameters (no
+    path matches a rule), gives every submodule the mesh, and the forward
+    on one rank is the whole model's; an X-MOD trunk's qkv and FFN are
+    sliced and its adapters kept whole."""
     from fusion_tpu_torch.models.t5 import T5Config, T5CrossEncoder
 
     model = T5CrossEncoder(T5Config.tiny(), max_length=16, device="cpu", param_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        sharding.shard_module(model.module, _rank_mesh(1, 2, 0), model.cfg.num_heads)
+    before = {k: v.clone() for k, v in model.module.state_dict().items()}
+    ids, mask = torch.randint(2, 128, (3, 9)), torch.ones(3, 9, dtype=torch.int64)
+    want = model.score_tokens(ids, mask)
+    mesh = _rank_mesh(1, 2, 0)
+    sharding.shard_module(model.module, mesh, model.cfg.num_heads)
+    assert not any(hasattr(p, "tp_shard") for p in model.module.parameters())
+    assert all(m.tp_mesh is mesh for m in model.module.modules())
+    for k, v in model.module.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert torch.equal(model.score_tokens(ids, mask), want)
+
+    _, xm = models("biencoder", "splade", "xmod")
+    sharding.shard_module(xm.module, mesh, xm.cfg.num_heads)
+    layer = xm.module.encoder.layers[0]
+    assert layer.tp_mesh is mesh and layer.ffn_in.weight.shape[0] == xm.cfg.intermediate_size // 2
+    assert layer.attention.qkv.weight.shape[0] == 3 * xm.cfg.hidden_size // 2
+    assert not any(hasattr(p, "tp_shard") for p in layer.adapters.parameters())
 
 
 def test_a_step_on_model_ranks_needs_place_state():

@@ -36,7 +36,17 @@ Modes:
     parameters after them; ``payload["alone"]``'s on one device (rank 0);
     and ``tests/multihost_worker.py``'s gradient half;
   * ``cli_train`` — the port's CLI commands of ``payload["cli"]``, each
-    joining the group from torchrun's variables itself (``init='env'``).
+    joining the group from torchrun's variables itself (``init='env'``);
+  * ``server`` — ``SearchServer`` on both ranks, rank 0 listening on
+    127.0.0.1: over the ``full`` configuration's sharded searcher,
+    ``payload["requests"]`` from concurrent client threads in rank 0, a
+    batch that raises on both ranks (a 500) and the next request; then over
+    a ``SegmentedHybridSearcher(mesh=...)`` updated through
+    ``SearchServer.update`` (add, three deletes, compact), searched over
+    HTTP after each;
+  * ``server_fail`` — a server whose rank 1 alone raises on a request, in a
+    group with a short timeout: every rank's server ends with an error and
+    its worker exits non-zero after writing its report.
 """
 
 from __future__ import annotations
@@ -77,6 +87,9 @@ CONFIGS = {
 MODEL_ARGS = {"dense": "dense_model", "splade": "splade_model", "colbert": "colbert_model", "ce": "cross_encoder"}
 
 
+SERVER_GROUP_TIMEOUT = 8.0  # seconds: server_fail's group, so a rank left in a collective raises soon
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -106,9 +119,25 @@ class Pod:
                     raise AssertionError(f"pod {self.mode} timed out:\n{self._output()}") from None
             if any(p.returncode for p in self.procs):
                 raise AssertionError(f"pod {self.mode} failed:\n{self._output()}")
-            self._results = [torch.load(os.path.join(self.outdir, f"{self.mode}_{r}.pt"), weights_only=False)
-                             for r in range(len(self.procs))]
+            self._results = self._reports()
         return self._results
+
+    def returncodes(self) -> list[int]:
+        """Each rank's exit code (raises if the pod outlived its timeout)."""
+        for p in self.procs:
+            try:
+                p.wait(timeout=max(self.deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                for q in self.procs:
+                    q.kill()
+                raise AssertionError(f"pod {self.mode} timed out:\n{self._output()}") from None
+        return [p.returncode for p in self.procs]
+
+    def _reports(self) -> list[dict]:
+        import torch
+
+        return [torch.load(os.path.join(self.outdir, f"{self.mode}_{r}.pt"), weights_only=False)
+                for r in range(len(self.procs))]
 
     def _output(self) -> str:
         return "\n".join(f"--- rank {r}:\n{open(log).read()[-6000:]}" for r, log in enumerate(self.logs))
@@ -389,6 +418,141 @@ def run_multihost(mesh, payload, rank: int, world: int) -> dict:
     return out
 
 
+def _post(url: str, payload: dict) -> tuple[int, dict]:
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _get(url: str) -> dict:
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _raising(searcher, rank: int) -> None:
+    """``searcher.search`` raises on a batch holding "RAISE" (every rank) or
+    "RAISE<rank>" (this rank alone), before any collective."""
+    search = searcher.search
+
+    def wrapped(queries, batch_size=32, **kw):
+        if "RAISE" in queries or f"RAISE{rank}" in queries:
+            raise ValueError(f"a bad batch on rank {rank}")
+        return search(queries, batch_size=batch_size, **kw)
+
+    searcher.search = wrapped
+
+
+def _serve_requests(srv, requests: list[dict]) -> list[tuple[int, dict]]:
+    """``requests`` POSTed to ``srv`` at once, one client thread each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    host, port = srv.address
+    with ThreadPoolExecutor(len(requests)) as pool:
+        return list(pool.map(lambda r: _post(f"http://{host}:{port}/search", r), requests))
+
+
+SERVER_KW = dict(host="127.0.0.1", port=0, max_batch=4, max_wait_ms=20.0)
+
+
+def run_server(mesh, payload, rank: int) -> dict:
+    """The ``server`` mode (see the module's note); rank 0 reports what the
+    clients got, every rank its searcher's own lists."""
+    from fusion_tpu_torch.data.preprocessor import TextPreprocessor
+    from fusion_tpu_torch.segmented import SegmentedHybridSearcher
+    from fusion_tpu_torch.server import SearchServer
+    from fusion_tpu_torch.serving_sharded import ShardedHybridSearcher
+
+    models, prep = _models(payload), TextPreprocessor(spacy_model=None)
+    queries, out = payload["queries"], {}
+    sharded = ShardedHybridSearcher.from_searcher(_build("full", payload["corpus"], models, prep, payload["colbert"]),
+                                                  mesh)
+    out["direct"] = _lists(sharded.search(queries, batch_size=4)[0])
+    _raising(sharded, rank)
+    srv = SearchServer(sharded, **SERVER_KW)
+    srv.start()
+    if srv.leader:
+        host, port = srv.address
+        url = f"http://{host}:{port}"
+        out["answers"] = _serve_requests(srv, payload["requests"])
+        out["healthz"], out["stats"] = _get(f"{url}/healthz"), _get(f"{url}/stats")
+        out["bad_batch"] = _post(f"{url}/search", {"queries": ["RAISE"], "topk": 3})
+        out["after_bad_batch"] = _post(f"{url}/search", {"queries": [queries[0]], "topk": 8})
+    srv.stop()
+
+    a, b = payload["seg_a"], payload["seg_b"]
+    kwargs = dict(dense_model=models["dense"], splade_model=models["splade"], cross_encoder=models["ce"],
+                  rerank_depth=4, batch_size=4, topk=8, bm25_preprocess=lambda t: prep.preprocess(list(t)),
+                  int8_corpus=True, ce_max_doc_tokens=24, device="cpu")
+    seg = SegmentedHybridSearcher(a, bm25_docs=prep.preprocess(list(a.values())), mesh=mesh, **kwargs)
+    srv = SearchServer(seg, **SERVER_KW)
+    srv.start()
+    if srv.leader:
+        host, port = srv.address
+        url = f"http://{host}:{port}"
+
+        def step(**more):
+            answers = _serve_requests(srv, [{"queries": [q], "topk": 8} for q in queries])
+            return {"answers": answers, "corpus_docs": _get(f"{url}/healthz")["corpus_docs"], **more}
+
+        out["segmented"] = {"one_segment": step()}
+        srv.update("add_documents", b, bm25_docs=prep.preprocess(list(b.values())))
+        out["segmented"]["two_segments"] = step(n=len(seg.segments))
+        victims = sorted(b)[:3]
+        srv.update("delete_documents", victims)
+        out["segmented"]["tombstoned"] = step()
+        srv.update("compact")
+        out["segmented"]["compacted"] = step(n=len(seg.segments))
+        try:
+            srv.update("add_documents", {victims[0] + 10_000: "chat"}, bm25_docs=None)
+        except ValueError as e:  # raised by the searcher on every rank: the server serves on
+            out["segmented"]["refused_update"] = str(e)
+        out["segmented"]["after_refused_update"] = step()
+    srv.stop()
+    out["segments_after"] = len(seg.segments)
+    return out
+
+
+def run_server_fail(mesh, payload, rank: int, outdir: str) -> None:
+    """The ``server_fail`` mode: rank 1 alone raises on a request; each
+    rank writes its report (what the client got, how its server ended) and
+    exits non-zero."""
+    import torch
+
+    from fusion_tpu_torch.data.preprocessor import TextPreprocessor
+    from fusion_tpu_torch.server import SearchServer
+    from fusion_tpu_torch.serving_sharded import ShardedHybridSearcher
+
+    models, prep = _models(payload), TextPreprocessor(spacy_model=None)
+    sharded = ShardedHybridSearcher.from_searcher(_build("bm25", payload["corpus"], models, prep), mesh)
+    _raising(sharded, rank)
+    srv = SearchServer(sharded, **SERVER_KW)
+    srv.start()
+    out = {}
+    if srv.leader:
+        host, port = srv.address
+        out["first"] = _post(f"http://{host}:{port}/search", {"queries": [payload["queries"][0]], "topk": 3})
+        out["failing"] = _post(f"http://{host}:{port}/search", {"queries": ["RAISE1"], "topk": 3})
+    t0 = time.monotonic()
+    try:
+        srv.stop()
+        out["ended"] = "cleanly"
+    except RuntimeError as e:
+        out["ended"] = f"{e} (from {e.__cause__!r})"
+    out["stop_s"] = time.monotonic() - t0
+    torch.save(out, os.path.join(outdir, f"server_fail_{rank}.pt"))
+    raise SystemExit(f"rank {rank}: the server ended: {out['ended']}")
+
+
 def _train_model(case: dict):
     import torch
 
@@ -396,9 +560,16 @@ def _train_model(case: dict):
     from fusion_tpu_torch.models.colbert import ColBERT
     from fusion_tpu_torch.models.crossencoder import CrossEncoder
     from fusion_tpu_torch.models.encoder import EncoderConfig
+    from fusion_tpu_torch.models.t5 import T5Config, T5CrossEncoder
+    from fusion_tpu_torch.models.xmod import XmodConfig
 
-    cfg = EncoderConfig.tiny(**case["cfg"])
     kw = dict(params=case["state_dict"], device="cpu", param_dtype=torch.float32)
+    trunk = case.get("trunk", "bert")
+    if trunk == "xmod":  # the SPLADE bi-encoder through its second adapter
+        return BiEncoder(XmodConfig.tiny(**case["cfg"]), head=case["head"], **kw).set_language("en_XX")
+    if trunk == "t5":
+        return T5CrossEncoder(T5Config.tiny(**case["cfg"]), max_length=20, **kw)
+    cfg = EncoderConfig.tiny(**case["cfg"])
     if case["kind"] == "colbert":
         return ColBERT(cfg, dim=16, **kw)
     if case["kind"] == "crossencoder":
@@ -509,14 +680,17 @@ def main() -> None:
         torch.distributed.barrier()
         torch.distributed.destroy_process_group()
         return
+    timeout = SERVER_GROUP_TIMEOUT if mode == "server_fail" else None
     if init == "env":
         initialize_multihost(backend="gloo", device="cpu")
     else:
-        initialize_multihost(init, world, rank, backend="gloo", device="cpu")
+        initialize_multihost(init, world, rank, backend="gloo", device="cpu", timeout=timeout)
         # a second call is a no-op, not a crash
         initialize_multihost(init, world, rank, backend="gloo", device="cpu")
     payload = torch.load(os.path.join(outdir, "payload.pt"), weights_only=False)
     mesh = pod_mesh(model=world // 2) if mode == "train" else pod_mesh(index=world)
+    if mode == "server_fail":  # exits non-zero, without the group's teardown
+        run_server_fail(mesh, payload, rank, outdir)
     if mode == "train":
         out = run_train(mesh, payload, rank)
     elif mode == "serving":
@@ -525,6 +699,8 @@ def main() -> None:
         out = run_segmented(mesh, payload)
     elif mode == "multihost":
         out = run_multihost(mesh, payload, rank, world)
+    elif mode == "server":
+        out = run_server(mesh, payload, rank)
     else:
         out = {"micro": _dense_micro(mesh, rank, world)}
     out["mesh"] = {"shape": mesh.shape, "coords": mesh.coords, "backend": mesh.backend}
