@@ -20,7 +20,7 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 512; ColBERT CE, mMARCO: batch 128, query 32, doc 256, one
                 negative; monoBERT BCE, LLeQA: batch 32, length 256),
                 CamemBERT-base width, random weights, bf16 compute over f32
-                master weights, remat on, AdamW: 2 warm-up and 5 timed steps
+                master weights, remat on, AdamW: 1 warm-up and 3 timed steps
                 (median ms/step, sequences/s, tokens/s, peak memory, the
                 analytic model TFLOP per step (3 x forward) and hardware TFLOP
                 (one more forward of the layers under remat), MFU against 989
@@ -79,11 +79,13 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 of fr_XX / en_XX) flash on model = 2 and the T5
                 cross-encoder (--backbone t5 widths, its trunk whole on each
                 rank) on model = 2; each an f32 pass at 2 layers held to one
-                rank's step over the global batch (AGREE_GATES) and a
-                full-depth bf16 pass held to one rank's bf16 step
+                rank's step over the global batch (AGREE_GATES, two
+                steps: the loss of each, the gradient, the parameters and
+                the update after them) and a one-step bf16 pass at 6
+                layers held to one rank's bf16 step
                 (TRAIN_PARALLEL_BF16_GATES) and measured: ms a step,
                 collective ms / MB / calls, peak memory, MFU, FA and FA-bwd
-                launches (72 / 36 a step in flash); the ranks end with the
+                launches (36 / 18 a step in flash); the ranks end with the
                 same parameters;
   3. kernel   — K1 (MaxSim, the wgmma/TMA kernel) against its plain version
                 at the serving shape (Ld 128, N 28,032, D 128, QL 64x32),
@@ -239,7 +241,7 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 packed stage of the int8 view (quantized): logits within
                 0.04 of the f32 forward (the cascade's kept slots), stage ms
                 (median of 3) and peak memory; all but the flat attention
-                forms also search the 192 queries (FA's count set to 0 just
+                forms also search the first 64 queries (FA's count set to 0 just
                 before and read just after; fused output checked, the head
                 the same set as the default stage's, top-10 overlap with
                 it); then each form held to itself, card against CPU, layer
@@ -323,7 +325,7 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 impact_packer.cpp, built by g++) against the numpy builders,
                 byte for byte: BM25 postings over the slice's corpus, the
                 chunked (docs_per_chunk 32,768, cap 64) and flat (cap 4,096)
-                impact packers over a seeded COO of 2^19 docs x 32 postings;
+                impact packers over a seeded COO of 2^18 docs x 32 postings;
                 both times each;
      cli_datasets — the CLI in process on an mMARCO-schema fixture of the
                 first 4,096 docs: bm25 --task evaluate --dataset mmarco-fr,
@@ -332,6 +334,35 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 mrtydi-ja at --tiny; then [mmarco_reader] times
                 MmarcoReader.sample_from_hard_negatives over 50,000 seeded
                 synthetic records;
+     lleqa_parity — fusion_tpu_torch/tools/run_lleqa_parity.py: (a) the JAX
+                package's 24-article harness fixture with tiny checkpoints
+                the port saves, on the card and on the CPU: each leg's
+                lists equal but inside runs of CPU scores within 2^-8 of
+                the row's largest (2^-7 for ColBERT, whose token index is
+                bf16 on the card), such legs counted; the card's fused
+                lists held so (ties within 1e-5) to the CPU's fusion of the
+                card's legs, its reranked lists to the CPU's rerank of the
+                card's fused lists; metrics within 1e-6 but where such a
+                tie lies; (b) CamemBERT-base
+                width in bf16 (seeded, saved and loaded by the port) on a
+                synthetic LLeQA of 4,096 French-like articles (512 tokens
+                read; one word in eight a rarer term the questions name)
+                and 64 dev questions, NSF over percentile ranks, the
+                rerank of the top 100 at 512 tokens: seconds per system, K1
+                counted (> 0), the gate passing targets taken from the run
+                and exiting 1 on far ones;
+     recall_study — tools/recall_study.py in process at 262,144 docs and
+                65,536 ColBERT docs (the tool's widths), every count set to
+                0 just before and read just after: K1, K2, K3 and K4 launch;
+                every overlap in [0, 1], the int8 exact merge >= 0.9;
+     roofline — tools/probe_hybrid_roofline.py's sweep (B 32, 64, 128, 256;
+                plain and stacked) over the slice's corpus and encoders:
+                one line per row (ms a batch, queries/s, MFU), K1 counted,
+                the stacked fused ids equal to the plain ones or overlapping
+                them >= 0.99 at 100;
+     studies  — tools/cascade_study.py (with --int8), int8_encoder_study.py
+                and preprocessor_study.py at their default shapes: their
+                headline numbers;
  11. scale_build — HybridSearcher.build(scale_mode=True, int8_corpus=True,
                 dense_impl="fused", splade_impl="scatter") over the same
                 corpus and models, all four legs (impact_cap 1024: at 14
@@ -438,6 +469,7 @@ K2, K3 and K4, the two bench runs for K1-v1 and K1-v2, the probe tools'
 runs for P3, P4 and P5, the packed flash search of [rerank_forms] for FA
 and [train_flash]'s flash run for FA-bwd, and for K1-K4 and FA the
 launches on [sharded]'s two-rank path and [sharded_server]'s beside them,
+for K1-K4 those of [lleqa_parity] (K1), [recall_study] and [roofline] (K1),
 for FA and FA-bwd [train_parallel]'s, in all and by run; ms are CUDA-event medians for
 K1-K3, K1-v1, K1-v2, P3-P5, FA and FA-bwd and queued device times for K4;
 bound_ms is the least time an H100 SXM could take for the same work, from
@@ -494,7 +526,7 @@ T5_LOGIT_TOL = 0.01
 ENCODER_FORM_OVERLAP, ENCODER_INT8_OVERLAP = 0.95, 0.9
 # [cli]: the fixture's docs, the first CLI_DOCS of the slice's corpus (cut
 # to keep the whole run well inside its time limit)
-CLI_DOCS = 4_096
+CLI_DOCS = 2_048
 # [persist] slice: the docs of the searcher it saves and reloads (cut from
 # the whole slice to keep the run inside its time limit: the f16 token
 # index's savez_compressed took ~85 s over 27,940 docs)
@@ -1087,8 +1119,10 @@ def rerank_check(torch, np, searcher, queries, smi, kernels) -> dict:
         packed_tflops_per_s=packed_flops / out["packed_stage_ms"] / 1e9,
         flat_tflops_per_s=flat_flops / out["flat_stage_ms"] / 1e9,
     )
-    for name, s in (("packed", searcher), ("flat", flat)):
-        timing = warm_timing(torch, s, queries, f"rerank_{name}", smi)
+    # the flat stage (3x the packed one's time) is timed over the first batch
+    # only, to keep the script inside its time limit
+    for name, s, qs in (("packed", searcher, queries), ("flat", flat, queries[:BATCH])):
+        timing = warm_timing(torch, s, qs, f"rerank_{name}", smi)
         out[f"{name}_ms_per_batch"] = timing["ms_per_batch_median"]
         out[f"{name}_peak_mem_gib"] = timing["peak_mem_gib"]
     return out
@@ -1319,7 +1353,7 @@ def rerank_forms_check(torch, np, searcher, queries, device="cuda") -> dict:
     and the peak memory over those runs, and the masked-attention kernel's
     launches in the stage (the flash forms: a multiple of the layer count;
     the others: none); then (all but the flat attention forms) a search of
-    the 192 queries with the kernel's count set to 0 just before it and
+    the first 64 queries with the kernel's count set to 0 just before it and
     read just after (packed flash: the count the kernels line gives the
     kernel): fused output checked, the reranked head the same set as the
     default packed stage's and its top-10 overlap with it.  The packed
@@ -1332,6 +1366,9 @@ def rerank_forms_check(torch, np, searcher, queries, device="cuda") -> dict:
 
     ce = searcher.cross_encoder
     depth = searcher.rerank_depth
+    # the forms' searches take the first batch (cut from 192 queries to keep
+    # the script inside its time limit)
+    queries = queries[:BATCH]
     base, _ = searcher.search(queries, batch_size=BATCH)
     base_ids = base.ids.numpy()
     inputs = searcher._prepare_inputs(queries[:BATCH])
@@ -1389,7 +1426,7 @@ def rerank_forms_check(torch, np, searcher, queries, device="cuda") -> dict:
             check(res["kernel_launches_search"] > 0 if flash else res["kernel_launches_search"] == 0,
                   f"rerank_forms {name}: the masked-attention kernel launched "
                   f"{res['kernel_launches_search']} times in the search")
-            check_ranked(torch, np, ranked, N_QUERIES, TOPK, N_DOCS)
+            check_ranked(torch, np, ranked, len(queries), TOPK, N_DOCS)
             ids = ranked.ids.numpy()
             res["head_sets_equal"] = all(set(a[:kr]) == set(b[:kr]) for a, b in zip(ids, base_ids))
             check(res["head_sets_equal"], f"rerank_forms {name}: the reranked head holds other docs")
@@ -2356,9 +2393,9 @@ def server_check(torch, np, searcher, queries) -> dict:
 # streaming updates, the C++ posting builders, the dataset loaders
 # ----------------------------------------------------------------------
 SEG_DELTA, SEG_DELETES, SEG_SERVER_ADDS, SEG_SERVER_DELETES = 4_000, 64, 1_000, 32
-# [native]'s COO: 2^19 docs x 32 postings (mMARCO's 8.9M docs cut to keep the
+# [native]'s COO: 2^18 docs x 32 postings (mMARCO's 8.9M docs cut to keep the
 # numpy reference builders, and the run, inside its time limit)
-NATIVE_DOCS, NATIVE_PER_DOC, NATIVE_BLOCK = 1 << 19, 32, 1_024
+NATIVE_DOCS, NATIVE_PER_DOC, NATIVE_BLOCK = 1 << 18, 32, 1_024
 READER_RECORDS = 50_000
 
 
@@ -2742,13 +2779,324 @@ def cli_datasets_check(torch, np, docs, queries, root, kernels, device="cuda") -
 
 
 # ----------------------------------------------------------------------
+# the quality and measurement tools of fusion_tpu_torch/tools/
+# ----------------------------------------------------------------------
+# [lleqa_parity] (a): the 24-article fixture of the JAX package's harness test
+LLEQA_TINY = {
+    "corpus": [{"id": i + 1, "article": f"article de loi numéro {i} portant sur le sujet {i % 5}"}
+               for i in range(24)],
+    "questions": {"train": [{"id": 1, "question": "sujet 0 article", "article_ids": [1, 6]}],
+                  "dev": [{"id": 2, "question": "article de loi numéro 3", "article_ids": [4]},
+                          {"id": 3, "question": "le sujet 2 de loi", "article_ids": [3, 8]}],
+                  "test": []},
+    "negatives": None,
+}
+# (b): the [cli] corpus size, dev questions, words a document (the models
+# read 512 tokens of it)
+LLEQA_ARTICLES, LLEQA_DEV, LLEQA_WORDS = 4_096, 64, 512
+# card vs CPU: a query's lists may differ only inside runs of CPU scores this
+# close (relative to the row's largest |score|): one bf16 rounding of the
+# query, two for ColBERT, whose token index is bf16 on the card
+BF16_TIE = 2.0**-8
+# the card's fusion and rerank against the CPU's of the same lists: f32 sums
+# in another order
+F32_TIE = 1e-5
+# [recall_study]'s cut of the tool's defaults (1,048,576 / 262,144 docs)
+RECALL_DOCS, RECALL_COLBERT_DOCS = 262_144, 65_536
+ROOFLINE_BATCHES, ROOFLINE_GROUPS, ROOFLINE_PER = (32, 64, 128, 256), 3, 4
+
+
+def host_rss_gib() -> float:
+    """This process's peak resident memory on the host (GiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def lleqa_fixture(np, n_articles: int, n_dev: int, words: int, seed: int = 5) -> dict:
+    """LLeQA's record format filled with French-like text: each article
+    ``words`` words, seven in eight inflected forms of the preprocessor
+    study's inventory and stopwords (zipf popularity), one in eight from
+    20,000 rarer syllable-built terms (uniform), so that a question can name
+    its articles; each dev question 6 rare and 2 common words of one or two
+    gold articles."""
+    from fusion_tpu_torch.tools.preprocessor_study import FILLER_STOPWORDS, build_inventory
+
+    rng = np.random.default_rng(seed)
+    common = [f for lemma in build_inventory() for f in lemma] + FILLER_STOPWORDS
+    syllables = [c + v for c in "bcdfglmnprstv" for v in "aeiou"]
+    rare = sorted({"".join(rng.choice(syllables, size=3)) for _ in range(30_000)})[:20_000]
+    p = 1.0 / np.arange(1, len(common) + 1) ** 0.8
+    p /= p.sum()
+    n_rare = words // 8
+    common_picks = rng.choice(len(common), size=(n_articles, words - n_rare), p=p)
+    rare_picks = rng.choice(len(rare), size=(n_articles, n_rare))
+    articles = []
+    for c_row, r_row in zip(common_picks, rare_picks):
+        row = [common[j] for j in c_row] + [rare[j] for j in r_row]
+        rng.shuffle(row)
+        articles.append(" ".join(row))
+
+    def question(qid):
+        gold = rng.choice(n_articles, size=int(rng.integers(1, 3)), replace=False)
+        text = [rare[j] for g in gold for j in rng.choice(rare_picks[g], size=6 // len(gold), replace=False)]
+        text += [common[j] for j in rng.choice(common_picks[gold[0]], size=2, replace=False)]
+        return {"id": qid, "question": " ".join(text), "article_ids": [int(g) + 1 for g in gold]}
+
+    return {"corpus": [{"id": i + 1, "article": a, "description": ""} for i, a in enumerate(articles)],
+            "questions": {"train": [], "dev": [question(q) for q in range(n_dev)], "test": []},
+            "negatives": None}
+
+
+def lleqa_checkpoints(root: str, cfg, q_len: int, d_len: int, ce_len: int, dim: int, device) -> dict:
+    """DPR, SPLADE, ColBERT and monoBERT at ``cfg``, seeded, saved by the
+    port under ``root``."""
+    from fusion_tpu_torch.models.biencoder import BiEncoder
+    from fusion_tpu_torch.models.colbert import ColBERT
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder
+
+    kw = dict(max_query_length=q_len, max_doc_length=d_len, device=device)
+    paths = {}
+    for i, (name, build) in enumerate((
+        ("dpr", lambda s: BiEncoder(cfg, head="dense", seed=s, **kw)),
+        ("splade", lambda s: BiEncoder(cfg, head="splade", seed=s, **kw)),
+        ("colbert", lambda s: ColBERT(cfg, dim=dim, seed=s, **kw)),
+        ("monobert", lambda s: CrossEncoder(cfg, max_length=ce_len, seed=s, device=device)),
+    )):
+        paths[name] = os.path.join(root, name)
+        model = build(31 + i)
+        model.save(paths[name])
+        del model
+    return paths
+
+
+def lists_agree(np, got, want, rel_tol: float) -> tuple[bool, bool]:
+    """(agree, through ties): ``got``'s ranked lists equal ``want``'s, or
+    differ only inside runs of ``want``'s scores within ``rel_tol`` × the
+    row's largest |score| of each other (the run reaching the depth cut held
+    to its scores only), with every score within that of ``want``'s."""
+    g_ids, w_ids = got.ids.cpu().numpy(), want.ids.cpu().numpy()
+    g_sc, w_sc = got.scores.float().cpu().numpy(), want.scores.float().cpu().numpy()
+    if np.array_equal(g_ids, w_ids):
+        return True, False
+    for row in range(w_ids.shape[0]):
+        fin = np.isfinite(w_sc[row])
+        tol = rel_tol * max(1.0, float(np.abs(w_sc[row][fin]).max(initial=0.0)))
+        if not np.allclose(np.where(fin, g_sc[row], 0), np.where(fin, w_sc[row], 0), atol=tol, rtol=0):
+            return False, True
+        s, start = w_sc[row], 0
+        for end in range(1, len(s) + 1):
+            if end == len(s) or not abs(s[end] - s[end - 1]) <= tol:
+                if end < len(s) and set(g_ids[row, start:end]) != set(w_ids[row, start:end]):
+                    return False, True
+                start = end
+    return True, True
+
+
+def on_host(lists):
+    """``lists`` (a ``RankedLists``) on the CPU."""
+    from fusion_tpu_torch.core.ranked import RankedLists
+
+    return RankedLists(lists.ids.cpu(), lists.scores.cpu())
+
+
+def lleqa_parity_check(torch, np, root: str, kernels) -> dict:
+    """[lleqa_parity]: tools/run_lleqa_parity.py (a) on the JAX package's
+    tiny fixture with tiny port-saved checkpoints, on the card and on the
+    CPU: every leg's lists and metrics equal the CPU's, the card's fusion
+    those of the CPU's fusion of the card's legs, its rerank those of the
+    CPU's rerank of its fused lists, but where a query's scores tie within
+    the bf16 rounding (F32_TIE for the fusion and the rerank; counted); (b)
+    at CamemBERT-base width in bf16 on a synthetic LLeQA of LLEQA_ARTICLES articles and LLEQA_DEV dev
+    questions, documents of 512 tokens, NSF over percentile ranks, the
+    rerank of the top 100: seconds per system, K1's launches, and the gate
+    against targets from the run itself (passes) and far ones (exits 1)."""
+    from fusion_tpu_torch.hybrid import HybridPipeline
+    from fusion_tpu_torch.models.encoder import EncoderConfig
+    from fusion_tpu_torch.tools import run_lleqa_parity as harness
+
+    out: dict = {}
+    systems = ("bm25", "dpr", "splade", "colbert", "fused", "reranked")
+    tiny = os.path.join(root, "tiny")
+    os.makedirs(tiny)
+    fx = os.path.join(tiny, "lleqa.json")
+    with open(fx, "w") as f:
+        json.dump(LLEQA_TINY, f)
+    paths = lleqa_checkpoints(tiny, EncoderConfig.tiny(vocab_size=512), 16, 32, 32, 16, "cpu")
+    args = harness.parse_args(["--fixture", fx, *[a for n, p in paths.items() for a in (f"--{n}_path", p)]])
+    data = harness.load_data(fx)
+    runs, models = {}, {}
+    for dev in ("cpu", "cuda"):
+        reset_counts(*kernels)
+        models[dev] = harness.load_models(args, torch.device(dev))
+        runs[dev] = harness.evaluate_systems(data, "dev", models[dev], batch_size=8, device=dev)
+        out[f"tiny_{dev}_K1"] = counts(*kernels)["K1"]
+    check(out["tiny_cuda_K1"] > 0 and out["tiny_cpu_K1"] == 0, f"lleqa_parity tiny: K1 launches {out}")
+    (cpu_rep, cpu_lists), (card_rep, card_lists) = runs["cpu"], runs["cuda"]
+    legs = ("bm25", "dpr", "splade", "colbert")
+    # the legs are held to the CPU's legs; the fusion and the rerank take the
+    # legs' bf16-rounded scores (the percentile ranks move with them), so the
+    # card's fusion is held to the CPU's fusion of the card's legs, and its
+    # rerank to the CPU's rerank of the card's fused lists
+    pipe = HybridPipeline(data.corpus, device="cpu")
+    queries, labels = harness.split_queries(data, "dev")
+    topk = min(1000, len(data.corpus))
+    want = {s: (cpu_lists[s], cpu_rep["systems"][s]) for s in legs}
+    fused = harness.fuse_systems(pipe, {s: on_host(card_lists[s]) for s in legs}, args.fusion, args.normalization,
+                                 topk)
+    reranked = pipe.cross_encoder_search(queries, on_host(card_lists["fused"]), models["cpu"]["monobert"],
+                                         return_topk=min(args.rerank_depth, topk)).ranked
+    for s, lists in (("fused", fused), ("reranked", reranked)):
+        want[s] = (lists, harness.system_metrics(pipe, labels, lists))
+    agree, ties, max_diff = {}, {}, {}
+    for s in systems:
+        tol = {"colbert": 2 * BF16_TIE, "fused": F32_TIE, "reranked": F32_TIE}.get(s, BF16_TIE)
+        agree[s], ties[s] = lists_agree(np, card_lists[s], want[s][0], tol)
+        w, g = want[s][1], card_rep["systems"][s]
+        max_diff[s] = max(abs(g[m] - w[m]) for m in w if not isinstance(w[m], str))
+        check(agree[s], f"lleqa_parity tiny: {s}'s card lists differ from the CPU's beyond ties within {tol}")
+        if max_diff[s] > 1e-6:
+            check(ties[s], f"lleqa_parity tiny: {s}'s metrics differ by {max_diff[s]} with no tie")
+    out["tiny_systems_with_ties"] = [s for s in systems if ties[s]]
+    out["tiny_lists_equal"] = {s: bool(agree[s] and not ties[s]) for s in systems}
+    out["tiny_max_metric_diff"] = max_diff
+
+    full = os.path.join(root, "full")
+    os.makedirs(full)
+    fx = os.path.join(full, "lleqa.json")
+    t0 = time.perf_counter()
+    with open(fx, "w") as f:
+        json.dump(lleqa_fixture(np, LLEQA_ARTICLES, LLEQA_DEV, LLEQA_WORDS), f)
+    cfg = EncoderConfig(dtype=torch.bfloat16, dropout=0.0)  # CamemBERT-base width
+    paths = lleqa_checkpoints(full, cfg, 64, 512, 512, 128, "cuda")
+    out["full_setup_s"] = time.perf_counter() - t0
+    argv = ["--fixture", fx, *[a for n, p in paths.items() for a in (f"--{n}_path", p)], "--dtype", "bfloat16",
+            "--out_dir", os.path.join(full, "out"), "--targets", os.path.join(full, "no_targets.json")]
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    report = harness.main(argv)
+    torch.cuda.synchronize()
+    out["full_s"] = time.perf_counter() - t0
+    out["full_launches"] = counts(*kernels)
+    out["full_seconds"] = report["seconds"]
+    check(out["full_launches"]["K1"] > 0, "lleqa_parity full: K1 never launched")
+    check(set(report["systems"]) == set(systems) and report["num_queries"] == LLEQA_DEV
+          and report["corpus_size"] == LLEQA_ARTICLES, f"lleqa_parity full: report {list(report)}")
+    for s in systems:
+        values = [v for v in report["systems"][s].values() if not isinstance(v, str)]
+        check(all(0.0 <= v <= 1.0 for v in values), f"lleqa_parity full: {s}'s metrics out of [0, 1]")
+    out["full_recall@100"] = {s: report["systems"][s]["recall@100"] for s in systems}
+    out["full_ndcg@10"] = {s: report["systems"][s]["ndcg@10"] for s in systems}
+    self_targets = {s: {"recall@100": 100 * out["full_recall@100"][s], "ndcg@10": 100 * out["full_ndcg@10"][s]}
+                    for s in systems}
+    far_targets = {"bm25": {"recall@100": 100 * out["full_recall@100"]["bm25"] + 20.0}}
+    for label, targets in (("self", self_targets), ("far", far_targets)):
+        path = os.path.join(full, f"targets_{label}.json")
+        with open(path, "w") as f:
+            json.dump(targets, f)
+        try:
+            harness.apply_gate(report, path, 1.5)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        out[f"gate_{label}_exit"] = code
+    check(out["gate_self_exit"] == 0 and out["gate_far_exit"] == 1, f"lleqa_parity full: gate exits {out}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recall_check(torch, kernels) -> dict:
+    """[recall_study]: tools/recall_study.py in process at RECALL_DOCS /
+    RECALL_COLBERT_DOCS (widths as the tool's: H 768, V 32k, D 128), every
+    launch count set to 0 just before and read just after: K1 (exhaustive
+    compressed search), K2 (fused binned top-k), K3 (scatter), K4 (PLAID's
+    gather) launch; every overlap in [0, 1]."""
+    from fusion_tpu_torch.tools import recall_study
+
+    args = recall_study.parse_args(["--n_docs", str(RECALL_DOCS), "--colbert_docs", str(RECALL_COLBERT_DOCS)])
+    reset_counts(*kernels)
+    detail = recall_study.run(args)["detail"]
+    launches = counts(*kernels)
+    for name in ("K1", "K2", "K3", "K4"):
+        check(launches[name] > 0, f"recall_study: {name} never launched")
+    overlaps = {k: v for k, v in detail.items() if "overlap" in k or "recall" in k or "frac" in k}
+    bad = {k: v for k, v in overlaps.items() if isinstance(v, float) and not 0.0 <= v <= 1.0}
+    check(not bad, f"recall_study: values out of [0, 1]: {bad}")
+    check("int8_approx_topk" in detail["not_ported"], "recall_study: the approx row is not named as not ported")
+    check(detail["dense_int8_exact_merge_overlap@100"] >= 0.9, f"recall_study: int8 exact merge {detail}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "section_seconds": detail["section_seconds"], "values": overlaps,
+            "cheapest_plaid>=0.9": detail.get("plaid_cheapest_config_with_overlap>=0.9")}
+
+
+def roofline_check(torch, np, docs, models, kernels) -> dict:
+    """[roofline]: tools/probe_hybrid_roofline.py's sweep over the slice's
+    corpus and encoders (a BM25 index at k1 2.5, b 0.2, impact cap 1,024;
+    random bf16 dense, SPLADE and token corpora), B in ROOFLINE_BATCHES,
+    plain and stacked: ms a batch, queries/s and MFU per row (one line each),
+    K1's launches; the stacked fused ids equal the plain ones or overlap
+    them >= 0.99 at 100."""
+    from fusion_tpu_torch.tools import probe_hybrid_roofline as roof
+
+    world, rng = roof.build_world(roof.parse_args([]), docs=docs, models=models)
+    reset_counts(*kernels)
+    rows = roof.sweep(world, rng, ROOFLINE_BATCHES, groups=ROOFLINE_GROUPS, per=ROOFLINE_PER,
+                      emit=lambda line: print(f"[roofline_row] {line}", flush=True))
+    launches = counts(*kernels)
+    check(launches["K1"] > 0, "roofline: K1 never launched")
+    for r in rows:
+        if r["variant"] == "stacked":
+            check(r["ids_equal_plain"] or r["overlap@100_vs_plain"] >= 0.99, f"roofline: stacked ids {r}")
+    best = roof.best_record(rows, world.n_docs, world.topk)
+    del world
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"K1": launches["K1"], "best": {k: best["detail"]["best"][k] for k in ("variant", "batch",
+                                                                                 "queries_per_s")},
+            "rows": {f"{r['variant']}_B{r['batch']}": {
+                "ms": r["ms_per_batch"], "queries_per_s": r["queries_per_s"], "mfu": r.get("mfu"),
+                **({"ids_equal_plain": r["ids_equal_plain"]} if "ids_equal_plain" in r else {})} for r in rows}}
+
+
+def studies_check(torch) -> dict:
+    """[studies]: the cascade (with its int8 view), int8-encoder and
+    preprocessor studies at their default shapes on the card; their headline
+    numbers."""
+    from fusion_tpu_torch.tools import cascade_study, int8_encoder_study, preprocessor_study
+
+    out = {}
+    t0 = time.perf_counter()
+    rec = cascade_study.run(cascade_study.parse_args(["--int8"]))
+    out["cascade"] = {"s": time.perf_counter() - t0, "final_bce": rec["setup"]["final_bce"],
+                      "flat_mrr": rec["flat"]["all"]["mrr"], "int8_flat_mrr": rec["int8_flat"]["all"]["mrr"],
+                      "int8_score_corr": rec["int8_flat"]["score_corr_vs_f32"],
+                      "cascade_mrr_keep8": {c["stage1_tokens"]: c["metrics"]["all"]["mrr"]
+                                            for c in rec["cascade_grid"] if c["keep"] == 8}}
+    t0 = time.perf_counter()
+    rec = int8_encoder_study.run(int8_encoder_study.parse_args([]))
+    out["int8_encoder"] = {"s": time.perf_counter() - t0, "overlap": rec["value"], **rec["dense"],
+                           "splade_corr": rec["splade_activation_corr"]}
+    t0 = time.perf_counter()
+    rec = preprocessor_study.main(["--device", "cuda"])
+    out["preprocessor"] = {"s": time.perf_counter() - t0, "fallback_stemmer": rec["fallback_stemmer"],
+                           "risk_bound_recall@10": rec["risk_bound_recall@10"],
+                           "recall@10": {k: v["recall@10"] for k, v in rec["pipelines"].items()}}
+    for name, vals in (("cascade", (out["cascade"]["flat_mrr"], out["cascade"]["int8_flat_mrr"])),
+                       ("int8_encoder", (out["int8_encoder"]["overlap"], out["int8_encoder"]["mrr_f32"]))):
+        check(all(0.0 <= v <= 1.0 for v in vals), f"studies: {name} {vals}")
+    return out
+
+
+# ----------------------------------------------------------------------
 # training
 # ----------------------------------------------------------------------
 # family → (batch, query length, doc / pair length, negatives per query): the
 # presets' shapes (DPR, SPLADE and monoBERT on LLeQA, ColBERT on mMARCO)
 TRAIN_SHAPES = {"dpr": (64, 512, 512, 1), "splade": (32, 64, 512, 1), "colbert": (128, 32, 256, 1),
                 "monobert": (32, 0, 256, 0)}
-TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+TRAIN_WARMUP, TRAIN_TIMED = 1, 3  # cut from 2 and 5 to keep the script inside its time limit
 # [train_agreement], f32 card vs f32 CPU, gates per family on: the loss
 # (relative), the largest gradient leaf apart (||card - cpu|| / ||cpu||),
 # and the params after 3 steps, element by element in units of the lr or,
@@ -2847,7 +3195,7 @@ def train_check(torch, np, device="cuda", attention_impl="einsum", warmup=TRAIN_
                 traced=True) -> dict:
     """[train]: each family at its preset's shapes, CamemBERT-base width,
     bf16 compute over f32 master weights, remat on, AdamW, attention in the
-    form ``attention_impl``: ``warmup`` (2) warm-up and ``timed`` (5) timed
+    form ``attention_impl``: ``warmup`` (1) warm-up and ``timed`` (3) timed
     steps, each ended by a synchronize, then (with ``traced``) one traced
     step (device time, busy share, the top device operations)."""
     from fusion_tpu_torch.models.encoder import EncoderConfig
@@ -2966,6 +3314,8 @@ def train_fit(torch, np, device="cuda") -> dict:
         host = train_batch(np, family, 8, 32, 128, 1, 32_005, 70 + seed)
         cfg = EncoderConfig(dtype=torch.bfloat16, remat=True)
         model = train_model(torch, family, cfg, 300 + seed, device)
+        # the seed's weights, drawn once: the remat pair below starts from them
+        initial = {k: v.detach().to("cpu", copy=True) for k, v in model.module.state_dict().items()}
         batch = trainer._to_device(host, model.device)
         fit_cfg = trainer.FitConfig(steps=21, learning_rate=1e-4, scheduler="constant")
         state, tx, _ = trainer.init_train_state(model, fit_cfg)
@@ -2977,7 +3327,7 @@ def train_fit(torch, np, device="cuda") -> dict:
         del model, state, tx, step
         grads, first = [], []
         for remat in (True, False):
-            m = train_model(torch, family, dataclasses.replace(cfg, remat=remat), 300 + seed, device)
+            m = train_model(torch, family, dataclasses.replace(cfg, remat=remat), 300 + seed, device, initial)
             loss, _ = train_loss(family, m, batch, 0, seed=9)
             loss.backward()
             grads.append(_grads(m))
@@ -3929,17 +4279,23 @@ TRAIN_PARALLEL_RUNS = {
 TRAIN_PARALLEL_SHAPES = {"colbert": (32, 32, 256, 3), "dpr": (32, 64, 256, 1), "xmod_splade": (8, 32, 128, 1),
                          "t5": (32, 0, 256, 0)}
 XMOD_LANGUAGES = ("fr_XX", "en_XX")  # the adapters; the runs train through fr_XX
-# the bf16 pass's depth where it is not the trunk's: ColBERT model = 2 at
-# half depth keeps the script inside its time limit (its 12-layer pass took
-# 28 s, nearly all of it in gloo's per-layer all-reduces)
-TRAIN_PARALLEL_BF16_LAYERS = {"colbert_model2": 6}
-TRAIN_PARALLEL_STEPS, TRAIN_PARALLEL_LR = 2, 1e-3
+# the bf16 pass's depth, T5's own and half the others' (cut from 12 to keep
+# the script inside its time limit: ColBERT and X-MOD SPLADE on model = 2
+# took 28 s and 104 s at 12 layers, nearly all of it in gloo's per-layer
+# all-reduces and X-MOD's 1.5 GB gather of the sliced leaves)
+TRAIN_PARALLEL_BF16_LAYERS = 6
+# steps a pass: two in the f32 pass, whose second step's loss, parameters
+# and update are held to one rank's (the sharded Adam state carried across
+# a step); one in the bf16 pass (cut from 2 to keep the script inside its
+# time limit: a step's cost at full depth is X-MOD's bf16 gathers)
+TRAIN_PARALLEL_F32_STEPS, TRAIN_PARALLEL_BF16_STEPS, TRAIN_PARALLEL_LR = 2, 1, 1e-3
 TRAIN_PARALLEL_RANKS, TRAIN_PARALLEL_TIMEOUT = 2, 600
-# the 12-layer bf16 pass against one rank's bf16 step over the global batch,
-# at the same weights: the first step's loss (relative), the gradient before
-# the optimizer (per leaf ||a - b|| / ||b||, and over all leaves at once),
-# and the parallel gradient's distance to the 12-layer f32 one over one
-# rank's.  Read on an H100 (ColBERT data 2 / DPR data 2 / ColBERT model 2):
+# the bf16 pass against one rank's bf16 step over the global batch, at the
+# same weights: the step's loss (relative), the gradient before the
+# optimizer (per leaf ||a - b|| / ||b||, and over all leaves at once), and
+# the parallel gradient's distance to the f32 one at the same depth over
+# one rank's.  Read on an H100 at 12 layers (ColBERT data 2 / DPR data 2 /
+# ColBERT model 2):
 # loss 0 / 0 / 8.7e-4, worst leaf 0.099 / 0.23 / 0.27, all leaves 0.028 /
 # 0.054 / 0.19, ratio 0.99 / 0.99 / 0.90, where one rank's bf16 gradient is
 # itself 0.13 / 0.19 / 0.18 from the f32 one: bf16 rounding at 12 layers.
@@ -4039,17 +4395,19 @@ def param_gaps(got: dict, want: dict) -> dict:
 def train_parallel_run(torch, np, name, rank, device) -> dict:
     """One run of [train_parallel] on this rank, from the same seed and
     global batch, in two passes; in each, rank 0 first takes the reference
-    (one rank's gradient and TRAIN_PARALLEL_STEPS steps over the global
-    batch, alone on the card), then both ranks place the model on the run's
+    (one rank's gradient and the pass's steps over the global batch, alone
+    on the card), then both ranks place the model on the run's
     mesh and take the gradient and the steps, and rank 0 holds them to the
     reference.
-      * f32 at 2 layers, at ``AGREE_GATES`` ([train_agreement]): the loss,
-        the gradient and the parameters after the steps.  The same
+      * f32 at 2 layers, TRAIN_PARALLEL_F32_STEPS steps, at ``AGREE_GATES``
+        ([train_agreement]): the loss of each step, the gradient, the
+        parameters and the update (per leaf, by the norm of the steps'
+        update) after the steps.  The same
         gradient in f64 (the einsum form; its gap to f32's is the f32
         rounding) tells a leaf that rounds badly from a wrong sum.
-      * bf16 at the trunk's depth or TRAIN_PARALLEL_BF16_LAYERS' (the
-        measured pass, through FA and FA-bwd at 12 or 6 heads a rank): the
-        first step's loss and the gradient, at ``bf16_gates``; and both bf16
+      * bf16 at TRAIN_PARALLEL_BF16_LAYERS layers, one step (the measured
+        pass, through FA and FA-bwd at 12 or 6 heads a rank):
+        the step's loss and the gradient, at ``bf16_gates``; and both bf16
         gradients against the f32 one of the einsum form at that depth (one
         rank), where the parallel
         one may stand at most ``grad_rel_vs_f32_ratio`` times as far as one
@@ -4073,18 +4431,19 @@ def train_parallel_run(torch, np, name, rank, device) -> dict:
     seed = 400 + list(TRAIN_PARALLEL_RUNS).index(name)
     host = train_batch(np, family, b, lq, ld, n_neg,
                        train_parallel_config(torch, form, torch.float32, family=family).vocab_size, seed)
-    fit_cfg = trainer.FitConfig(steps=TRAIN_PARALLEL_STEPS, learning_rate=TRAIN_PARALLEL_LR, scheduler="constant")
+    fit_cfg = trainer.FitConfig(steps=TRAIN_PARALLEL_F32_STEPS, learning_rate=TRAIN_PARALLEL_LR,
+                                scheduler="constant")
     mesh = sharding.make_mesh(data=data, model=model_ranks, devices=[device] * TRAIN_PARALLEL_RANKS)
     # the seed's f32 master weights by depth, drawn once on the host: every
     # pass of a depth starts from them (xmod-base's take ~9 s to draw)
     initial: dict = {}
 
-    def run(cfg, mesh, steps=TRAIN_PARALLEL_STEPS):
+    def run(cfg, mesh, steps):
         model = train_model(torch, family, cfg, seed, device, initial.get(cfg.num_layers))
         if cfg.num_layers not in initial:
             initial[cfg.num_layers] = {k: v.detach().to("cpu", copy=True) for k, v in model.module.state_dict().items()}
         state, tx, _ = trainer.init_train_state(model, fit_cfg)
-        step = train_step_fn(family, model, tx, TRAIN_PARALLEL_STEPS, mesh=mesh)
+        step = train_step_fn(family, model, tx, fit_cfg.steps, mesh=mesh)
         if mesh is not None:
             state = step.place_state(state)
         batch = trainer._to_device(host, model.device)
@@ -4111,26 +4470,30 @@ def train_parallel_run(torch, np, name, rank, device) -> dict:
         torch.cuda.empty_cache()
         return losses, grads, params, stats
 
-    depth = TRAIN_PARALLEL_BF16_LAYERS.get(name)
+    def update(params):
+        """The parameters' move from the f32 pass's starting weights."""
+        return {k: v - initial[2][k].float() for k, v in params.items()}
+
+    depth = TRAIN_PARALLEL_BF16_LAYERS
     f32 = train_parallel_config(torch, form, torch.float32, 2, family)
     bf16 = train_parallel_config(torch, form, torch.bfloat16, depth, family)
     f64 = train_parallel_config(torch, "einsum", torch.float64, 2, family)
     t0 = time.perf_counter()
     if rank == 0:
-        reference = run(f32, None)
-        exact = run(f64, None, steps=0)[1]
-        bf16_exact = run(train_parallel_config(torch, "einsum", torch.float32, depth, family), None, steps=0)[1]
+        reference = run(f32, None, TRAIN_PARALLEL_F32_STEPS)
+        exact = run(f64, None, 0)[1]
+        bf16_exact = run(train_parallel_config(torch, "einsum", torch.float32, depth, family), None, 0)[1]
     dist.barrier()
     t1 = time.perf_counter()
-    losses, grads, params, stats = run(f32, mesh)
+    losses, grads, params, stats = run(f32, mesh, TRAIN_PARALLEL_F32_STEPS)
     t2 = time.perf_counter()
-    bf16_reference = run(bf16, None) if rank == 0 else None
+    bf16_reference = run(bf16, None, TRAIN_PARALLEL_BF16_STEPS) if rank == 0 else None
     dist.barrier()
     t3 = time.perf_counter()
-    bf16_losses, bf16_grads, bf16_params, bf16_stats = run(bf16, mesh)
+    bf16_losses, bf16_grads, bf16_params, bf16_stats = run(bf16, mesh, TRAIN_PARALLEL_BF16_STEPS)
     pass_s = {"references_f32_f64": t1 - t0, "parallel_f32": t2 - t1, "reference_bf16": t3 - t2,
               "parallel_bf16": time.perf_counter() - t3}
-    steps, ms = TRAIN_PARALLEL_STEPS, bf16_stats["times"][-1]
+    steps, ms = TRAIN_PARALLEL_BF16_STEPS, bf16_stats["times"][-1]
     model_flops = parallel_step_flops(bf16, family, b, lq, ld, n_neg)
     coll = bf16_stats["collectives"]
     out = {
@@ -4160,6 +4523,7 @@ def train_parallel_run(torch, np, name, rank, device) -> dict:
             "loss_rel": max(abs(a - r) / abs(r) for a, r in zip(losses, ref_losses)),
             **{k: v for k, v in gaps.items() if k != "rel"},
             **param_gaps(params, ref_params),
+            "update_max_rel": _max_rel(update(params), update(ref_params)),
             # each f32 gradient against the f64 one: the worst leaf, and the
             # f32 pair's worst leaf
             "f64": {"reference_max_rel": ref_exact["grad_max_rel"], "reference_worst_leaf": ref_exact["grad_worst_leaf"],
@@ -4172,12 +4536,11 @@ def train_parallel_run(torch, np, name, rank, device) -> dict:
         out["bf16"] = {
             "reference_losses": ref_losses, "reference_ms_steps": ref_stats["times"],
             "loss_rel": abs(bf16_losses[0] - ref_losses[0]) / abs(ref_losses[0]),
-            "loss_rel_step2": abs(bf16_losses[-1] - ref_losses[-1]) / abs(ref_losses[-1]),
             "grad_loss_rel": abs(bf16_stats["grad_loss"] - ref_stats["grad_loss"]) / abs(ref_stats["grad_loss"]),
             **{k: v for k, v in gaps.items() if k != "rel"},
             "grad_rel_by_leaf_top5": dict(sorted(gaps["rel"].items(), key=lambda kv: -kv[1])[:5]),
             **param_gaps(bf16_params, ref_params),
-            # each bf16 gradient against the f32 one at 12 layers
+            # each bf16 gradient against the f32 one at the same depth
             "f32": {"reference_grad_rel": ref_exact["grad_rel"], "parallel_grad_rel": par_exact["grad_rel"],
                     "reference_max_rel": ref_exact["grad_max_rel"], "parallel_max_rel": par_exact["grad_max_rel"],
                     "parallel_worst_leaf": par_exact["grad_worst_leaf"]},
@@ -4215,10 +4578,11 @@ def train_parallel_rank_main(rank: int, workdir: str, port: int, device: str = "
         print(f"[train_parallel rank {rank}] {name} {res['s']:.1f}s "
               + json.dumps({k: v for k, v in res.items() if k not in ("params_digest",)}), flush=True)
         # per step: 3 forwards × the layers × 2 (the remat recompute), 3 × the layers backward
-        for label, layers in (("launches", res["bf16_layers"]), ("f32_launches", 2)):
-            per_step = {"FA": TRAIN_PARALLEL_STEPS * 6 * layers, "FA-bwd": TRAIN_PARALLEL_STEPS * 3 * layers}
+        for label, layers, steps in (("launches", res["bf16_layers"], TRAIN_PARALLEL_BF16_STEPS),
+                                     ("f32_launches", 2, TRAIN_PARALLEL_F32_STEPS)):
+            per_step = {"FA": steps * 6 * layers, "FA-bwd": steps * 3 * layers}
             if form == "flash" and res[label] != per_step:
-                out["failed"].append(f"{name}: {label} {res[label]} in {TRAIN_PARALLEL_STEPS} steps (want "
+                out["failed"].append(f"{name}: {label} {res[label]} in {steps} steps (want "
                                      f"{6 * layers} / {3 * layers} a step)")
             if form != "flash" and res[label] != {"FA": 0, "FA-bwd": 0}:
                 out["failed"].append(f"{name}: the {form} form launched the attention kernels: {res[label]}")
@@ -4256,6 +4620,7 @@ def train_parallel_check(torch, device="cuda:0") -> dict:
         out[name] = {k: first[k] for k in ("mesh", "form", "bf16_layers", "shape", "heads_per_rank", "losses",
                                            "f32_losses", "reference_f32_losses", "reference_f32_ms_steps", "loss_rel",
                                            "grad_max_rel", "grad_worst_leaf", "grad_rel", "param_max_abs_over_lr",
+                                           "update_max_rel",
                                            "param_farthest_leaf", "params_over_0.2_lr", "f64", "bf16")}
         out[name]["per_rank"] = [{k: r[k] for k in per_rank} for r in runs]
     # the measured (bf16) passes' launches, every rank and flash run
@@ -4698,6 +5063,22 @@ def main() -> int:
     t0 = time.perf_counter()
     phase("mmarco_reader", t0, **reader_check(np))
 
+    # the quality and measurement tools: the LLeQA harness, the recall study,
+    # the roofline sweep over the slice's corpus and encoders, the studies
+    # (each with the process's peak host memory after it)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lleqa_") as root:
+        t0 = time.perf_counter()
+        lleqa = lleqa_parity_check(torch, np, root, kernels)
+        phase("lleqa_parity", t0, gpu=repr(smi), host_peak_rss_gib=host_rss_gib(), **lleqa)
+    t0 = time.perf_counter()
+    recall = recall_check(torch, kernels)
+    phase("recall_study", t0, gpu=repr(smi), host_peak_rss_gib=host_rss_gib(), **recall)
+    t0 = time.perf_counter()
+    roofline = roofline_check(torch, np, docs, (dense, splade, colbert), kernels)
+    phase("roofline", t0, gpu=repr(smi), host_peak_rss_gib=host_rss_gib(), **roofline)
+    t0 = time.perf_counter()
+    phase("studies", t0, gpu=repr(smi), **studies_check(torch), host_peak_rss_gib=host_rss_gib())
+
     bm25 = searcher.bm25
     # the slice's cross-encoder doc tokens, for [sharded]'s rerank
     ce_tokens = dict(ce_doc_tokens=reranked.ce_doc_tokens, ce_doc_mask=reranked.ce_doc_mask,
@@ -4894,17 +5275,19 @@ def main() -> int:
         # and the segmented path's 192-query search over two segments
         entry("maxsim_maxima_T", "maxsim.cu", "fusion_tpu/ops/maxsim.py:225", rerank["launches"]["K1"],
               k1_err, k1_ms, k1_plain, k1_bound, segmented_launches=seg_out["search_launches"]["K1"],
-              sharded_launches=sharded_launches["K1"], sharded_server_launches=server_launches["K1"]),
+              sharded_launches=sharded_launches["K1"], sharded_server_launches=server_launches["K1"],
+              lleqa_parity_launches=lleqa["full_launches"]["K1"], recall_study_launches=recall["launches"]["K1"],
+              roofline_launches=roofline["K1"]),
         entry("dense_binmax", "dense_topk.cu", "fusion_tpu/ops/dense_topk.py:102", mm4_counts["K2"],
               k2_err, k2_ms, k2_plain, k2_bound, sharded_launches=sharded_launches["K2"],
-              sharded_server_launches=server_launches["K2"]),
+              sharded_server_launches=server_launches["K2"], recall_study_launches=recall["launches"]["K2"]),
         entry("scatter_binmax", "scatter_score.cu", "fusion_tpu/ops/scatter_score.py:138",
               mm4_counts["K3"], k3_err, k3_ms, k3_plain, k3_bound, sharded_launches=sharded_launches["K3"],
-              sharded_server_launches=server_launches["K3"]),
+              sharded_server_launches=server_launches["K3"], recall_study_launches=recall["launches"]["K3"]),
         # the library call of K4's function is index_select, its plain version
         entry("gather_rows", "gather_rows.cu", "fusion_tpu/ops/gather_rows.py:41", mm4_counts["K4"],
               k4_err, k4_ms, k4_plain, k4_bound, library_ms=k4_plain, sharded_launches=sharded_launches["K4"],
-              sharded_server_launches=server_launches["K4"]),
+              sharded_server_launches=server_launches["K4"], recall_study_launches=recall["launches"]["K4"]),
         entry("maxsim_fused", "maxsim.cu",
               "fusion_tpu/ops/maxsim.py:67; scripts/bench_maxsim.py:55", variant_counts["K1-v1"],
               k1v1_err, k1v1_ms, k1v1_plain, k1v1_bound),

@@ -25,6 +25,7 @@ whitespace-joined token string per input text, consumed by
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Iterable, Sequence
 
@@ -167,6 +168,10 @@ class TextPreprocessor:
             raise ValueError(
                 f"stemmer must be 'auto', 'snowball_raw' or 'light', got {stemmer!r}"
             )
+        # a word's lemma is a pure function of the word: memoized, since a
+        # corpus repeats a small vocabulary (the Snowball stem dominates a
+        # build's host time otherwise)
+        self._lemma = functools.lru_cache(maxsize=1 << 18)(self._stem or _light_lemma)
 
     def preprocess(
         self,
@@ -202,7 +207,7 @@ class TextPreprocessor:
             if remove_stop and low in FRENCH_STOPWORDS:
                 continue
             if lemmatize:
-                low = self._stem(low) if self._stem is not None else _light_lemma(low)
+                low = self._lemma(low)
             if not low:
                 continue
             # lemmatize=True always emits the (lowercase) lemma — previously

@@ -13,6 +13,7 @@ either package.
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Sequence
 
@@ -21,6 +22,9 @@ import numpy as np
 _WORD_RE = re.compile(r"\w+|[^\w\s]", re.UNICODE)
 
 
+# memoized: a corpus repeats a small vocabulary, and the byte loop below
+# dominated the host time of encoding a corpus
+@functools.lru_cache(maxsize=1 << 18)
 def _fnv1a(token: str) -> int:
     h = 0xCBF29CE484222325
     for b in token.encode("utf-8"):
