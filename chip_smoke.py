@@ -81,12 +81,47 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 rank) on model = 2; each an f32 pass at 2 layers held to one
                 rank's step over the global batch (AGREE_GATES, two
                 steps: the loss of each, the gradient, the parameters and
-                the update after them) and a one-step bf16 pass at 6
+                the update after them) and a one-step bf16 pass at 4
                 layers held to one rank's bf16 step
                 (TRAIN_PARALLEL_BF16_GATES) and measured: ms a step,
                 collective ms / MB / calls, peak memory, MFU, FA and FA-bwd
                 launches (36 / 18 a step in flash); the ranks end with the
                 same parameters;
+     examples — fusion_tpu_torch/examples' quickstart, scale_serving and
+                streaming_serving main() on the card, each with every count
+                set to 0 just before and read just after, held to the same
+                example on the CPU (a child of this script started before
+                [train_parallel], whose host work overlaps the ranks'):
+                quickstart (30 MNRL steps, the four-system searcher, the
+                cross-encoder rerank of BM25's candidates, the metrics): K1
+                launches (the ColBERT leg), the fused, candidate and
+                reranked lists equal up to ties within 1e-5, the metrics
+                equal; scale_serving (impact BM25 and SPLADE, compressed
+                ColBERT with PLAID) over the CPU's PLAID index and IVF (its
+                own build's centroid gap and IVF equality reported): K4
+                launches (PLAID's rescore), the fused and the reloaded lists
+                up to ties, the persistence round-trip identical as the
+                example asserts; streaming_serving (segments behind the
+                HTTP server): each of its four answers up to ties within
+                2e-6, /healthz equal; seconds of each;
+     tpu_tests — what tests_tpu/test_kernels_tpu.py holds on the TPU and no
+                other phase holds on the card, at its shapes and
+                tolerances: the blockwise top-k merge equal to one top-k;
+                K2's binned top-1,000 against the exact int8 search over
+                1,048,576 docs made on the card (mean overlap >= 0.97); K2's
+                scale-0 rows losing to real rows of negative similarity,
+                equal to the plain version; a 2-layer hidden-256 bf16 encoder
+                in the flash form (FA) against einsum on real positions
+                (atol 0.15, rtol 0.05, least cosine > 0.995); PLAID's gather
+                and factored rescores through K4 against the plain gather
+                (ids equal, scores within 1e-5); the launches of each;
+     chunked_impact — tools/probe_chunked_impact.py at mMARCO's shape
+                (8,912,896 docs, V 32,768, 272 chunks x cap 64, B 64): each
+                stage's median ms (gather, the two sorts, the run totals,
+                the full search in both sort forms at Kq 32 / 48 / 64; one
+                JSON line); chunked_impact_search on the card against its
+                CPU run at a small shape, both sort forms: ids up to ties,
+                scores within 1e-5 of the row's largest;
   3. kernel   — K1 (MaxSim, the wgmma/TMA kernel) against its plain version
                 at the serving shape (Ld 128, N 28,032, D 128, QL 64x32),
                 bit-identical over 10 more launches, with its achieved
@@ -264,7 +299,7 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 cross-encoder) saved in the JAX package's checkpoint format
                 and loaded back in bf16: query encodings (192 queries) and
                 logits bit-equal to the originals'; seconds and bytes each;
-     persist  — the slice's searcher over its first PERSIST_DOCS (4,096)
+     persist  — the slice's searcher over its first PERSIST_DOCS (1,024)
                 docs, built with the same models and options, with the
                 cross-encoder's doc tokens, saved with
                 save_indexes to a temporary directory and reloaded into a
@@ -288,7 +323,7 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 than requests; requests/s, p50 / p99 request ms, batches and
                 mean batch ms;
      cli      — fusion_tpu_torch.cli.main in process on a fixture JSON of the
-                slice's first 4,096 docs and 192 dev questions (the zipf words
+                slice's first 1,024 docs and 192 dev questions (the zipf words
                 spelled in consonants, which the CLI's BM25 preprocessing
                 keeps as they are), the [checkpoint] models as --*_path:
                 serve --task build and serve --task search with all four
@@ -301,15 +336,16 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 run_evaluation;
      segmented — streaming updates over the slice: a SegmentedHybridSearcher
                 with [index]'s build kwargs (cross-encoder included) over
-                the first 23,940 docs, the last 4,000 added with their BM25
-                docs (a second neural segment, BM25 rebuilt over all 27,940
-                by the C++ builder, which must compile); against [index]'s
-                searcher over every doc: each system's merged top-100
+                the slice's first SEG_DOCS (9,970) docs: the first 5,970,
+                then the last 4,000 added with their BM25 docs (a second
+                neural segment, BM25 rebuilt over all 9,970 by the C++
+                builder, which must compile); against a searcher built with
+                [index]'s kwargs over those docs: each system's merged top-100
                 overlap >= 0.99, BM25 scores at shared ids within rtol 1e-5
                 (idf is global), the fused top 1,000 checked, the flat-
                 reranked head a permutation of the fused head; 64 top-1 hits
                 deleted (none comes back, rows non-increasing), then
-                compact (one segment, n_docs 27,876, top-100 overlap >= 0.99
+                compact (one segment, n_docs 9,906, top-100 overlap >= 0.99
                 with the tombstoned lists); build, add (BM25 rebuild and
                 encoding), delete and compact seconds; ms per 64-query batch
                 with one segment, two, after compact (K1 once per segment a
@@ -328,8 +364,8 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 impact packers over a seeded COO of 2^18 docs x 32 postings;
                 both times each;
      cli_datasets — the CLI in process on an mMARCO-schema fixture of the
-                first 4,096 docs: bm25 --task evaluate --dataset mmarco-fr,
-                colbert --task train / test --dataset mmarco-fr (the test
+                first CLI_DOCS (1,024) docs: bm25 --task evaluate --dataset
+                mmarco-fr, colbert --task train / test --dataset mmarco-fr (the test
                 through K1, counted) and dpr --task train / test --dataset
                 mrtydi-ja at --tiny; then [mmarco_reader] times
                 MmarcoReader.sample_from_hard_negatives over 50,000 seeded
@@ -345,14 +381,14 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 card's fused lists; metrics within 1e-6 but where such a
                 tie lies; (b) CamemBERT-base
                 width in bf16 (seeded, saved and loaded by the port) on a
-                synthetic LLeQA of 4,096 French-like articles (512 tokens
+                synthetic LLeQA of 1,024 French-like articles (512 tokens
                 read; one word in eight a rarer term the questions name)
                 and 64 dev questions, NSF over percentile ranks, the
                 rerank of the top 100 at 512 tokens: seconds per system, K1
                 counted (> 0), the gate passing targets taken from the run
                 and exiting 1 on far ones;
-     recall_study — tools/recall_study.py in process at 262,144 docs and
-                65,536 ColBERT docs (the tool's widths), every count set to
+     recall_study — tools/recall_study.py in process at 65,536 docs and
+                16,384 ColBERT docs (the tool's widths), every count set to
                 0 just before and read just after: K1, K2, K3 and K4 launch;
                 every overlap in [0, 1], the int8 exact merge >= 0.9;
      roofline — tools/probe_hybrid_roofline.py's sweep (B 32, 64, 128, 256;
@@ -360,9 +396,10 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 one line per row (ms a batch, queries/s, MFU), K1 counted,
                 the stacked fused ids equal to the plain ones or overlapping
                 them >= 0.99 at 100;
-     studies  — tools/cascade_study.py (with --int8), int8_encoder_study.py
-                and preprocessor_study.py at their default shapes: their
-                headline numbers;
+     studies  — tools/cascade_study.py (with --int8) at 300 training steps,
+                int8_encoder_study.py at 200 and preprocessor_study.py over
+                10,000 docs and 250 queries, the other shapes the tools'
+                defaults: their headline numbers;
  11. scale_build — HybridSearcher.build(scale_mode=True, int8_corpus=True,
                 dense_impl="fused", splade_impl="scatter") over the same
                 corpus and models, all four legs (impact_cap 1024: at 14
@@ -470,6 +507,8 @@ runs for P3, P4 and P5, the packed flash search of [rerank_forms] for FA
 and [train_flash]'s flash run for FA-bwd, and for K1-K4 and FA the
 launches on [sharded]'s two-rank path and [sharded_server]'s beside them,
 for K1-K4 those of [lleqa_parity] (K1), [recall_study] and [roofline] (K1),
+of [examples] (K1: quickstart; K4: scale_serving) and of [tpu_tests] (K2,
+K4, FA),
 for FA and FA-bwd [train_parallel]'s, in all and by run; ms are CUDA-event medians for
 K1-K3, K1-v1, K1-v2, P3-P5, FA and FA-bwd and queued device times for K4;
 bound_ms is the least time an H100 SXM could take for the same work, from
@@ -525,12 +564,14 @@ T5_LOGIT_TOL = 0.01
 # and flash, 0.949-0.973 for int8)
 ENCODER_FORM_OVERLAP, ENCODER_INT8_OVERLAP = 0.95, 0.9
 # [cli]: the fixture's docs, the first CLI_DOCS of the slice's corpus (cut
-# to keep the whole run well inside its time limit)
-CLI_DOCS = 2_048
+# to keep the whole run well inside its time limit; 2,048 before the cut
+# that made room for [examples], [tpu_tests] and [chunked_impact])
+CLI_DOCS = 1_024
 # [persist] slice: the docs of the searcher it saves and reloads (cut from
 # the whole slice to keep the run inside its time limit: the f16 token
-# index's savez_compressed took ~85 s over 27,940 docs)
-PERSIST_DOCS = 4_096
+# index's savez_compressed took ~85 s over 27,940 docs; 4,096 docs before
+# the cut that made room for this slice's phases)
+PERSIST_DOCS = 1_024
 N_DOCS, BATCH, N_QUERIES, TOPK, LQ, LD, DIM = 27_940, 64, 192, 1000, 32, 128, 128
 RUNS = 10  # alternating kernel / plain timing runs
 REPEATS = 10  # repeated launches that must give bit-identical outputs
@@ -2393,6 +2434,10 @@ def server_check(torch, np, searcher, queries) -> dict:
 # streaming updates, the C++ posting builders, the dataset loaders
 # ----------------------------------------------------------------------
 SEG_DELTA, SEG_DELETES, SEG_SERVER_ADDS, SEG_SERVER_DELETES = 4_000, 64, 1_000, 32
+# [segmented]: the slice's first SEG_DOCS docs, held against a searcher built
+# over the same docs (the whole slice's 27,940 before the cut that made room
+# for this slice's phases)
+SEG_DOCS = 9_970
 # [native]'s COO: 2^18 docs x 32 postings (mMARCO's 8.9M docs cut to keep the
 # numpy reference builders, and the run, inside its time limit)
 NATIVE_DOCS, NATIVE_PER_DOC, NATIVE_BLOCK = 1 << 18, 32, 1_024
@@ -2440,11 +2485,12 @@ def segmented_timing(torch, seg, queries, kernels, rerank=False) -> tuple[dict, 
 
 
 def segmented_check(torch, np, docs, queries, build_kw, full, kernels) -> tuple[dict, object]:
-    """[segmented]: a SegmentedHybridSearcher over the slice's first
-    N - SEG_DELTA docs with [index]'s build kwargs, then the last SEG_DELTA
-    docs added; held against ``full`` (the [index] searcher over every doc,
-    no rerank): per-system merged lists, BM25 scores, the fused lists and the
-    flat-reranked head; SEG_DELETES top-1 hits deleted, then compact."""
+    """[segmented]: a SegmentedHybridSearcher over the first N - SEG_DELTA
+    of ``docs`` with [index]'s build kwargs, then the last SEG_DELTA docs
+    added; held against ``full`` (a searcher built over the same docs with
+    [index]'s kwargs, no rerank): per-system merged lists, BM25 scores, the
+    fused lists and the flat-reranked head; SEG_DELETES top-1 hits deleted,
+    then compact."""
     from fusion_tpu_torch import native
     from fusion_tpu_torch.segmented import SegmentedHybridSearcher
 
@@ -2791,9 +2837,10 @@ LLEQA_TINY = {
                   "test": []},
     "negatives": None,
 }
-# (b): the [cli] corpus size, dev questions, words a document (the models
-# read 512 tokens of it)
-LLEQA_ARTICLES, LLEQA_DEV, LLEQA_WORDS = 4_096, 64, 512
+# (b): articles (4,096 before the cut that made room for [examples],
+# [tpu_tests] and [chunked_impact]), dev questions, words a document (the
+# models read 512 tokens of it)
+LLEQA_ARTICLES, LLEQA_DEV, LLEQA_WORDS = 1_024, 64, 512
 # card vs CPU: a query's lists may differ only inside runs of CPU scores this
 # close (relative to the row's largest |score|): one bf16 rounding of the
 # query, two for ColBERT, whose token index is bf16 on the card
@@ -2801,8 +2848,9 @@ BF16_TIE = 2.0**-8
 # the card's fusion and rerank against the CPU's of the same lists: f32 sums
 # in another order
 F32_TIE = 1e-5
-# [recall_study]'s cut of the tool's defaults (1,048,576 / 262,144 docs)
-RECALL_DOCS, RECALL_COLBERT_DOCS = 262_144, 65_536
+# [recall_study]'s cut of the tool's defaults (1,048,576 / 262,144 docs;
+# 262,144 / 65,536 before the cut that made room for this slice's phases)
+RECALL_DOCS, RECALL_COLBERT_DOCS = 65_536, 16_384
 ROOFLINE_BATCHES, ROOFLINE_GROUPS, ROOFLINE_PER = (32, 64, 128, 256), 3, 4
 
 
@@ -3060,26 +3108,33 @@ def roofline_check(torch, np, docs, models, kernels) -> dict:
                 **({"ids_equal_plain": r["ids_equal_plain"]} if "ids_equal_plain" in r else {})} for r in rows}}
 
 
-def studies_check(torch) -> dict:
+# [studies]: the cascade and int8-encoder studies' training steps and the
+# preprocessor study's docs and queries (the tools' defaults, 600, 400 and
+# 20,000 / 500, before the cut that made room for this slice's phases)
+CASCADE_STEPS, INT8_ENCODER_STEPS, PREPROC_DOCS, PREPROC_QUERIES = 300, 200, 10_000, 250
+
+
+def studies_check(torch, np) -> dict:
     """[studies]: the cascade (with its int8 view), int8-encoder and
-    preprocessor studies at their default shapes on the card; their headline
-    numbers."""
+    preprocessor studies on the card, at their default shapes but for the
+    steps and sizes above; their headline numbers."""
     from fusion_tpu_torch.tools import cascade_study, int8_encoder_study, preprocessor_study
 
     out = {}
     t0 = time.perf_counter()
-    rec = cascade_study.run(cascade_study.parse_args(["--int8"]))
+    rec = cascade_study.run(cascade_study.parse_args(["--int8", "--steps", str(CASCADE_STEPS)]))
     out["cascade"] = {"s": time.perf_counter() - t0, "final_bce": rec["setup"]["final_bce"],
                       "flat_mrr": rec["flat"]["all"]["mrr"], "int8_flat_mrr": rec["int8_flat"]["all"]["mrr"],
                       "int8_score_corr": rec["int8_flat"]["score_corr_vs_f32"],
                       "cascade_mrr_keep8": {c["stage1_tokens"]: c["metrics"]["all"]["mrr"]
                                             for c in rec["cascade_grid"] if c["keep"] == 8}}
     t0 = time.perf_counter()
-    rec = int8_encoder_study.run(int8_encoder_study.parse_args([]))
+    rec = int8_encoder_study.run(int8_encoder_study.parse_args(["--steps", str(INT8_ENCODER_STEPS)]))
     out["int8_encoder"] = {"s": time.perf_counter() - t0, "overlap": rec["value"], **rec["dense"],
                            "splade_corr": rec["splade_activation_corr"]}
     t0 = time.perf_counter()
-    rec = preprocessor_study.main(["--device", "cuda"])
+    rec = preprocessor_study.measure(
+        preprocessor_study.build_world(np.random.default_rng(42), PREPROC_DOCS, PREPROC_QUERIES), "cuda")
     out["preprocessor"] = {"s": time.perf_counter() - t0, "fallback_stemmer": rec["fallback_stemmer"],
                            "risk_bound_recall@10": rec["risk_bound_recall@10"],
                            "recall@10": {k: v["recall@10"] for k, v in rec["pipelines"].items()}}
@@ -4279,11 +4334,12 @@ TRAIN_PARALLEL_RUNS = {
 TRAIN_PARALLEL_SHAPES = {"colbert": (32, 32, 256, 3), "dpr": (32, 64, 256, 1), "xmod_splade": (8, 32, 128, 1),
                          "t5": (32, 0, 256, 0)}
 XMOD_LANGUAGES = ("fr_XX", "en_XX")  # the adapters; the runs train through fr_XX
-# the bf16 pass's depth, T5's own and half the others' (cut from 12 to keep
-# the script inside its time limit: ColBERT and X-MOD SPLADE on model = 2
-# took 28 s and 104 s at 12 layers, nearly all of it in gloo's per-layer
-# all-reduces and X-MOD's 1.5 GB gather of the sliced leaves)
-TRAIN_PARALLEL_BF16_LAYERS = 6
+# the bf16 pass's depth (cut from 12 to 6, then to 4 to make room for
+# [examples], [tpu_tests] and [chunked_impact], to keep the script inside
+# its time limit: ColBERT and X-MOD SPLADE on model = 2 took 28 s and 104 s
+# at 12 layers, nearly all of it in gloo's per-layer all-reduces and X-MOD's
+# 1.5 GB gather of the sliced leaves)
+TRAIN_PARALLEL_BF16_LAYERS = 4
 # steps a pass: two in the f32 pass, whose second step's loss, parameters
 # and update are held to one rank's (the sharded Adam state carried across
 # a step); one in the bf16 pass (cut from 2 to keep the script inside its
@@ -4631,6 +4687,331 @@ def train_parallel_check(torch, device="cuda:0") -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# the examples, the chunked impact probe, tests_tpu's properties
+# ----------------------------------------------------------------------
+EXAMPLES_CPU_THREADS, EXAMPLES_CPU_TIMEOUT = 2, 900
+# [chunked_impact]: the small shape held card vs CPU (docs, vocabulary,
+# postings per (term, chunk), docs per chunk, queries, query terms)
+CHUNKED_SMALL = (100_000, 4_096, 16, 32_768, 8, 64)
+# [tpu_tests]: tests_tpu/test_kernels_tpu.py's shapes (queries, corpus of
+# the binned-vs-exact recall, depth)
+TPU_TESTS_Q, TPU_TESTS_RECALL_DOCS, TPU_TESTS_K = 32, 1_048_576, 1000
+
+
+def examples_cpu_main(workdir: str) -> int:
+    """The three examples on the CPU (a child of this script, started
+    before [train_parallel] so its host work overlaps the ranks' run):
+    what each returned, and the scale example's PLAID index and IVF as
+    built, to ``workdir/cpu.pt``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(EXAMPLES_CPU_THREADS)
+    from fusion_tpu_torch.examples import quickstart, scale_serving, streaming_serving
+
+    out = {}
+    t0 = time.perf_counter()
+    out["quickstart"] = {**quickstart.main("cpu"), "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    scale = scale_serving.main("cpu")
+    searcher = scale.pop("searcher")
+    out["scale"] = {**scale, "colbert_index": searcher.colbert_index, "colbert_ivf": searcher.colbert_ivf,
+                    "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["streaming"] = {**streaming_serving.main("cpu"), "s": time.perf_counter() - t0}
+    torch.save(out, os.path.join(workdir, "cpu.pt"))
+    return 0
+
+
+def start_examples_cpu(workdir: str):
+    """Start examples_cpu_main as a child of this script; stopped at exit
+    if it is still running."""
+    import atexit
+
+    with open(os.path.join(workdir, "examples_cpu.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--examples-cpu", workdir], stdout=log,
+                                stderr=subprocess.STDOUT, cwd=REPO)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def lists_match(np, got, want, atol) -> bool:
+    """Two RankedLists (the card's, the CPU's) equal up to ties within
+    ``atol`` (same_up_to_ties on the host)."""
+    return same_up_to_ties(np, got.ids.cpu().numpy(), got.scores.cpu().numpy(), want.ids.cpu().numpy(),
+                           want.scores.cpu().numpy(), atol)
+
+
+def examples_check(torch, np, proc, workdir, kernels, device="cuda") -> dict:
+    """[examples]: fusion_tpu_torch/examples' three main() on the card, each
+    with every launch count set to 0 just before and read just after, held
+    to the same example on the CPU (the child started before
+    [train_parallel]): quickstart's fused, BM25 candidate and reranked lists
+    up to ties within F32_TIE, its metrics equal, K1 launched (its ColBERT
+    leg); scale_serving over the CPU's PLAID index and IVF (the k-means of
+    two devices may assign a near-equidistant token otherwise; the card's
+    own build is compared with it and reported) with the persistence
+    round-trip the example asserts, its fused and reloaded lists up to ties,
+    K4 launched (PLAID's rescore); streaming_serving's four HTTP answers up
+    to ties within 2e-6 (the server rounds to 6 decimals), /healthz equal."""
+    from fusion_tpu_torch.examples import quickstart, scale_serving, streaming_serving
+    from fusion_tpu_torch.serving import HybridSearcher
+
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=EXAMPLES_CPU_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(os.path.join(workdir, "examples_cpu.log")) as f:
+        log = f.read()
+    check(proc.returncode == 0, f"examples: the CPU run exited {proc.returncode}\n{log[-4000:]}")
+    cpu = torch.load(os.path.join(workdir, "cpu.pt"), weights_only=False)
+    out: dict = {"cpu_wait_s": time.perf_counter() - t0, "cpu_s": {k: v["s"] for k, v in cpu.items()}}
+
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    got = quickstart.main(device)
+    out["quickstart"] = {"s": time.perf_counter() - t0, "launches": counts(*kernels),
+                         "ms_per_query": got["ms_per_query"], "metrics": got["shown"],
+                         "fused_recall@5": got["fused_recall@5"]}
+    want = cpu["quickstart"]
+    check(out["quickstart"]["launches"]["K1"] > 0, "examples quickstart: K1 never launched (its ColBERT leg)")
+    for name in ("fused", "candidates", "reranked"):
+        check(lists_match(np, got[name], want[name], F32_TIE),
+              f"examples quickstart: the card's {name} lists differ from the CPU's beyond ties")
+    check(all(abs(got["metrics"][m] - v) <= 1e-9 for m, v in want["metrics"].items())
+          and got["fused_recall@5"] == want["fused_recall@5"],
+          f"examples quickstart: metrics {got['shown']} vs the CPU's {want['shown']}")
+
+    real_build = HybridSearcher.build.__func__
+    own = {}
+
+    def build_on_cpu_plaid(cls, *a, **kw):
+        searcher = real_build(cls, *a, **kw)
+        own["index"], own["ivf"] = searcher.colbert_index, searcher.colbert_ivf
+        searcher.colbert_index = cpu["scale"]["colbert_index"].to(searcher.device)
+        searcher.colbert_ivf = cpu["scale"]["colbert_ivf"].to(searcher.device)
+        return searcher
+
+    HybridSearcher.build = classmethod(build_on_cpu_plaid)
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    try:
+        got = scale_serving.main(device)
+    finally:
+        HybridSearcher.build = classmethod(real_build)
+    want = cpu["scale"]
+    cents, cpu_cents = own["index"].centroids.float().cpu(), want["colbert_index"].centroids.float()
+    out["scale"] = {"s": time.perf_counter() - t0, "launches": counts(*kernels), "ms_per_query": got["ms_per_query"],
+                    "own_build_centroid_max_diff_vs_cpu": float((cents - cpu_cents).abs().max()),
+                    "own_build_ivf_equal_cpu": bool(torch.equal(own["ivf"].ivf_doc.cpu(),
+                                                                want["colbert_ivf"].ivf_doc))}
+    check(out["scale"]["launches"]["K4"] > 0, "examples scale_serving: K4 never launched (PLAID's rescore)")
+    check(got["systems"] == want["systems"] and got["bm25_impact_shape"] == want["bm25_impact_shape"]
+          and got["ivf_shape"] == want["ivf_shape"], f"examples scale_serving: {got['systems']} vs {want['systems']}")
+    for name in ("ranked", "reloaded"):
+        check(lists_match(np, got[name], want[name], F32_TIE),
+              f"examples scale_serving: the card's {name} lists differ from the CPU's beyond ties")
+    del got
+
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    got = streaming_serving.main(device)
+    want = cpu["streaming"]
+    out["streaming"] = {"s": time.perf_counter() - t0, "launches": counts(*kernels), "answers": got["answers"],
+                        "stats": {k: got["stats"][k] for k in ("requests", "batches")}}
+    for step, answer in got["answers"].items():
+        w = want["answers"][step]
+        check(same_up_to_ties(np, np.array([answer["ids"]]), np.array([answer["scores"]]), np.array([w["ids"]]),
+                              np.array([w["scores"]]), 2e-6),
+              f"examples streaming_serving {step}: {answer} vs the CPU's {w}")
+    check(got["healthz"] == want["healthz"], f"examples streaming_serving: /healthz {got['healthz']}")
+    check(got["stats"]["requests"] == want["stats"]["requests"], f"examples streaming_serving: {got['stats']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunked_impact_check(torch, np, device="cuda", **probe_kw) -> tuple[dict, dict]:
+    """[chunked_impact]: tools/probe_chunked_impact.py at its defaults
+    (mMARCO's shape: 8,912,896 docs, V 32,768, 272 chunks x cap 64, B 64),
+    each stage's ms; then chunked_impact_search at CHUNKED_SMALL on the card
+    against its CPU run over the same postings (CPU-seeded, every odd term's
+    last quarter padded, random query weights), both sort forms: ids equal
+    up to ties and scores within 1e-5 of the row's largest.  Returns (the
+    probe's record, the phase's fields)."""
+    from fusion_tpu_torch.index.inverted import chunked_impact_search
+    from fusion_tpu_torch.tools import probe_chunked_impact as probe
+
+    torch.cuda.reset_peak_memory_stats()
+    record = probe.run(device=device, **probe_kw)
+    out = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, v, capc, dpc, b, kq = CHUNKED_SMALL
+    gen = torch.Generator().manual_seed(41)
+    small = probe.make_index(n, v, capc, dpc, gen, "cpu")
+    small.post_doc[1::2, :, -capc // 4:] = -1  # the uint16 pad 0xFFFF
+    small.post_impact[1::2, :, -capc // 4:] = 0.0
+    qt, _ = probe.make_queries(b, kq, v, gen, "cpu")
+    qw = torch.rand(b, kq, generator=gen) * 1.3 + 0.2
+    card = small._replace(post_doc=small.post_doc.to(device), post_impact=small.post_impact.to(device))
+    for packed in (False, True):
+        want = chunked_impact_search(qt, qw, small, k=1000, local_k=128, packed_sort=packed)
+        got = chunked_impact_search(qt.to(device), qw.to(device), card, k=1000, local_k=128, packed_sort=packed)
+        w, fin = want.scores.numpy(), np.isfinite(want.scores.numpy())
+        tol = 1e-5 * float(np.abs(w[fin]).max())
+        label = "packed" if packed else "sort2"
+        out[f"small_{label}_max_score_diff"] = float(np.abs(got.scores.cpu().numpy()[fin] - w[fin]).max())
+        check(lists_match(np, got, want, tol),
+              f"chunked_impact: the {label} search on the card differs from the CPU's beyond ties within {tol}")
+    return record, out
+
+
+def tpu_tests_check(torch, np, kernels, device="cuda", recall_docs=TPU_TESTS_RECALL_DOCS) -> dict:
+    """[tpu_tests]: the properties of tests_tpu/test_kernels_tpu.py that no
+    other phase holds, at its shapes and tolerances: the blockwise top-k
+    merge equal to one top-k of the whole matrix (ids equal, scores rtol
+    1e-6); K2's binned top-1,000 against the exact int8 search at 1,048,576
+    docs (mean overlap >= 0.97); K2's dead rows (scale 0) losing to real
+    rows of negative similarity, ids and scores equal to the plain version;
+    a 2-layer, hidden-256 bf16 encoder in the flash form (FA) against the
+    einsum form on real positions (atol 0.15, rtol 0.05, least cosine >
+    0.995); PLAID's rescore, gather and factored, through K4 against the
+    plain gather (ids equal, scores rtol 1e-5, atol 1e-6)."""
+    from fusion_tpu_torch.core.ranked import ranked_from_scores
+    from fusion_tpu_torch.index.compression import compress_token_index
+    from fusion_tpu_torch.index.dense_quant import quantize_dense_index, quantized_dense_search
+    from fusion_tpu_torch.index.plaid import build_ivf, plaid_search
+    from fusion_tpu_torch.models.encoder import Encoder, EncoderConfig, init_weights, place, token_tensors
+    from fusion_tpu_torch.ops.attention import masked_attention_cuda
+    from fusion_tpu_torch.ops.dense_topk import fused_dense_topk
+    from fusion_tpu_torch.ops.topk import blockwise_topk
+
+    out: dict = {}
+    q, n, k, block = TPU_TESTS_Q, 8192, TPU_TESTS_K, 1024
+    gen = torch.Generator(device=device).manual_seed(3)
+    scores = torch.randn(q, n, device=device, generator=gen)
+
+    def block_scores(bi):
+        ids = bi * block + torch.arange(block, device=device, dtype=torch.int32)
+        return scores[:, bi * block:(bi + 1) * block], ids.expand(q, block)
+
+    got, want = blockwise_topk(block_scores, n // block, q, k), ranked_from_scores(scores, k)
+    check(torch.equal(got.ids, want.ids) and torch.allclose(got.scores, want.scores, rtol=1e-6, atol=0.0),
+          "tpu_tests blockwise_topk: the merged top-k differs from the one-shot top-k")
+    out["blockwise_topk_exact"] = True
+
+    # K2 against the exact int8 search at corpus scale (the corpus made on
+    # the card; bin collisions lose ~ k^2 / (2 * bins) docs a query)
+    gen = torch.Generator(device=device).manual_seed(6)
+    corpus = torch.randn(recall_docs, 768, device=device, generator=gen)
+    index = quantize_dense_index(corpus, similarity="cos_sim")
+    del corpus
+    queries = torch.randn(q, 768, device=device, generator=gen)
+    reset_counts(*kernels)
+    got = fused_dense_topk(queries, index, k=k)
+    k2 = counts(*kernels)["K2"]
+    exact = quantized_dense_search(queries, index, k=k)
+    g_ids, w_ids = got.ids.cpu().numpy(), exact.ids.cpu().numpy()
+    overlaps = [len(set(g_ids[i].tolist()) & set(w_ids[i].tolist())) / k for i in range(q)]
+    out["fused_dense_vs_exact"] = {"docs": recall_docs, "mean_overlap": float(np.mean(overlaps)),
+                                   "min_overlap": float(np.min(overlaps)), "K2": k2}
+    check(k2 > 0 and out["fused_dense_vs_exact"]["mean_overlap"] >= 0.97,
+          f"tpu_tests fused_dense_topk vs exact: {out['fused_dense_vs_exact']}")
+    del index, got, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # dead rows: one real doc per 2,048-row block, the query anti-aligned
+    blk, nblocks, h = 2048, 8, 128
+    real_rows = np.arange(nblocks) * blk
+    vals = torch.zeros(blk * nblocks, h, dtype=torch.int8)
+    vals[real_rows, 0] = torch.arange(1, nblocks + 1, dtype=torch.int8)
+    scales = torch.zeros(blk * nblocks)
+    scales[real_rows] = 1.0 / 127
+    qd = torch.zeros(4, h)
+    qd[:, 0] = -1.0
+    dead = (vals.to(device), scales.to(device), False)
+    reset_counts(*kernels)
+    got = fused_dense_topk(qd.to(device), dead, k=nblocks, doc_block=blk)
+    k2 = counts(*kernels)["K2"]
+    with plain_kernels():
+        want = fused_dense_topk(qd.to(device), dead, k=nblocks, doc_block=blk)
+    g_ids, g_sc = got.ids.cpu().numpy(), got.scores.cpu().numpy()
+    fin = np.isfinite(g_sc)
+    check(k2 > 0 and np.array_equal(g_ids, want.ids.cpu().numpy())
+          and np.allclose(g_sc, want.scores.cpu().numpy(), rtol=1e-6, atol=1e-7, equal_nan=False)
+          and all(set(g_ids[i][fin[i]].tolist()) == set(real_rows.tolist()) for i in range(4))
+          and bool((g_sc[fin] < 0).all()) and bool((g_ids[~fin] == -1).all()),
+          f"tpu_tests dead rows: ids {g_ids} scores {g_sc}")
+    out["dense_dead_rows"] = {"K2": k2}
+
+    # the flash form against einsum: the same weights, bf16, a padded batch
+    kw = dict(vocab_size=1024, hidden_size=256, num_layers=2, num_heads=4, intermediate_size=512, dropout=0.0,
+              dtype=torch.bfloat16)
+    forms = {}
+    for impl in ("einsum", "flash"):
+        module = Encoder(EncoderConfig(attention_impl=impl, **kw))
+        init_weights(module, 12)
+        forms[impl] = place(module, torch.bfloat16, device)
+    rng = np.random.default_rng(12)
+    b, length = 8, 128
+    lens = rng.integers(16, length + 1, size=b)
+    mask_np = (np.arange(length)[None] < lens[:, None]).astype(np.int32)
+    ids, mask = token_tensors(rng.integers(5, 1000, size=(b, length)), mask_np, device)
+    with torch.no_grad():
+        he = forms["einsum"](ids, mask).float()
+        before = masked_attention_cuda.launches
+        hf = forms["flash"](ids, mask).float()
+        fa = masked_attention_cuda.launches - before
+    m = mask[..., None].float()
+    a, c = (he * m).reshape(-1, 256), (hf * m).reshape(-1, 256)
+    keep = a.norm(dim=1) > 0
+    cos = (a[keep] * c[keep]).sum(1) / (a[keep].norm(dim=1) * c[keep].norm(dim=1) + 1e-9)
+    out["flash_encoder_parity"] = {"max_abs_diff": float((a - c).abs().max()), "min_cos": float(cos.min()), "FA": fa}
+    check(fa > 0 and torch.allclose(he * m, hf * m, atol=0.15, rtol=0.05) and float(cos.min()) > 0.995,
+          f"tpu_tests flash encoder parity: {out['flash_encoder_parity']}")
+    del forms
+
+    # PLAID's rescore through K4 against the plain gather, both forms
+    rng = np.random.default_rng(6)
+    n, ld, d = 2048, 16, 64
+    toks = rng.standard_normal((n, ld, d), dtype=np.float32)
+    toks /= np.linalg.norm(toks, axis=-1, keepdims=True)
+    tmask = (rng.random((n, ld)) > 0.2).astype(np.float32)
+    tmask[:, 0] = 1.0
+    index = compress_token_index(torch.from_numpy(toks).to(device), torch.from_numpy(tmask).to(device),
+                                 num_centroids=128, nbits=2, seed=0)
+    ivf = build_ivf(index.centroid_ids, index.mask, 128, cap=256)
+    q_tok = rng.standard_normal((4, 8, d), dtype=np.float32)
+    q_tok = torch.from_numpy(q_tok / np.linalg.norm(q_tok, axis=-1, keepdims=True)).to(device)
+    q_mask = torch.ones(4, 8, device=device)
+    for impl in ("gather", "factored"):
+        kw = dict(k=64, nprobe=4, ncand=512, cand_chunk=256, ncand_rescore=256, rescore_impl=impl)
+        reset_counts(*kernels)
+        got = plaid_search(q_tok, q_mask, index, ivf, **kw)
+        k4 = counts(*kernels)["K4"]
+        with plain_kernels():
+            want = plaid_search(q_tok, q_mask, index, ivf, **kw)
+        out[f"plaid_rescore_{impl}"] = {"K4": k4,
+                                        "max_score_diff": float((got.scores - want.scores).abs().nan_to_num().max())}
+        check(k4 > 0 and torch.equal(got.ids, want.ids)
+              and torch.allclose(got.scores, want.scores, rtol=1e-5, atol=1e-6),
+              f"tpu_tests plaid rescore {impl}: through K4 vs the plain gather {out[f'plaid_rescore_{impl}']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4642,7 +5023,11 @@ def main() -> int:
     ap.add_argument("--rank-dir", help=argparse.SUPPRESS)
     ap.add_argument("--rank-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank-device", default="cuda:0", help=argparse.SUPPRESS)
+    # [examples]' CPU run (the script starts it itself)
+    ap.add_argument("--examples-cpu", dest="examples_cpu", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.examples_cpu is not None:
+        return examples_cpu_main(args.examples_cpu)
     if args.sharded_rank is not None:
         return sharded_rank_main(args.sharded_rank, args.rank_dir, args.rank_port, args.rank_device)
     if args.train_parallel_rank is not None:
@@ -4704,10 +5089,31 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         t0 = time.perf_counter()
         phase("cli_train", t0, gpu=repr(smi), **cli_train_check(torch, np, root, kernels))
+    # the examples' CPU run, a child process whose host work overlaps the
+    # two ranks' run
+    examples_work = tempfile.TemporaryDirectory(prefix="chip_smoke_examples_")
+    examples_cpu = start_examples_cpu(examples_work.name)
     # data- and tensor-parallel training: two ranks sharing the card
     t0 = time.perf_counter()
     train_parallel = train_parallel_check(torch)
     phase("train_parallel", t0, gpu=repr(smi), **train_parallel)
+
+    # this slice's paths: the examples (K1 in quickstart, K4 in
+    # scale_serving), tests_tpu's properties, the chunked impact probe
+    t0 = time.perf_counter()
+    examples = examples_check(torch, np, examples_cpu, examples_work.name, kernels)
+    examples_work.cleanup()
+    phase("examples", t0, gpu=repr(smi), **examples)
+    t0 = time.perf_counter()
+    tpu_tests = tpu_tests_check(torch, np, kernels)
+    phase("tpu_tests", t0, gpu=repr(smi), **tpu_tests)
+    t0 = time.perf_counter()
+    chunked_record, chunked = chunked_impact_check(torch, np)
+    print(json.dumps(chunked_record), flush=True)
+    phase("chunked_impact", t0, gpu=repr(smi), **chunked,
+          **{k: v for k, v in chunked_record["detail"].items() if k.endswith("_ms")})
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     ql = BATCH * LQ
@@ -5048,8 +5454,13 @@ def main() -> int:
     # full one, served while it takes updates; the C++ posting builders; the
     # dataset loaders through the CLI
     t0 = time.perf_counter()
-    seg_out, seg = segmented_check(torch, np, docs, queries, index_kw, searcher, kernels)
-    phase("segmented", t0, gpu=repr(smi), **seg_out)
+    seg_docs = docs[:SEG_DOCS]
+    seg_full = HybridSearcher.build(dict(enumerate(seg_docs)), bm25_docs=seg_docs,
+                                    **{**index_kw, "cross_encoder": None, "rerank_depth": 0})
+    seg_full_s = time.perf_counter() - t0
+    seg_out, seg = segmented_check(torch, np, seg_docs, queries, index_kw, seg_full, kernels)
+    del seg_full
+    phase("segmented", t0, gpu=repr(smi), docs=SEG_DOCS, full_build_s=seg_full_s, **seg_out)
     t0 = time.perf_counter()
     phase("segmented_server", t0, gpu=repr(smi), **segmented_server_check(torch, np, seg, queries))
     del seg
@@ -5077,7 +5488,7 @@ def main() -> int:
     roofline = roofline_check(torch, np, docs, (dense, splade, colbert), kernels)
     phase("roofline", t0, gpu=repr(smi), host_peak_rss_gib=host_rss_gib(), **roofline)
     t0 = time.perf_counter()
-    phase("studies", t0, gpu=repr(smi), **studies_check(torch), host_peak_rss_gib=host_rss_gib())
+    phase("studies", t0, gpu=repr(smi), **studies_check(torch, np), host_peak_rss_gib=host_rss_gib())
 
     bm25 = searcher.bm25
     # the slice's cross-encoder doc tokens, for [sharded]'s rerank
@@ -5277,17 +5688,20 @@ def main() -> int:
               k1_err, k1_ms, k1_plain, k1_bound, segmented_launches=seg_out["search_launches"]["K1"],
               sharded_launches=sharded_launches["K1"], sharded_server_launches=server_launches["K1"],
               lleqa_parity_launches=lleqa["full_launches"]["K1"], recall_study_launches=recall["launches"]["K1"],
-              roofline_launches=roofline["K1"]),
+              roofline_launches=roofline["K1"], examples_launches=examples["quickstart"]["launches"]["K1"]),
         entry("dense_binmax", "dense_topk.cu", "fusion_tpu/ops/dense_topk.py:102", mm4_counts["K2"],
               k2_err, k2_ms, k2_plain, k2_bound, sharded_launches=sharded_launches["K2"],
-              sharded_server_launches=server_launches["K2"], recall_study_launches=recall["launches"]["K2"]),
+              sharded_server_launches=server_launches["K2"], recall_study_launches=recall["launches"]["K2"],
+              tpu_tests_launches=tpu_tests["fused_dense_vs_exact"]["K2"] + tpu_tests["dense_dead_rows"]["K2"]),
         entry("scatter_binmax", "scatter_score.cu", "fusion_tpu/ops/scatter_score.py:138",
               mm4_counts["K3"], k3_err, k3_ms, k3_plain, k3_bound, sharded_launches=sharded_launches["K3"],
               sharded_server_launches=server_launches["K3"], recall_study_launches=recall["launches"]["K3"]),
         # the library call of K4's function is index_select, its plain version
         entry("gather_rows", "gather_rows.cu", "fusion_tpu/ops/gather_rows.py:41", mm4_counts["K4"],
               k4_err, k4_ms, k4_plain, k4_bound, library_ms=k4_plain, sharded_launches=sharded_launches["K4"],
-              sharded_server_launches=server_launches["K4"], recall_study_launches=recall["launches"]["K4"]),
+              sharded_server_launches=server_launches["K4"], recall_study_launches=recall["launches"]["K4"],
+              examples_launches=examples["scale"]["launches"]["K4"],
+              tpu_tests_launches=sum(tpu_tests[f"plaid_rescore_{f}"]["K4"] for f in ("gather", "factored"))),
         entry("maxsim_fused", "maxsim.cu",
               "fusion_tpu/ops/maxsim.py:67; scripts/bench_maxsim.py:55", variant_counts["K1-v1"],
               k1v1_err, k1v1_ms, k1v1_plain, k1v1_bound),
@@ -5314,7 +5728,8 @@ def main() -> int:
               shapes={c: attention_shape(attn[c], ATTENTION_KERNELS[:1]) for c in ("packed", "bench_doc")},
               sharded_launches=sharded_launches["FA"], sharded_server_launches=server_launches["FA"],
               parallel_launches=train_parallel["launches"]["FA"],
-              parallel_launches_by_run={n: v["FA"] for n, v in train_parallel["launches_by_run"].items()}),
+              parallel_launches_by_run={n: v["FA"] for n, v in train_parallel["launches_by_run"].items()},
+              tpu_tests_launches=tpu_tests["flash_encoder_parity"]["FA"]),
         # FA's backward (the D pass, dK/dV and dQ kernels): launches in
         # [train_flash]'s flash run (this slice's path), times at one layer's
         # doc call of that step, the library call scaled_dot_product_attention's

@@ -36,7 +36,9 @@ posting builders of ``native/``), the mMARCO and Mr. TyDi loaders from local
 record files (``data/mmarco.py``, ``data/mrtydi.py``); and the multi-device
 serving tier (``parallel/``: one process per card on ``torch.distributed``;
 ``serving_sharded.py``'s ``ShardedHybridSearcher``, the sharded index forms,
-sharded segments).
+sharded segments); and walkthroughs of the public API (``examples/``:
+``python -m fusion_tpu_torch.examples.quickstart``, ``scale_serving``,
+``streaming_serving``).
 """
 
 __version__ = "0.1.0"
