@@ -491,7 +491,7 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 PLAID leg through K4 against the same leg with the plain
                 gather (top-100 overlap >= 0.99, max score difference
                 reported); the served ColBERT leg traced on one batch: device
-                time inside each plaid.* profiler range of index/plaid.py,
+                time inside each plaid.* span of index/plaid.py,
                 device operations and stream time per call; warm timing and
                 peak memory of the four-leg searcher.
 
@@ -614,11 +614,14 @@ def timed_ms(torch, fn, runs: int) -> list[float]:
 
 def device_events(prof) -> list:
     """The device operations of a torch.profiler trace (kernels, copies,
-    fills), without the device-side spans of ``record_function`` ranges."""
+    fills), without the device-side spans of ``record_function`` ranges
+    (the program's spans are ``fusion.*``)."""
+    from fusion_tpu_torch.utils.profiling import PREFIX
+
     return [
         e for e in prof.events()
         if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
-        and not e.name.startswith("plaid.")
+        and not e.name.startswith(PREFIX + ".")
     ]
 
 
@@ -1793,8 +1796,8 @@ def plaid_leg_vs_plain(torch, np, searcher, batch) -> tuple[float, float]:
 
 def plaid_breakdown(torch, searcher, batch, runs=3) -> dict:
     """The served ColBERT leg (query encoder + ``plaid_search``) on one
-    batch, traced with torch.profiler over ``runs`` calls: per ``plaid.*``
-    range of ``index/plaid.py``, the device time (ms per call) of the
+    batch, traced with torch.profiler and the program's spans over ``runs``
+    calls: per ``plaid.*`` span of ``index/plaid.py``, the device time (ms per call) of the
     device operations that ran inside the range's device-side span (one
     stream, so exactly those launched inside the range, nested ranges
     included; the gaps between them are not counted); K4's traced device
@@ -1805,25 +1808,27 @@ def plaid_breakdown(torch, searcher, batch, runs=3) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from fusion_tpu_torch.ops.gather_rows import gather_rows_cuda
+    from fusion_tpu_torch.utils.profiling import PREFIX, tracing
 
     inputs = searcher._prepare_inputs(batch)
     leg = lambda: searcher._colbert_leg(inputs)  # noqa: E731
     stream = statistics.median(timed_ms(torch, leg, runs))
     torch.cuda.synchronize()
     launches = gather_rows_cuda.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    stage = PREFIX + ".plaid."
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, tracing():
         for _ in range(runs):
             leg()
         torch.cuda.synchronize()
     launches = (gather_rows_cuda.launches - launches) / runs
     ops = device_events(prof)
-    spans = [e for e in prof.events() if e.device_type.name == "CUDA" and e.name.startswith("plaid.")]
-    check(bool(spans), "PLAID breakdown: the trace holds no device-side span of a plaid.* range")
+    spans = [e for e in prof.events() if e.device_type.name == "CUDA" and e.name.startswith(stage)]
+    check(bool(spans), f"PLAID breakdown: the trace holds no device-side span of a {stage}* range")
     out = {}
     for span in spans:
         lo, hi = span.time_range.start, span.time_range.end
         inside = sum(e.self_device_time_total for e in ops if lo <= e.time_range.start and e.time_range.end <= hi)
-        key = f"{span.name[len('plaid.'):]}_device_ms"
+        key = f"{span.name[len(stage):]}_device_ms"
         out[key] = out.get(key, 0.0) + inside / 1000 / runs
     k4 = [e for e in ops if "gather_rows_kernel" in e.name]
     out["k4_traced_device_ms"] = sum(e.self_device_time_total for e in k4) / 1000 / runs
@@ -1994,6 +1999,8 @@ def profile_search(torch, searcher, queries, name) -> None:
     """Device busy share of one warm search, and its top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
+    from fusion_tpu_torch.utils.profiling import PREFIX
+
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2005,7 +2012,7 @@ def profile_search(torch, searcher, queries, name) -> None:
     events = [
         e for e in averages
         if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
-        and not e.key.startswith("plaid.")
+        and not e.key.startswith(PREFIX + ".")
     ]
     dev_ms = sum(e.self_device_time_total for e in events) / 1000
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]

@@ -26,7 +26,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from fusion_tpu_torch.core.device import resolve_device
 from fusion_tpu_torch.core.ranked import RankedLists, stable_topk
@@ -36,6 +35,7 @@ from fusion_tpu_torch.ops.mips import bmm_f32, matmul_f32
 from fusion_tpu_torch.ops.segscan import segmented_run_totals
 from fusion_tpu_torch.ops.topk import blockwise_topk
 from fusion_tpu_torch.parallel.sharding import INDEX_AXIS, default_index_rank, globalize, merge_shards
+from fusion_tpu_torch.utils.profiling import span
 
 
 class IVFIndex(NamedTuple):
@@ -120,9 +120,9 @@ def _probe(q_flat: torch.Tensor, cents_b: torch.Tensor, nprobe: int, chunk: int)
     scores = torch.empty((ql, nprobe), dtype=torch.float32, device=q_flat.device)
     ids = torch.empty((ql, nprobe), dtype=torch.int64, device=q_flat.device)
     for s in range(0, ql, chunk):
-        with record_function("plaid.probe_matmul"):
+        with span("plaid.probe_matmul"):
             cs = matmul_f32(q_flat[s : s + chunk], cents_b.T)  # [chunk, C]
-        with record_function("plaid.probe_select"):
+        with span("plaid.probe_select"):
             for j in range(nprobe):
                 best = torch.argmax(cs, dim=1, keepdim=True)
                 scores[s : s + chunk, j] = torch.gather(cs, 1, best)[:, 0]
@@ -170,7 +170,7 @@ def plaid_candidates(
     if n_docs * l2 >= 2**31:
         raise ValueError(f"combined (doc, token) key overflows int32: {n_docs} docs × {l2}")
     combined = torch.where(docs < n_docs, docs * l2 + tok_of, n_docs * l2)
-    with record_function("plaid.candidate_sort"):
+    with span("plaid.candidate_sort"):
         combined_s, perm = torch.sort(combined, dim=1, stable=True)
         v = torch.gather(vals, 1, perm).to(torch.float32)
     docs_s = combined_s >> (l2.bit_length() - 1)
@@ -207,7 +207,7 @@ def _centroid_score_table(q_tok: torch.Tensor, centroids: torch.Tensor) -> torch
 def _gather_cand_rows(srcs, safe: torch.Tensor):
     """Candidate rows of every source, through ``gather_rows`` (the gather
     kernel on the card, the plain gather on the CPU)."""
-    with record_function("plaid.gather"):
+    with span("plaid.gather"):
         return gather_rows(srcs, safe)
 
 
@@ -345,16 +345,17 @@ def plaid_search(
     ``ncand_rescore`` caps how many candidates reach the exact tier (None or
     ≥ ncand disables the prune tier).  ``rescore_impl``: 'gather' reads a
     centroid row per candidate token; 'factored' reuses the centroid-score
-    table.  Each stage runs in a ``plaid.*`` ``torch.profiler`` range
-    (candidates, probe_matmul, probe_select, candidate_sort, prune, rescore,
-    gather), so a trace attributes the device time to it."""
+    table.  Each stage runs in a ``plaid.*`` span (candidates, probe_matmul,
+    probe_select, candidate_sort, prune, rescore, gather): under
+    ``utils.profiling.tracing()`` a ``torch.profiler`` range
+    ``fusion.plaid.<stage>``, so a trace attributes the device time to it."""
     if rescore_impl not in ("gather", "factored"):
         raise ValueError(f"rescore_impl must be 'gather' or 'factored', got {rescore_impl!r}")
     # keep ncand a multiple of cand_chunk so the rescore chunks tile it
     ncand = min(ncand, max(ivf.n_docs, 1))
     cand_chunk = min(cand_chunk, ncand)
     ncand -= ncand % cand_chunk
-    with record_function("plaid.candidates"):
+    with span("plaid.candidates"):
         cand, _ = plaid_candidates(
             q_tok, q_mask, index.centroids, ivf.ivf_doc, ivf.n_docs, nprobe=nprobe, ncand=ncand,
         )
@@ -365,12 +366,12 @@ def plaid_search(
         cs = _centroid_score_table(q_tok, index.centroids)
     if prune:
         nr = max(ncand_rescore - ncand_rescore % cand_chunk, cand_chunk)
-        with record_function("plaid.prune"):
+        with span("plaid.prune"):
             cand = _plaid_centroid_prune(
                 q_tok, q_m, index.centroids, index.centroid_ids, index.mask, cand, ncand2=nr, cs=cs,
             )
         ncand = nr
-    with record_function("plaid.rescore"):
+    with span("plaid.rescore"):
         if rescore_impl == "factored":
             return _plaid_rescore_factored(
                 q_tok, q_m, cs, index, cand, k=min(k, ncand), cand_chunk=cand_chunk

@@ -70,6 +70,7 @@ from fusion_tpu_torch.models.encoder import (
     token_tensors,
 )
 from fusion_tpu_torch.models.heads import CrossEncoderHead
+from fusion_tpu_torch.utils.profiling import count, enabled, span
 
 # chunk-count grid of the packed plan and the bucketed stage: dense through
 # 16, then ~12 % steps.  Snapping a count to it fixes the padding (and so the
@@ -98,6 +99,25 @@ class CrossEncoderModule(nn.Module):
         its own CLS slot at ``(gather_row[p], gather_col[p])``."""
         hidden = self.encoder(input_ids, attention_mask, position_ids, segment_ids)
         return self.head(hidden[gather_row, gather_col][:, None, :])
+
+
+def _count_rows(n_rows: int, width: int, plen) -> None:
+    """The rerank's counters for ``n_rows`` scored rows of ``width`` slots
+    whose pairs attend to ``plen`` tokens each (a host array, or a device
+    tensor read when the record is): rows, the pairs' tokens against the
+    rows' slots, and attention's token pairs (a pair's tokens attend only to
+    each other) against the rows' width²."""
+    if isinstance(plen, np.ndarray):
+        plen = plen.astype(np.int64)
+        tokens, pairs = int(plen.sum()), int((plen * plen).sum())
+    else:
+        plen = plen.long()
+        tokens, pairs = plen.sum(), (plen * plen).sum()
+    count("rerank.rows", n_rows)
+    count("rerank.row_tokens", tokens)
+    count("rerank.row_slots", n_rows * width)
+    count("rerank.attn_pairs", pairs)
+    count("rerank.attn_slots", n_rows * width * width)
 
 
 def assemble_pair_rows(desc, q_ids, drows, R: int, W: int, cls_id, sep_id, pad_id, pos_start: int, pos_pad: int):
@@ -196,6 +216,8 @@ class PairRerankMixin:
         """[n, L] pair tokens → [n] logits, ``pair_chunk`` pairs per forward
         to bound activation memory."""
         n = flat_ids.shape[0]
+        if enabled():  # one pair a row: the flat, cascade and bucketed stages
+            _count_rows(n, flat_ids.shape[1], flat_mask.sum(dim=1))
         out = torch.empty(n, dtype=torch.float32, device=flat_ids.device)
         for s in range(0, n, max(1, pair_chunk)):
             out[s : s + pair_chunk] = self.score_tokens(flat_ids[s : s + pair_chunk], flat_mask[s : s + pair_chunk])
@@ -300,33 +322,37 @@ class PairRerankMixin:
         its chunk, filler pairs included in the work."""
         qn, kr = head_ids.shape
         n_docs, ld_full = doc_tokens.shape
-        flat = head_ids.reshape(-1).astype(np.int64)
-        valid = flat >= 0
-        safe = np.clip(flat, 0, n_docs - 1)
-        lens = np.where(valid, np.asarray(doc_lens)[safe], 0)
-        if buckets is None:
-            buckets = self.aligned_buckets(int(q_ids.shape[1]), ld_full)
-        # the last rung must hold every stored doc width
-        ladder = sorted({int(b) for b in buckets if b > 0})
-        if not ladder or ladder[-1] < ld_full:
-            ladder.append(ld_full)
-        bidx = np.searchsorted(np.asarray(ladder), lens)
         n = qn * kr
+        with span("rerank.plan"):
+            flat = head_ids.reshape(-1).astype(np.int64)
+            valid = flat >= 0
+            safe = np.clip(flat, 0, n_docs - 1)
+            lens = np.where(valid, np.asarray(doc_lens)[safe], 0)
+            if buckets is None:
+                buckets = self.aligned_buckets(int(q_ids.shape[1]), ld_full)
+            # the last rung must hold every stored doc width
+            ladder = sorted({int(b) for b in buckets if b > 0})
+            if not ladder or ladder[-1] < ld_full:
+                ladder.append(ld_full)
+            bidx = np.searchsorted(np.asarray(ladder), lens)
+            rungs = []
+            for bi, ld in enumerate(ladder):
+                sel = np.nonzero(bidx == bi)[0]
+                if sel.size == 0:
+                    continue
+                pc = min(pair_chunk, max(256, 1 << (sel.size - 1).bit_length()))
+                units = -(-sel.size // pc)
+                nchunks = next((g for g in _BUCKET_CHUNK_GRID if g >= units), units)
+                cap = nchunks * pc
+                packed = np.zeros((4, cap), np.int32)
+                packed[0, : sel.size] = sel // kr
+                packed[1, : sel.size] = safe[sel]
+                packed[2, : sel.size] = valid[sel]
+                packed[3, :] = n
+                packed[3, : sel.size] = sel
+                rungs.append((ld, pc, packed))
         buf = torch.zeros(n + 1, dtype=torch.float32, device=doc_tokens.device)  # slot n: the spill
-        for bi, ld in enumerate(ladder):
-            sel = np.nonzero(bidx == bi)[0]
-            if sel.size == 0:
-                continue
-            pc = min(pair_chunk, max(256, 1 << (sel.size - 1).bit_length()))
-            units = -(-sel.size // pc)
-            nchunks = next((g for g in _BUCKET_CHUNK_GRID if g >= units), units)
-            cap = nchunks * pc
-            packed = np.zeros((4, cap), np.int32)
-            packed[0, : sel.size] = sel // kr
-            packed[1, : sel.size] = safe[sel]
-            packed[2, : sel.size] = valid[sel]
-            packed[3, :] = n
-            packed[3, : sel.size] = sel
+        for ld, pc, packed in rungs:
             buf = self._bucket_score_scatter(
                 ld, pc, q_ids, q_mask, doc_tokens, doc_mask, torch.as_tensor(packed, device=buf.device), buf
             )
@@ -458,14 +484,19 @@ class PairRerankMixin:
         ``doc_mask`` is not read (token counts stand in for contiguous
         masks).  Only rows that hold a pair are scored: the plan's chunks past
         the last packed row, and the empty rows of the last busy chunk, are
-        skipped (their table entries are all fillers)."""
+        skipped (their table entries are all fillers).  The plan runs in the
+        host-only span ``rerank.plan``, which counts the scored rows' fill
+        under tracing (``_count_rows``)."""
         del doc_mask
         qn, kr = head_ids.shape
-        desc, tables, width, nchunks, rpc, pc_cap = self.plan_packed(
-            head_ids, doc_lens, q_lens, int(q_ids.shape[1]), int(doc_tokens.shape[1]),
-            int(doc_tokens.shape[0]), row_width=row_width, rows_per_chunk=rows_per_chunk,
-        )
-        n_rows = int(desc[2].max()) + 1 if desc.shape[1] else 0
+        with span("rerank.plan"):
+            desc, tables, width, nchunks, rpc, pc_cap = self.plan_packed(
+                head_ids, doc_lens, q_lens, int(q_ids.shape[1]), int(doc_tokens.shape[1]),
+                int(doc_tokens.shape[0]), row_width=row_width, rows_per_chunk=rows_per_chunk,
+            )
+            n_rows = int(desc[2].max()) + 1 if desc.shape[1] else 0
+            if enabled():
+                _count_rows(n_rows, width, self.PAIR_SPECIALS + desc[4] + desc[5])
         dev = doc_tokens.device
         desc_t = torch.as_tensor(desc, device=dev)
         tables_t = torch.as_tensor(tables, device=dev).long()

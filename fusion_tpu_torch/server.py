@@ -9,7 +9,10 @@ dependency-free HTTP server:
                     "batch_ms": ...}
   * GET  /healthz  → {"ok": true, "systems": [...], "corpus_docs": N}
                    (a segmented searcher's live ``n_docs``)
-  * GET  /stats    → request/batch/query counters and latency aggregates
+  * GET  /stats    → request/batch/query counters and latency aggregates:
+                   ``queue_wait_ms_total`` sums, over the ``dispatched``
+                   requests, the time from a request's enqueue to the start
+                   of the search call of the batch that carries it
 
 One dispatcher owns the searcher:
 
@@ -72,6 +75,7 @@ import numpy as np
 
 from fusion_tpu_torch.parallel import sharding
 from fusion_tpu_torch.parallel.sharding import INDEX_AXIS
+from fusion_tpu_torch.utils.profiling import span
 
 __all__ = ["SearchServer", "serve_forever"]
 
@@ -95,6 +99,8 @@ class _Pending:
     scores: list[list[float]] | None = None
     error: str | None = None
     batch_ms: float = 0.0
+    enqueued: float = field(default_factory=time.perf_counter)
+    started: float | None = None  # when its batch's search call started
 
     def fail(self, e: BaseException) -> None:
         self.error = f"{type(e).__name__}: {e}"
@@ -150,6 +156,8 @@ class SearchServer:
             "batches": 0,
             "errors": 0,
             "batch_ms_total": 0.0,
+            "queue_wait_ms_total": 0.0,
+            "dispatched": 0,
         }
         self._failure: BaseException | None = None
         self._failure_lock = threading.Lock()  # no request is queued after a failure drained the queue
@@ -229,6 +237,9 @@ class SearchServer:
                 with server._stats_lock:
                     server.stats["requests"] += 1
                     server.stats["queries"] += len(pending.queries)
+                    if pending.started is not None:
+                        server.stats["dispatched"] += 1
+                        server.stats["queue_wait_ms_total"] += (pending.started - pending.enqueued) * 1000.0
                 if pending.error is not None:
                     with server._stats_lock:
                         server.stats["errors"] += 1
@@ -390,7 +401,8 @@ class SearchServer:
                 if held is not None:
                     first, held = held, None
                 else:
-                    first = self._take()
+                    with span("serve.take"):
+                        first = self._take()
                 if first is _IDLE:
                     self._send(("idle",))
                     continue
@@ -404,19 +416,20 @@ class SearchServer:
                 n = len(first.queries)
                 deadline = time.perf_counter() + self.max_wait_ms / 1000.0
                 # coalesce until the batch is full or the wait budget is spent
-                while n < self.max_batch:
-                    remaining = deadline - time.perf_counter()
-                    if remaining <= 0:
-                        break
-                    try:
-                        nxt = self._queue.get(timeout=remaining)
-                    except queue.Empty:
-                        break
-                    if not isinstance(nxt, _Pending):
-                        held = nxt  # runs after this batch, in arrival order
-                        break
-                    batch.append(nxt)
-                    n += len(nxt.queries)
+                with span("serve.coalesce"):
+                    while n < self.max_batch:
+                        remaining = deadline - time.perf_counter()
+                        if remaining <= 0:
+                            break
+                        try:
+                            nxt = self._queue.get(timeout=remaining)
+                        except queue.Empty:
+                            break
+                        if not isinstance(nxt, _Pending):
+                            held = nxt  # runs after this batch, in arrival order
+                            break
+                        batch.append(nxt)
+                        n += len(nxt.queries)
                 self._run_batch(batch)
         except BaseException as e:  # the ranks are out of step: the server ends
             self._fail(e)
@@ -471,6 +484,8 @@ class SearchServer:
         # same batches
         queries = queries + [""] * (-n_real % self.max_batch)
         t0 = time.perf_counter()
+        for p in batch:
+            p.started = t0
         message = ("search", queries, self.max_batch)
         self._send(message)
         try:
@@ -488,19 +503,20 @@ class SearchServer:
         with self._stats_lock:
             self.stats["batches"] += 1
             self.stats["batch_ms_total"] += batch_ms
-        row = 0
-        for p in batch:
-            p.ids, p.scores = [], []
-            for _ in p.queries:
-                qi = slot_of[row]  # dedup: duplicate strings share one row
-                row += 1
-                # rows are score-descending with -inf pads at the tail, so
-                # the finite entries are a prefix
-                kr = min(p.topk, int(np.isfinite(scores[qi]).sum()))
-                p.ids.append(ids[qi][:kr].astype(int).tolist())
-                p.scores.append([round(float(x), 6) for x in scores[qi][:kr]])
-            p.batch_ms = batch_ms
-            p.event.set()
+        with span("serve.fanout"):
+            row = 0
+            for p in batch:
+                p.ids, p.scores = [], []
+                for _ in p.queries:
+                    qi = slot_of[row]  # dedup: duplicate strings share one row
+                    row += 1
+                    # rows are score-descending with -inf pads at the tail, so
+                    # the finite entries are a prefix
+                    kr = min(p.topk, int(np.isfinite(scores[qi]).sum()))
+                    p.ids.append(ids[qi][:kr].astype(int).tolist())
+                    p.scores.append([round(float(x), 6) for x in scores[qi][:kr]])
+                p.batch_ms = batch_ms
+                p.event.set()
 
 
 def serve_forever(searcher, host: str = "0.0.0.0", port: int = 8080, **kw) -> None:

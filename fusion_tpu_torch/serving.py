@@ -90,6 +90,7 @@ from fusion_tpu_torch.ops.dense_topk import fused_dense_topk
 from fusion_tpu_torch.ops.maxsim import maxsim_search_tm
 from fusion_tpu_torch.ops.mips import dense_search, matmul_f32
 from fusion_tpu_torch.ops.scatter_score import MAX_POSTING_WIDTH, scatter_impact_search
+from fusion_tpu_torch.utils.profiling import span
 
 _PERCENTILE_NORMALIZATIONS = ("percentile-rank", "normal-curve-equivalent")
 
@@ -777,96 +778,108 @@ class HybridSearcher:
 
     def _prepare_inputs(self, chunk: Sequence[str]) -> dict[str, torch.Tensor]:
         """Host side of a batch: tokenize queries for every active system and
-        upload the token arrays."""
-        inputs: dict[str, torch.Tensor] = {}
-        if self.bm25 is not None:
-            bm25_chunk = (
-                self.bm25_preprocess(chunk) if self.bm25_preprocess is not None else chunk
-            )
-            terms, weights = self.bm25.encode_queries_np(bm25_chunk)
-            self._check_impact_cap_guard(terms)
-            inputs["bm25_terms"] = torch.as_tensor(terms.astype(np.int64), device=self.device)
-            inputs["bm25_weights"] = torch.as_tensor(weights, device=self.device)
-        # each encoder tokenizes with ITS OWN text encoder (checkpoints may
-        # differ in tokenizer, prefix or max length)
-        dense_te = None
-        if self._dense_active:
-            dense_te = self.dense_model.text_encoder
-            ids, mask = dense_te.encode(chunk, query_mode=True)
-            inputs["q_ids"], inputs["q_mask"] = token_tensors(ids, mask, self.device)
-        if self._splade_active:
-            te = self.splade_model.text_encoder
-            if te is dense_te:
-                inputs["sp_ids"], inputs["sp_mask"] = inputs["q_ids"], inputs["q_mask"]
-            else:
-                ids, mask = te.encode(chunk, query_mode=True)
-                inputs["sp_ids"], inputs["sp_mask"] = token_tensors(ids, mask, self.device)
-        if self._colbert_active:
-            ids, mask = self.colbert_model.text_encoder.encode(chunk, query_mode=True)
-            inputs["cb_ids"], inputs["cb_mask"] = token_tensors(ids, mask, self.device)
-        if self._rerank_active:
-            ids, mask = self.cross_encoder.encode_queries_raw(chunk, max_query_tokens=self.ce_query_length)
-            inputs["ce_ids"], inputs["ce_mask"] = token_tensors(ids, mask, self.device)
-            # the packed plan's query lengths, taken while the mask is on the host
-            inputs["ce_qlens"] = np.asarray(mask).sum(axis=1).astype(np.int32)
-        return inputs
+        upload the token arrays (spans: ``prepare``, and inside it one
+        host-only ``tokenize.<system>`` per text encoder)."""
+        with span("prepare"):
+            inputs: dict[str, torch.Tensor] = {}
+            if self.bm25 is not None:
+                with span("tokenize.bm25"):
+                    bm25_chunk = (
+                        self.bm25_preprocess(chunk) if self.bm25_preprocess is not None else chunk
+                    )
+                    terms, weights = self.bm25.encode_queries_np(bm25_chunk)
+                self._check_impact_cap_guard(terms)
+                inputs["bm25_terms"] = torch.as_tensor(terms.astype(np.int64), device=self.device)
+                inputs["bm25_weights"] = torch.as_tensor(weights, device=self.device)
+            # each encoder tokenizes with ITS OWN text encoder (checkpoints may
+            # differ in tokenizer, prefix or max length)
+            dense_te = None
+            if self._dense_active:
+                dense_te = self.dense_model.text_encoder
+                with span("tokenize.dpr"):
+                    ids, mask = dense_te.encode(chunk, query_mode=True)
+                inputs["q_ids"], inputs["q_mask"] = token_tensors(ids, mask, self.device)
+            if self._splade_active:
+                te = self.splade_model.text_encoder
+                if te is dense_te:
+                    inputs["sp_ids"], inputs["sp_mask"] = inputs["q_ids"], inputs["q_mask"]
+                else:
+                    with span("tokenize.splade"):
+                        ids, mask = te.encode(chunk, query_mode=True)
+                    inputs["sp_ids"], inputs["sp_mask"] = token_tensors(ids, mask, self.device)
+            if self._colbert_active:
+                with span("tokenize.colbert"):
+                    ids, mask = self.colbert_model.text_encoder.encode(chunk, query_mode=True)
+                inputs["cb_ids"], inputs["cb_mask"] = token_tensors(ids, mask, self.device)
+            if self._rerank_active:
+                with span("tokenize.rerank"):
+                    ids, mask = self.cross_encoder.encode_queries_raw(chunk, max_query_tokens=self.ce_query_length)
+                inputs["ce_ids"], inputs["ce_mask"] = token_tensors(ids, mask, self.device)
+                # the packed plan's query lengths, taken while the mask is on the host
+                inputs["ce_qlens"] = np.asarray(mask).sum(axis=1).astype(np.int32)
+            return inputs
 
     def _bm25_leg(self, inputs: dict[str, torch.Tensor]) -> RankedLists:
-        terms, weights = inputs["bm25_terms"], inputs["bm25_weights"]
-        topk = min(self.topk, self.bm25.n_docs)
-        if self.bm25_impact_index is not None:
-            return impact_search(terms, weights.to(torch.float32), self.bm25_impact_index, k=topk)
-        imp = self.bm25_impacts
-        if isinstance(imp, QuantizedDenseIndex):
-            # the doc-major int8 form: an f32 [Q, V+1] query matrix
-            return quantized_dense_search(self.bm25.query_matrix(terms, weights), imp, k=topk)
-        qmat = self.bm25.query_matrix(terms, weights, dtype=imp.dtype)
-        return ranked_from_scores(matmul_f32(qmat, imp), topk)
+        with span("leg.bm25"):
+            terms, weights = inputs["bm25_terms"], inputs["bm25_weights"]
+            topk = min(self.topk, self.bm25.n_docs)
+            if self.bm25_impact_index is not None:
+                return impact_search(terms, weights.to(torch.float32), self.bm25_impact_index, k=topk)
+            imp = self.bm25_impacts
+            if isinstance(imp, QuantizedDenseIndex):
+                # the doc-major int8 form: an f32 [Q, V+1] query matrix
+                return quantized_dense_search(self.bm25.query_matrix(terms, weights), imp, k=topk)
+            qmat = self.bm25.query_matrix(terms, weights, dtype=imp.dtype)
+            return ranked_from_scores(matmul_f32(qmat, imp), topk)
 
     def _dpr_leg(self, inputs: dict[str, torch.Tensor]) -> RankedLists:
-        q = self.dense_model.embed_tokens(inputs["q_ids"], inputs["q_mask"])
-        dc = self.dense_corpus
-        if self._dense_fused_active():
-            self._ensure_padded_dense()
-            return fused_dense_topk(
-                q.to(torch.float32), self.dense_corpus,
-                k=min(self.topk, self.dense_n_docs), n_docs=self.dense_n_docs,
+        with span("leg.dpr"):
+            with span("encoder.dpr"):
+                q = self.dense_model.embed_tokens(inputs["q_ids"], inputs["q_mask"])
+            dc = self.dense_corpus
+            if self._dense_fused_active():
+                self._ensure_padded_dense()
+                return fused_dense_topk(
+                    q.to(torch.float32), self.dense_corpus,
+                    k=min(self.topk, self.dense_n_docs), n_docs=self.dense_n_docs,
+                )
+            if isinstance(dc, QuantizedDenseIndex):
+                return quantized_dense_search(q.to(torch.float32), dc, k=self.topk)
+            return dense_search(
+                q.to(torch.bfloat16), dc, k=self.topk, similarity=self.dense_model.similarity
             )
-        if isinstance(dc, QuantizedDenseIndex):
-            return quantized_dense_search(q.to(torch.float32), dc, k=self.topk)
-        return dense_search(
-            q.to(torch.bfloat16), dc, k=self.topk, similarity=self.dense_model.similarity
-        )
 
     def _splade_leg(self, inputs: dict[str, torch.Tensor]) -> RankedLists:
-        q = self.splade_model.embed_tokens(inputs["sp_ids"], inputs["sp_mask"])
-        sc = self.splade_corpus
-        if sc is not None:
-            if isinstance(sc, QuantizedDenseIndex):
-                return quantized_dense_search(q.to(torch.float32), sc, k=self.topk)
-            return dense_search(
-                q.to(torch.bfloat16), sc, k=self.topk, similarity=self.splade_model.similarity
-            )
-        q = q.to(torch.float32)
-        if self.splade_model.similarity == "cos_sim":
-            q = l2_normalize(q)
-        q_terms, q_weights = activations_to_query_terms(q, self.splade_query_terms)
-        rescore = self.splade_rescore_store is not None and self.splade_rescore_depth > 0
-        # with the rescore, stage 1 only generates candidates at its depth
-        k1 = self.splade_rescore_depth if rescore else self.topk
-        if self.splade_scatter_index is not None:
-            index = self.splade_scatter_index
-            ranked = scatter_impact_search(q_terms, q_weights, index, k=min(k1, index.n_docs))
-        else:
-            index = self.splade_impact_index
-            # clamp to the flattened posting width (the top-k ceiling)
-            width = q_terms.shape[1] * index.post_doc.shape[1]
-            ranked = impact_search(q_terms, q_weights, index, k=min(k1, index.n_docs, width))
-        if rescore:
-            ranked = sparse_rescore(
-                q, ranked.ids, self.splade_rescore_store, k=min(self.topk, ranked.ids.shape[1])
-            )
-        return ranked
+        with span("leg.splade"):
+            with span("encoder.splade"):
+                q = self.splade_model.embed_tokens(inputs["sp_ids"], inputs["sp_mask"])
+            sc = self.splade_corpus
+            if sc is not None:
+                if isinstance(sc, QuantizedDenseIndex):
+                    return quantized_dense_search(q.to(torch.float32), sc, k=self.topk)
+                return dense_search(
+                    q.to(torch.bfloat16), sc, k=self.topk, similarity=self.splade_model.similarity
+                )
+            q = q.to(torch.float32)
+            if self.splade_model.similarity == "cos_sim":
+                q = l2_normalize(q)
+            q_terms, q_weights = activations_to_query_terms(q, self.splade_query_terms)
+            rescore = self.splade_rescore_store is not None and self.splade_rescore_depth > 0
+            # with the rescore, stage 1 only generates candidates at its depth
+            k1 = self.splade_rescore_depth if rescore else self.topk
+            if self.splade_scatter_index is not None:
+                index = self.splade_scatter_index
+                ranked = scatter_impact_search(q_terms, q_weights, index, k=min(k1, index.n_docs))
+            else:
+                index = self.splade_impact_index
+                # clamp to the flattened posting width (the top-k ceiling)
+                width = q_terms.shape[1] * index.post_doc.shape[1]
+                ranked = impact_search(q_terms, q_weights, index, k=min(k1, index.n_docs, width))
+            if rescore:
+                ranked = sparse_rescore(
+                    q, ranked.ids, self.splade_rescore_store, k=min(self.topk, ranked.ids.shape[1])
+                )
+            return ranked
 
     def _search_batch(self, inputs: dict[str, torch.Tensor]) -> dict[str, RankedLists]:
         """The per-batch device function: encode the queries and score every
@@ -885,54 +898,58 @@ class HybridSearcher:
     def _colbert_leg(self, inputs: dict[str, torch.Tensor]) -> RankedLists:
         """PLAID if there is an IVF, else the exhaustive compressed search,
         else MaxSim over the token matrix."""
-        q_tok = self.colbert_model.embed_tokens(inputs["cb_ids"], inputs["cb_mask"])
-        q_mask = inputs["cb_mask"].to(torch.float32)
-        index = self.colbert_index
-        if self.colbert_ivf is not None:
-            return plaid_search(
-                q_tok.to(torch.float32), q_mask, index, self.colbert_ivf, k=self.topk,
-                nprobe=self.plaid_nprobe, ncand=min(self.plaid_ncand, self.colbert_ivf.n_docs),
-                ncand_rescore=self.plaid_ncand_rescore, rescore_impl=self.plaid_rescore_impl,
-            )
-        if isinstance(index, CompressedTokenIndex):
-            return maxsim_search_compressed(q_tok, q_mask, index, k=self.topk)
-        corpus_tm, doc_valid = index.prepared()
-        return maxsim_search_tm(q_tok.to(torch.bfloat16), q_mask, corpus_tm, doc_valid, k=self.topk)
+        with span("leg.colbert"):
+            with span("encoder.colbert"):
+                q_tok = self.colbert_model.embed_tokens(inputs["cb_ids"], inputs["cb_mask"])
+            q_mask = inputs["cb_mask"].to(torch.float32)
+            index = self.colbert_index
+            if self.colbert_ivf is not None:
+                return plaid_search(
+                    q_tok.to(torch.float32), q_mask, index, self.colbert_ivf, k=self.topk,
+                    nprobe=self.plaid_nprobe, ncand=min(self.plaid_ncand, self.colbert_ivf.n_docs),
+                    ncand_rescore=self.plaid_ncand_rescore, rescore_impl=self.plaid_rescore_impl,
+                )
+            if isinstance(index, CompressedTokenIndex):
+                return maxsim_search_compressed(q_tok, q_mask, index, k=self.topk)
+            corpus_tm, doc_valid = index.prepared()
+            return maxsim_search_tm(q_tok.to(torch.bfloat16), q_mask, corpus_tm, doc_valid, k=self.topk)
 
     def _fuse(self, results: dict[str, RankedLists]) -> RankedLists:
-        if len(results) == 1:
-            return next(iter(results.values()))
-        weights = self.linear_weights or {s: 1.0 / len(results) for s in results}
-        tables = None
-        if self.fusion_method == "nsf" and self.normalization in _PERCENTILE_NORMALIZATIONS:
-            if not self.percentile_distributions:
-                raise ValueError(
-                    f"normalization={self.normalization!r} needs per-system quantile tables: call "
-                    "build_percentile_distributions() or assign .percentile_distributions from an "
-                    "offline analyze_score_distributions run"
-                )
-            tables = self.percentile_distributions
-        return Aggregator.fuse(
-            results,
-            method=self.fusion_method,
-            normalization=self.normalization,
-            linear_weights=weights if self.fusion_method == "nsf" else None,
-            percentile_distributions=tables,
-            return_topk=self.topk,
-        )
+        with span("fuse"):
+            if len(results) == 1:
+                return next(iter(results.values()))
+            weights = self.linear_weights or {s: 1.0 / len(results) for s in results}
+            tables = None
+            if self.fusion_method == "nsf" and self.normalization in _PERCENTILE_NORMALIZATIONS:
+                if not self.percentile_distributions:
+                    raise ValueError(
+                        f"normalization={self.normalization!r} needs per-system quantile tables: call "
+                        "build_percentile_distributions() or assign .percentile_distributions from an "
+                        "offline analyze_score_distributions run"
+                    )
+                tables = self.percentile_distributions
+            return Aggregator.fuse(
+                results,
+                method=self.fusion_method,
+                normalization=self.normalization,
+                linear_weights=weights if self.fusion_method == "nsf" else None,
+                percentile_distributions=tables,
+                return_topk=self.topk,
+            )
 
     def _rerank(self, inputs: dict, fused: RankedLists) -> RankedLists:
         """The rerank stage over the fused head of one batch."""
-        _check_rerank_options(self.rerank_packed, self.rerank_buckets, self.rerank_cascade)
-        kr = min(self.rerank_depth, fused.depth)
-        head_ids = fused.ids[:, :kr]
-        if self.rerank_buckets is not None:
-            logits = self._bucketed_rerank_stage(inputs, head_ids)
-        elif self.rerank_packed:
-            logits = self._packed_rerank_stage(inputs, head_ids)
-        else:
-            logits = self._flat_rerank_stage(inputs, head_ids)
-        return rerank_head_merge(fused, head_ids, logits)
+        with span("rerank"):
+            _check_rerank_options(self.rerank_packed, self.rerank_buckets, self.rerank_cascade)
+            kr = min(self.rerank_depth, fused.depth)
+            head_ids = fused.ids[:, :kr]
+            if self.rerank_buckets is not None:
+                logits = self._bucketed_rerank_stage(inputs, head_ids)
+            elif self.rerank_packed:
+                logits = self._packed_rerank_stage(inputs, head_ids)
+            else:
+                logits = self._flat_rerank_stage(inputs, head_ids)
+            return rerank_head_merge(fused, head_ids, logits)
 
     def _flat_rerank_stage(self, inputs: dict, head_ids: torch.Tensor) -> torch.Tensor:
         """Every (query, candidate) pair padded to the full doc width, all on
@@ -986,14 +1003,17 @@ class HybridSearcher:
         use_pallas: bool | None = None,
         external_ids: bool = True,
     ) -> tuple[RankedLists, float]:
-        """Batched hybrid search. Returns (ranked lists on the host, ms/query)."""
+        """Batched hybrid search. Returns (ranked lists on the host, ms/query).
+        Each batch's read-back, and the final concatenation, run in the span
+        ``search.fetch``."""
         check_use_pallas(use_pallas)
         out_ids, out_scores = [], []
 
         def fetch(pending):
             ranked, real = pending
-            out_ids.append(ranked.ids[:real].cpu())
-            out_scores.append(ranked.scores[:real].cpu())
+            with span("search.fetch"):
+                out_ids.append(ranked.ids[:real].cpu())
+                out_scores.append(ranked.scores[:real].cpu())
 
         t0 = time.perf_counter()
         # one-deep pipeline: batch i is queued on the device before batch
@@ -1009,9 +1029,10 @@ class HybridSearcher:
         if pending is not None:
             fetch(pending)
         elapsed = time.perf_counter() - t0
-        ranked = RankedLists(ids=torch.cat(out_ids), scores=torch.cat(out_scores))
-        if external_ids:
-            ranked = ranked.remap_ids(self.corpus_ids)
+        with span("search.fetch"):
+            ranked = RankedLists(ids=torch.cat(out_ids), scores=torch.cat(out_scores))
+            if external_ids:
+                ranked = ranked.remap_ids(self.corpus_ids)
         return ranked, elapsed / max(len(queries), 1) * 1000
 
     def search_systems(

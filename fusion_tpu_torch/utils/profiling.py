@@ -1,17 +1,23 @@
-"""Profiling and tracing helpers, as ``fusion_tpu/utils/profiling.py``:
+"""Profiling and tracing helpers, after ``fusion_tpu/utils/profiling.py``:
 
-  * ``trace``      — a ``torch.profiler`` trace written for TensorBoard;
-  * ``StageTimer`` — named wall-clock stages, each fenced by
-                     ``torch.cuda.synchronize`` when its work is on the card
-                     (nothing to wait for on the CPU), reported in JAX's keys;
+  * ``span`` / ``count`` — the program's own tracing: named spans at its
+                     layer boundaries and named counters.  Off (the default)
+                     a span is one flag check and a shared null context, a
+                     counter one flag check.  Under ``tracing()`` a span is a
+                     ``torch.profiler`` range named ``fusion.<name>`` and an
+                     in-memory record (host seconds, calls, start, end,
+                     thread, parent); ``snapshot()`` reads the record and
+                     ``reset()`` clears it;
+  * ``trace``      — a ``torch.profiler`` trace written for TensorBoard, with
+                     the program's spans on;
   * ``flops_of``   — the FLOPs of one call as ``FlopCounterMode`` counts them
                      (``utils/common.estimate_flops``);
   * ``peak_tflops`` / ``mfu_report`` — achieved TFLOP/s and MFU against the
                      H100's dense bf16 peak.
 
-The counter sees the aten operations a call dispatches, so a Python loop's
-body counts once per trip (JAX's ``mfu_report`` reads XLA's cost analysis,
-which counts a ``lax.scan`` body once).  It does not see the hand-written
+``flops_of``'s counter sees the aten operations a call dispatches, so a
+Python loop's body counts once per trip (JAX's ``mfu_report`` reads XLA's
+cost analysis, which counts a ``lax.scan`` body once).  It does not see the hand-written
 kernels: FA, FA-bwd and K1 launch through ctypes, outside the dispatcher.
 On the card their work is added analytically (``attention_flops``), as the
 training and rerank measurements do; on the CPU their plain versions run as
@@ -25,8 +31,9 @@ four families, 3 × the forward, plus a forward under remat) and
 from __future__ import annotations
 
 import os
+import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
@@ -35,54 +42,146 @@ import torch
 DEFAULT_PEAK_TFLOPS = 989.0
 
 
+# ----------------------------------------------------------------------
+# the program's spans and counters
+# ----------------------------------------------------------------------
+PREFIX = "fusion"  # a span's profiler range is named "<PREFIX>.<name>"
+
+_on = False
+_NULL = nullcontext()
+_lock = threading.Lock()
+_local = threading.local()  # .stack: this thread's open span records
+_records: list[list] = []  # [name, start_ns, end_ns, native thread id, parent record or None]
+_counters: dict[str, float] = {}
+_deferred: list[tuple[str, torch.Tensor]] = []  # device counts, read by snapshot()
+
+
+class _Span:
+    __slots__ = ("name", "rec", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.range = torch.profiler.record_function(f"{PREFIX}.{self.name}")
+        self.range.__enter__()
+        # the clock is read inside the range on both sides: under a profiler,
+        # entering a range costs ~0.1 ms before the range's own timestamp
+        self.rec = [self.name, time.time_ns(), 0, threading.get_native_id(), stack[-1] if stack else None]
+        stack.append(self.rec)
+        with _lock:
+            _records.append(self.rec)
+        return self
+
+    def __exit__(self, *exc):
+        self.rec[2] = time.time_ns()
+        _local.stack.pop()
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager that marks one layer of the program's work as
+    ``name``.  Off, the shared null context; under ``tracing()``, a
+    ``torch.profiler.record_function`` range named ``fusion.<name>`` and a
+    record of its start and end on the profiler trace's clock (Unix
+    nanoseconds: a trace's event at ``t`` µs lies at ``trace_start_ns() +
+    1000 t``), its thread and its parent span on that thread."""
+    return _Span(name) if _on else _NULL
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name`` under ``tracing()``; nothing when
+    tracing is off.  ``n`` may be a device tensor: it is read by
+    ``snapshot()``, so counting waits for nothing."""
+    if not _on:
+        return
+    with _lock:
+        if isinstance(n, torch.Tensor):
+            _deferred.append((name, n.detach()))
+        else:
+            _counters[name] = _counters.get(name, 0) + n
+
+
+def enabled() -> bool:
+    """Whether spans and counters record (inside ``tracing()``)."""
+    return _on
+
+
+def current() -> str | None:
+    """The innermost open span on this thread, or None."""
+    stack = getattr(_local, "stack", None)
+    return stack[-1][0] if stack else None
+
+
+@contextmanager
+def tracing():
+    """Spans and counters record inside the block (they add to what is
+    recorded until ``reset()``)."""
+    global _on
+    was, _on = _on, True
+    try:
+        yield
+    finally:
+        _on = was
+
+
+def reset() -> None:
+    """Clear the spans and counters recorded so far."""
+    with _lock:
+        _records.clear()
+        _counters.clear()
+        _deferred.clear()
+
+
+def snapshot() -> dict:
+    """The record since the last ``reset()``:
+
+      * ``spans``: per name, ``host_s`` (seconds inside it), ``calls`` and
+        ``self_s`` (``host_s`` less what its child spans cover);
+      * ``counters``: per name, the sum counted;
+      * ``events``: every closed span as ``[name, start_ns, end_ns, thread,
+        parent]``, ``thread`` the native thread id and ``parent`` the index
+        of the enclosing span on that thread (-1 for none).
+    """
+    with _lock:
+        recs = [r for r in _records if r[2]]
+        counters = dict(_counters)
+        deferred = list(_deferred)
+    for name, n in deferred:
+        counters[name] = counters.get(name, 0) + n.item()
+    index = {id(r): i for i, r in enumerate(recs)}
+    parents = [index.get(id(r[4]), -1) for r in recs]
+    covered = [0] * len(recs)
+    for r, p in zip(recs, parents):
+        if p >= 0:
+            covered[p] += r[2] - r[1]
+    spans: dict[str, dict] = {}
+    for r, c in zip(recs, covered):
+        agg = spans.setdefault(r[0], {"host_s": 0.0, "calls": 0, "self_s": 0.0})
+        agg["host_s"] += (r[2] - r[1]) / 1e9
+        agg["calls"] += 1
+        agg["self_s"] += (r[2] - r[1] - c) / 1e9
+    return {
+        "spans": spans,
+        "counters": counters,
+        "events": [[r[0], r[1], r[2], r[3], p] for r, p in zip(recs, parents)],
+    }
+
+
 @contextmanager
 def trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the block (CPU, and CUDA when a
-    card is present) into ``log_dir`` for TensorBoard."""
+    card is present) into ``log_dir`` for TensorBoard, with the program's
+    spans on: the trace shows its layers."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)), tracing():
         yield
-
-
-def _on_card(fence) -> bool:
-    if isinstance(fence, torch.Tensor):
-        return fence.is_cuda
-    if isinstance(fence, dict):
-        fence = list(fence.values())
-    if isinstance(fence, (list, tuple)):
-        return any(_on_card(f) for f in fence)
-    return hasattr(fence, "ids") and _on_card(fence.ids)  # RankedLists
-
-
-class StageTimer:
-    """Accumulate named stage durations, fenced so device work is counted in
-    its stage.
-
-    >>> t = StageTimer()
-    >>> with t.stage("encode", fence=embs):
-    ...     embs = model.encode(...)
-    >>> t.report(num_queries=64)
-    {'encode (ms/query)': ...}
-    """
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-
-    @contextmanager
-    def stage(self, name: str, fence=None):
-        """Time the block; with ``fence`` (a tensor, a list or dict of them,
-        or ``RankedLists``) on the card, wait for the card before the clock
-        stops."""
-        t0 = time.perf_counter()
-        yield
-        if fence is not None and _on_card(fence):
-            torch.cuda.synchronize()
-        self.totals[name] = self.totals.get(name, 0.0) + (time.perf_counter() - t0)
-
-    def report(self, num_queries: int = 1) -> dict[str, float]:
-        return {f"{name} (ms/query)": total / max(num_queries, 1) * 1000 for name, total in self.totals.items()}
 
 
 def flops_of(fn, *example_args) -> dict:

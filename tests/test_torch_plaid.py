@@ -21,6 +21,7 @@ from fusion_tpu_torch.index import compression as tc
 from fusion_tpu_torch.index import plaid as tp
 from fusion_tpu_torch.models.convert import plaid_index_from_arrays
 from fusion_tpu_torch.ops import gather_rows as gr
+from fusion_tpu_torch.utils import profiling
 
 ATOL = 1e-5
 N, C = 96, 32
@@ -237,12 +238,13 @@ def test_plaid_search_marks_its_stages_for_the_profiler(small):
     from torch.profiler import ProfilerActivity, profile
 
     _, (t_index, t_ivf), q, qm = small
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU]) as prof, profiling.tracing():
         tp.plaid_search(*_port_q(q, qm), t_index, t_ivf, k=10, nprobe=8, ncand=48, cand_chunk=16,
                         ncand_rescore=16)
+    profiling.reset()
     names = {e.name for e in prof.events()}
     stages = {"candidates", "probe_matmul", "probe_select", "candidate_sort", "prune", "rescore", "gather"}
-    assert {f"plaid.{s}" for s in stages} <= names, names
+    assert {f"{profiling.PREFIX}.plaid.{s}" for s in stages} <= names, names
 
 
 def test_u8_mask_searches_like_the_f32_mask(small):

@@ -1,33 +1,100 @@
-"""``fusion_tpu_torch/utils/profiling.py`` against the JAX package's module:
-``StageTimer``'s report keys, ``flops_of`` against the analytic count of a
-tiny encoder's forward, ``mfu_report`` on a loop (its body counted once per
-trip), the peak and its override, ``trace`` writing a TensorBoard trace, and
-the analytic step counts that ``chip_smoke.py`` and
+"""``fusion_tpu_torch/utils/profiling.py``: the program's spans and
+counters (off by default, on under ``tracing()``, read by ``snapshot()``),
+``flops_of`` against the analytic count of a tiny encoder's forward,
+``mfu_report`` on a loop (its body counted once per trip), the peak and its
+override, ``trace`` writing a TensorBoard trace with the spans on, and the
+analytic step counts that ``chip_smoke.py`` and
 ``tools/bench_colbert_train.py`` read (at CamemBERT-base, the numbers they
 printed before the counts moved here)."""
 
 import os
+import threading
+import time
 
 import pytest
 import torch
 
-from fusion_tpu.utils import profiling as jax_profiling
 from fusion_tpu_torch.models.encoder import Encoder, EncoderConfig, init_weights, place
 from fusion_tpu_torch.utils import profiling
 
 
-def test_stage_timer_reports_jax_keys():
-    want, got = jax_profiling.StageTimer(), profiling.StageTimer()
-    for timer in (want, got):
-        for name in ("encode", "score", "encode"):
-            with timer.stage(name):
-                pass
-    assert list(got.report(num_queries=64)) == list(want.report(num_queries=64))
-    assert got.report() == {k: v * 64 for k, v in got.report(64).items()}
-    x = torch.ones(3)
-    with got.stage("fenced", fence=x):  # a CPU tensor: nothing to wait for
-        x = x * 2
-    assert set(got.totals) == {"encode", "score", "fenced"}
+@pytest.fixture
+def clean():
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+def test_span_off_builds_no_record_function(monkeypatch, clean):
+    built = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda *a, **kw: built.append(a))
+    assert not profiling.enabled()
+    first, second = profiling.span("a"), profiling.span("b")
+    assert first is second  # the one shared null context
+    with first:
+        profiling.count("n", 3)
+        assert profiling.current() is None
+    assert built == []
+    assert profiling.snapshot() == {"spans": {}, "counters": {}, "events": []}
+
+
+def test_span_records_host_time_calls_parent_and_self(clean):
+    inside = {}
+
+    def other_thread():
+        with profiling.span("worker"):
+            inside["worker"] = profiling.current()
+
+    with profiling.tracing():
+        assert profiling.enabled()
+        for _ in range(2):
+            with profiling.span("outer"):
+                time.sleep(0.01)
+                with profiling.span("inner"):
+                    assert profiling.current() == "inner"
+                    time.sleep(0.02)
+                if "worker" not in inside:  # a span on another thread has its own parents
+                    t = threading.Thread(target=other_thread)
+                    t.start()
+                    t.join(timeout=10)
+                    assert not t.is_alive()
+        profiling.count("n", 2)
+        profiling.count("n", 3)
+        profiling.count("device", torch.tensor(4))
+    assert not profiling.enabled()
+    snap = profiling.snapshot()
+    outer, inner = snap["spans"]["outer"], snap["spans"]["inner"]
+    assert outer["calls"] == inner["calls"] == 2 and snap["spans"]["worker"]["calls"] == 1
+    assert inner["host_s"] >= 0.04 and outer["host_s"] >= inner["host_s"] + 0.02
+    assert inner["self_s"] == inner["host_s"]
+    assert outer["self_s"] == pytest.approx(outer["host_s"] - inner["host_s"], abs=1e-6)
+    events = snap["events"]
+    assert [e[0] for e in events] == ["outer", "inner", "worker", "outer", "inner"]
+    assert [e[4] for e in events] == [-1, 0, -1, -1, 3]
+    assert events[2][3] != events[0][3] == threading.get_native_id()
+    assert all(e[1] <= e[2] for e in events) and inside["worker"] == "worker"
+    assert snap["counters"] == {"n": 5, "device": 4}
+    profiling.reset()
+    assert profiling.snapshot() == {"spans": {}, "counters": {}, "events": []}
+
+
+def test_span_agrees_with_its_profiler_range(clean):
+    """The record's start and end lie on the trace's clock, within 0.1 ms of
+    the span's own range (the best of five spans: a loaded host may
+    preempt any one of them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof, profiling.tracing():
+        for _ in range(5):
+            with profiling.span("agree"):
+                time.sleep(0.002)
+    origin = prof.profiler.kineto_results.trace_start_ns()
+    ranges = sorted((origin + round(1000 * e.time_range.start), origin + round(1000 * e.time_range.end))
+                    for e in prof.events() if e.name == f"{profiling.PREFIX}.agree")
+    spans = sorted((e[1], e[2]) for e in profiling.snapshot()["events"])
+    assert len(ranges) == len(spans) == 5
+    worst = [max(abs(r0 - s0), abs(r1 - s1)) for (r0, r1), (s0, s1) in zip(ranges, spans)]
+    assert min(worst) < 100_000, worst
 
 
 @pytest.mark.parametrize("length", [8, 24])
@@ -69,11 +136,16 @@ def test_mfu_report_counts_a_loop_body_once_per_trip(monkeypatch):
     assert profiling.utilization(5e14, 1.0) == 1.0
 
 
-def test_trace_writes_a_tensorboard_trace(tmp_path):
+def test_trace_writes_a_tensorboard_trace(tmp_path, clean):
     with profiling.trace(str(tmp_path)):
-        torch.randn(64, 64) @ torch.randn(64, 64)
-    files = [f for _, _, fs in os.walk(tmp_path) for f in fs]
-    assert any(f.endswith(".pt.trace.json") for f in files), files
+        assert profiling.enabled()
+        with profiling.span("probe"):
+            torch.randn(64, 64) @ torch.randn(64, 64)
+    assert not profiling.enabled()
+    files = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path) for f in fs if f.endswith(".pt.trace.json")]
+    assert files
+    with open(files[0]) as f:
+        assert f'"{profiling.PREFIX}.probe"' in f.read()
 
 
 def test_analytic_step_counts_keep_their_numbers():

@@ -2,8 +2,9 @@
 HybridSearcher: the six cases of tests/test_server.py (search over HTTP
 equals the direct searcher call, concurrent requests coalesce into shared
 batches, per-request topk, malformed input gets a 400, the counters,
-duplicate queries share one row), plus 32 clients at once and the warm-up
-that raises instead of starting a server that cannot search.  Scores over
+duplicate queries share one row), plus 32 clients at once, the warm-up
+that raises instead of starting a server that cannot search, and the queue
+wait of a request held behind the batch in flight.  Scores over
 HTTP are rounded to 6 decimals, so they match the direct call at 1e-5.
 """
 
@@ -11,14 +12,17 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from torch_parity import DEVICE
 
+from fusion_tpu_torch.core.ranked import RankedLists
 from fusion_tpu_torch.data.preprocessor import TextPreprocessor
 from fusion_tpu_torch.serving import HybridSearcher
 from fusion_tpu_torch.server import SearchServer
@@ -132,6 +136,9 @@ def test_stats_counters(server):
     assert stats["batches"] >= 1
     assert stats["queries"] >= stats["requests"]
     assert stats["mean_batch_ms"] > 0
+    # every served request rode a batch, and waited for it in the queue
+    assert stats["dispatched"] == stats["requests"]
+    assert stats["queue_wait_ms_total"] > 0
 
 
 def test_malformed_bodies_get_400_not_dropped_connection(server):
@@ -204,3 +211,55 @@ def test_failed_warmup_raises_instead_of_serving():
         srv.start()
     # the socket is closed and no dispatcher runs
     assert srv._http.socket.fileno() == -1 and not srv._dispatcher.is_alive()
+
+
+class _HeldSearcher:
+    """A searcher whose every search call waits until the test releases it."""
+
+    active_systems = ["stub"]
+    corpus_ids = np.arange(4)
+
+    def __init__(self):
+        self.entered, self.release = threading.Event(), threading.Event()
+
+    def search(self, queries, batch_size=32):
+        self.entered.set()
+        assert self.release.wait(timeout=60)
+        n = len(queries)
+        return RankedLists(torch.zeros(n, 2, dtype=torch.int32), torch.ones(n, 2)), 0.0
+
+
+def test_queue_wait_counts_the_time_behind_the_batch_in_flight():
+    """Request B arrives while request A's batch runs and waits for it: the
+    server's queue wait sums B's wait (at least the time the test held A's
+    batch after B was queued) and A's (none to speak of)."""
+    hold = 0.3
+    stub = _HeldSearcher()
+    srv = SearchServer(stub, port=0, max_batch=1, max_wait_ms=0.0)
+    srv.start(warmup=False)
+    host, port = srv.address
+    base = f"http://{host}:{port}"
+    try:
+        replies = {}
+        clients = [threading.Thread(target=lambda name=name: replies.update({name: _post(
+            f"{base}/search", {"queries": [name], "topk": 2})})) for name in ("a", "b")]
+        clients[0].start()
+        assert stub.entered.wait(timeout=60)
+        clients[1].start()
+        for _ in range(6000):  # B is queued behind A's batch
+            if srv._queue.qsize():
+                break
+            time.sleep(0.001)
+        assert srv._queue.qsize() == 1
+        time.sleep(hold)
+        stub.release.set()
+        for c in clients:
+            c.join(timeout=60)
+            assert not c.is_alive()
+        assert set(replies) == {"a", "b"}
+        stats = _get(f"{base}/stats")
+    finally:
+        stub.release.set()
+        srv.stop()
+    assert stats["dispatched"] == stats["requests"] == stats["batches"] == 2
+    assert hold * 1000 <= stats["queue_wait_ms_total"] < hold * 1000 + 5000

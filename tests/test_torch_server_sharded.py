@@ -169,7 +169,9 @@ def test_healthz_and_stats_as_jax(served):
     _, healthz, stats = want["full"]
     assert rank0["healthz"] == healthz
     assert healthz["corpus_docs"] == len(CORPUS)
-    assert set(rank0["stats"]) == set(stats)
+    # the port's /stats adds the queue wait of the dispatched requests
+    assert set(rank0["stats"]) == set(stats) | {"queue_wait_ms_total", "dispatched"}
+    assert rank0["stats"]["dispatched"] == rank0["stats"]["requests"]
     for key in ("requests", "queries", "errors"):
         assert rank0["stats"][key] == stats[key], key
     assert 1 <= rank0["stats"]["batches"] < rank0["stats"]["requests"]  # the requests were coalesced
