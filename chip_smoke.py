@@ -250,12 +250,23 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 fused top 100, packed (the default) and flat: 192 queries
                 each, every launch count set to 0 just before the packed
                 search and read just after (K1 once per batch, and the
-                count the kernels line gives K1), fused output checked, the
+                count the kernels line gives K1; FA once a layer and chunk
+                scored, as the tracing counter attention.packed_kernel
+                counts it, with no attention.packed_einsum call, and the
+                count the kernels line gives FA), fused output checked, the
                 same top-100 set per query in both; on one batch the two
                 stages' logits (max gap reported), each within 0.04 of an
                 f32 forward of the same weights, each
                 stage's time, the packed plan's row fill, analytic FLOPs
                 and the rate reached; warm timing and peak memory of each;
+     rerank_packed_fa — the packed stage at the benchmark's shape (64
+                queries' top 100 in rows 384 wide, 85 a chunk; CamemBERT-
+                base, bf16, weights normal(0, 0.05)) with its attention on
+                FA (the einsum form's packed rows on the card) against the
+                einsum chain on the card and an f32 forward on the chain:
+                perfbench's rerank readings of each beside its limits, FA
+                once a layer and chunk, each path's stage ms and peak
+                memory, FA's queued device ms a call and a traced stage;
      attention — FA, the masked-attention kernel of the flash form, against
                 its plain version on the operands the main path gives it
                 (layer 0 of the flash cross-encoder's first packed and flat
@@ -273,7 +284,8 @@ Phases (each prints its result and wall time; any failed check exits 1):
                 counted in the stage and in the search), the flat cascade at
                 (keep 25, stage1 auto = the corpus p90 length), the
                 length-bucketed stage on aligned_buckets' ladder and the
-                packed stage of the int8 view (quantized): logits within
+                packed stage of the int8 view (quantized; its packed rows
+                on FA, as the default stage's): logits within
                 0.04 of the f32 forward (the cascade's kept slots), stage ms
                 (median of 3) and peak memory; all but the flat attention
                 forms also search the first 64 queries (FA's count set to 0 just
@@ -556,6 +568,11 @@ SAME_FORM_ROWS, SAME_FORM_F32_TOL = 4, 1e-4
 # logits spread over ±0.24; [rerank_forms] 0.012-0.014 for the other
 # attention forms, the cascade and the buckets, 0.019 for int8
 RERANK_LOGIT_TOL = 0.04
+# [rerank_packed_fa]: the benchmark's packed rows (queries cut at 32
+# tokens, docs at 220: rows 384 wide, 85 a chunk) and its cross-encoder's
+# weight spread, and perfbench's limits of the rerank's readings
+PACKED_FA_LQ, PACKED_FA_LD, PACKED_FA_STD = 32, 220, 0.05
+PERFBENCH_RERANK_CONFIG = "perfbench/configs/lleqa-camembert-base.json"
 # [t5]: the bf16 T5 cross-encoder's logits against its f32 forward (0.0021
 # on an H100, the logits spread over ±0.43)
 T5_LOGIT_TOL = 0.01
@@ -1084,7 +1101,10 @@ def rerank_check(torch, np, searcher, queries, smi, kernels) -> dict:
     (the default), and the same with the flat stage
     (``rerank_packed=False``).  Every kernel launch count is set to 0 just
     before the packed search and read just after (``launches``; K1 must have
-    run once per batch).  Both searches' fused output checked, the top-100
+    run once per batch, FA once a layer and chunk scored, which the search,
+    run under ``utils/profiling.tracing()``, also counts as
+    ``attention.packed_kernel`` and never as ``attention.packed_einsum``).
+    Both searches' fused output checked, the top-100
     head the same set per query in both, the stage's logits on one batch
     compared (max |packed - flat|) and each held to an f32 forward of the
     same weights within RERANK_LOGIT_TOL (the f32 forward is the packed
@@ -1094,6 +1114,8 @@ def rerank_check(torch, np, searcher, queries, smi, kernels) -> dict:
     reached, warm timing and peak memory of each searcher.  One call of
     each stage is traced (``stage_profile``)."""
     from fusion_tpu_torch.models.crossencoder import CrossEncoder
+    from fusion_tpu_torch.ops.attention import masked_attention_cuda
+    from fusion_tpu_torch.utils import profiling
 
     flat = dataclasses.replace(searcher, rerank_packed=False)
     ce = searcher.cross_encoder
@@ -1103,11 +1125,37 @@ def rerank_check(torch, np, searcher, queries, smi, kernels) -> dict:
     for name, s in (("packed", searcher), ("flat", flat)):
         if name == "packed":
             reset_counts(*kernels)
-        ranked, _ = s.search(queries, batch_size=BATCH)
-        if name == "packed":
+            masked_attention_cuda.launches, chunks = 0, []
+            plan = ce.plan_packed
+
+            def plan_spy(*a, **kw):  # the chunks each batch's packed stage scores
+                got = plan(*a, **kw)
+                chunks.append(-(-(int(got[0][2].max()) + 1) // got[4]))
+                return got
+
+            ce.plan_packed = plan_spy
+            profiling.reset()
+            try:
+                with profiling.tracing():
+                    ranked, _ = s.search(queries, batch_size=BATCH)
+            finally:
+                del ce.plan_packed
+            traced = profiling.snapshot()["counters"]
+            profiling.reset()
             out["launches"] = counts(*kernels)
             check(out["launches"]["K1"] >= N_QUERIES // BATCH,
                   f"rerank: MaxSim kernel launched {out['launches']['K1']} times in the main path")
+            # FA serves every packed row's attention: once a layer and chunk
+            out["launches"]["FA"] = masked_attention_cuda.launches
+            out["packed_chunks_scored"] = sum(chunks)
+            out["packed_attention_counters"] = {k: v for k, v in traced.items() if k.startswith("attention.")}
+            want = ce.cfg.num_layers * sum(chunks)
+            check(out["launches"]["FA"] == want > 0
+                  and out["packed_attention_counters"] == {"attention.packed_kernel": want},
+                  f"rerank: FA launched {out['launches']['FA']} times in the main path's packed search "
+                  f"(counters {out['packed_attention_counters']}), not once a layer and chunk ({want})")
+        else:
+            ranked, _ = s.search(queries, batch_size=BATCH)
         check_ranked(torch, np, ranked, N_QUERIES, TOPK, N_DOCS)
         heads[name] = ranked.ids.numpy()[:, : searcher.rerank_depth]
     out["head_sets_equal"] = all(set(a) == set(b) for a, b in zip(heads["packed"], heads["flat"]))
@@ -1169,6 +1217,145 @@ def rerank_check(torch, np, searcher, queries, smi, kernels) -> dict:
         timing = warm_timing(torch, s, qs, f"rerank_{name}", smi)
         out[f"{name}_ms_per_batch"] = timing["ms_per_batch_median"]
         out[f"{name}_peak_mem_gib"] = timing["peak_mem_gib"]
+    return out
+
+
+def on_einsum_chain(fn):
+    """``fn()`` with packed rows' attention kept on the ``einsum`` form's
+    chain on the card (``models/encoder.packed_on_kernel`` answering no)."""
+    from fusion_tpu_torch.models import encoder
+
+    rule, encoder.packed_on_kernel = encoder.packed_on_kernel, lambda *a: False
+    try:
+        return fn()
+    finally:
+        encoder.packed_on_kernel = rule
+
+
+def rerank_reading_limits() -> dict:
+    """perfbench's limits of the rerank's readings (its CamemBERT-base
+    configuration's ``check.limits``)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), PERFBENCH_RERANK_CONFIG)) as f:
+        limits = json.load(f)["check"]["limits"]
+    return {k: v for k, v in limits.items() if k.startswith("rerank.")}
+
+
+def head_readings(np, got, ref) -> dict:
+    """perfbench's rerank readings (``perfbench/check.judge``) of the logits
+    ``got`` against ``ref`` [Q, K]: the head ranked by ``got`` and scored by
+    its sigmoid, as a search's final list over a fused list of the head
+    alone (no legs; the fusion reading this leaves is dropped)."""
+    from perfbench.check import judge
+
+    qn, k = got.shape
+    order = np.argsort(-got, axis=1, kind="stable")
+    final = (order, 1.0 / (1.0 + np.exp(-np.take_along_axis(got, order, axis=1))))
+    fused = (np.broadcast_to(np.arange(k), (qn, k)), np.zeros((qn, k)))
+    # a corpus of 0 docs: the fused list reads as no list, so fusion (with
+    # no legs to recompute it from) is skipped and read as infinite
+    readings = judge({"legs": {}, "fused": fused, "final": final}, {}, lambda head: ref, n_docs=0, rerank_depth=k)
+    return {name: readings[name] for name in ("rerank.gap", "rerank.err", "rerank.err.median")}
+
+
+def packed_rows_inputs(torch, np, rng, vocab: int, n_queries: int, depth: int, device) -> tuple:
+    """A batch's packed rerank inputs at the benchmark's shape: ``n_queries``
+    queries of lognormal word counts (median 14, sigma 0.45) cut at
+    PACKED_FA_LQ tokens, each with ``depth`` docs of its own whose lengths
+    (lognormal, median PACKED_FA_LD, sigma 0.9, at least 8) half reach the
+    PACKED_FA_LD cut, random ids → ``rerank_tokens_packed``'s arguments."""
+    lq, ld, n_docs = PACKED_FA_LQ, PACKED_FA_LD, n_queries * depth
+    q_lens = np.clip(np.rint(rng.lognormal(np.log(14), 0.45, n_queries)), 4, lq).astype(np.int32)
+    doc_lens = np.clip(np.rint(rng.lognormal(np.log(ld), 0.9, n_docs)), 8, ld).astype(np.int32)
+    q_mask = (np.arange(lq)[None] < q_lens[:, None]).astype(np.int32)
+    d_mask = (np.arange(ld)[None] < doc_lens[:, None]).astype(np.int8)
+    q_ids = np.where(q_mask > 0, rng.integers(5, vocab - 1, (n_queries, lq)), 1)
+    d_ids = np.where(d_mask > 0, rng.integers(5, min(vocab - 1, 32_767), (n_docs, ld)), 1).astype(np.int16)
+    as_dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    head = np.arange(n_docs, dtype=np.int64).reshape(n_queries, depth)
+    return as_dev(q_ids), as_dev(q_mask), as_dev(d_ids), as_dev(d_mask), head, doc_lens, q_lens
+
+
+def packed_fa_check(torch, np, device="cuda", cfg=None, n_queries=BATCH, depth=100, runs=3, seed=23) -> dict:
+    """[rerank_packed_fa]: the packed rerank stage at the benchmark's shape
+    (a batch of 64 queries' top 100, rows 384 wide, 85 a chunk) with a
+    CamemBERT-base cross-encoder (bf16, every matrix, bias and LayerNorm
+    shift normal(0, PACKED_FA_STD), gains 1 + the same), its attention on
+    FA (the default ``einsum`` form on the card) against the ``einsum``
+    chain on the card and an f32 forward of the same weights on the chain:
+    the logits' readings against the f32 ones by perfbench's rules
+    (``head_readings``) beside its limits, FA's launches (one a layer and
+    chunk), each path's stage ms (median of ``runs`` CUDA-event runs, the
+    host plan included) and peak memory, FA's device ms a call from queued
+    calls on the first chunk's layer-0 operands (so a batch's FA time is
+    that times the launches, whether or not a trace holds them), and one
+    traced stage on FA (top device operations; the FA launches the trace
+    holds a call)."""
+    from fusion_tpu_torch.models import encoder
+    from fusion_tpu_torch.models.crossencoder import CrossEncoder, CrossEncoderModule
+    from fusion_tpu_torch.ops.attention import masked_attention_cuda
+
+    cfg = cfg or encoder.EncoderConfig(dtype=torch.bfloat16)
+    max_length = 2 + PACKED_FA_LQ + PACKED_FA_LD
+    gen = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        shapes = CrossEncoderModule(cfg).state_dict()
+    params = {}
+    for name, w in shapes.items():
+        noise = torch.randn(w.shape, generator=gen) * PACKED_FA_STD
+        params[name] = 1.0 + noise if name.endswith("ln.weight") else noise
+    ce = CrossEncoder(cfg, params=params, max_length=max_length, device=device)
+    ce32 = CrossEncoder(dataclasses.replace(cfg, dtype=torch.float32), params=ce.module.state_dict(),
+                        max_length=max_length, device=device)
+    args = packed_rows_inputs(torch, np, np.random.default_rng(seed), cfg.vocab_size, n_queries, depth, device)
+    stage = lambda m=ce: m.rerank_tokens_packed(*args)  # noqa: E731
+    first = {}
+    real = encoder.masked_attention
+    limits = rerank_reading_limits()
+
+    def grab(*a):
+        first.setdefault("args", a)
+        return real(*a)
+
+    out = {"limits": limits}
+    encoder.masked_attention, masked_attention_cuda.launches = grab, 0
+    try:
+        with torch.inference_mode():
+            fa = stage().float()
+    finally:
+        encoder.masked_attention = real
+    with torch.inference_mode():  # the f32 forward keeps the chain (FA serves bf16 packed rows)
+        chain = on_einsum_chain(stage).float()
+        ref = stage(ce32).float()
+    desc, _, width, _, rpc, _ = ce.plan_packed(args[4], args[5], args[6], PACKED_FA_LQ, PACKED_FA_LD,
+                                               args[2].shape[0])
+    n_rows = int(desc[2].max()) + 1
+    out.update(row_width=width, rows=n_rows, rows_per_chunk=rpc, chunks=-(-n_rows // rpc),
+               fa_launches=masked_attention_cuda.launches)
+    check(out["fa_launches"] == cfg.num_layers * out["chunks"],
+          f"rerank_packed_fa: FA launched {out['fa_launches']} times, not once a layer and chunk")
+    check(bool(torch.isfinite(fa).all() and torch.isfinite(chain).all()), "rerank_packed_fa: non-finite logits")
+    host = lambda t: t.cpu().double().numpy()  # noqa: E731
+    out["fa"], out["einsum_chain"] = head_readings(np, host(fa), host(ref)), head_readings(np, host(chain), host(ref))
+    out["fa_vs_chain_max_logit_gap"] = (fa - chain).abs().max().item()
+    out["ref_logit_spread_median"] = float(np.median(host(ref).max(1) - host(ref).min(1)))
+    for path in ("fa", "einsum_chain"):
+        over = {k: v for k, v in out[path].items() if v > limits[k]}
+        check(not over, f"rerank_packed_fa {path}: readings {over} over perfbench's limits")
+    with torch.inference_mode():
+        for path, fn in (("fa", stage), ("einsum_chain", lambda: on_einsum_chain(stage))):
+            torch.cuda.reset_peak_memory_stats()
+            out[f"{path}_stage_ms"] = statistics.median(timed_ms(torch, fn, runs))
+            out[f"{path}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        q = first["args"][0]
+        out["fa_call_shape"] = list(q.shape)
+        out["fa_call_device_ms"], out["fa_queue_full"] = queued_ms(torch, lambda: real(*first["args"]), RUNS)
+        out["fa_ms_per_stage"] = out["fa_call_device_ms"] * out["fa_launches"]
+        traced = attention_device_ms(torch, stage, runs=1)
+        out["traced_fa_launches_per_stage"] = traced.get("fa_forward_kernel_traced_launches", 0.0)
+        out["fa_stage_profile"] = stage_profile(torch, stage)
+    del ce, ce32
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1395,14 +1582,14 @@ def rerank_forms_check(torch, np, searcher, queries, device="cuda") -> dict:
     RERANK_LOGIT_TOL (all valid slots; the cascade's kept ones), the stage's
     time (median of 3 CUDA-event runs, host plan and read-back included)
     and the peak memory over those runs, and the masked-attention kernel's
-    launches in the stage (the flash forms: a multiple of the layer count;
+    launches in the stage (the flash forms and the int8 view's packed rows,
+    whose einsum form FA serves on the card: a multiple of the layer count;
     the others: none); then (all but the flat attention forms) a search of
     the first 64 queries with the kernel's count set to 0 just before it and
-    read just after (packed flash: the count the kernels line gives the
-    kernel): fused output checked, the reranked head the same set as the
+    read just after: fused output checked, the reranked head the same set as the
     default packed stage's and its top-10 overlap with it.  The packed
-    flash logits' gap to the packed ``einsum`` stage (its plain version's
-    arithmetic) is reported; ``same_form`` holds each form to itself."""
+    flash logits' gap to the packed ``einsum`` stage (both on FA) is
+    reported; ``same_form`` holds each form to itself."""
     from fusion_tpu_torch.core.ranked import stable_topk
     from fusion_tpu_torch.models.crossencoder import CrossEncoder
     from fusion_tpu_torch.ops.attention import masked_attention_cuda
@@ -1438,7 +1625,9 @@ def rerank_forms_check(torch, np, searcher, queries, device="cuda") -> dict:
     out = {"cascade_setting": cascade, "ladder": ladder}
     kr = min(depth, fused.depth)
     for name, (s, tol) in forms.items():
-        flash = name.endswith("flash")
+        # FA serves the flash forms, and the int8 view's packed bf16 rows in
+        # the einsum form (models/encoder.packed_on_kernel)
+        on_fa = name.endswith("flash") or name == "packed_int8"
         masked_attention_cuda.launches = 0
         if s.rerank_buckets is not None:
             logits = s._bucketed_rerank_stage(inputs, head)
@@ -1448,7 +1637,7 @@ def rerank_forms_check(torch, np, searcher, queries, device="cuda") -> dict:
             logits = s._flat_rerank_stage(inputs, head)
         launches = masked_attention_cuda.launches
         layers = s.cross_encoder.cfg.num_layers
-        check(launches > 0 and launches % layers == 0 if flash else launches == 0,
+        check(launches > 0 and launches % layers == 0 if on_fa else launches == 0,
               f"rerank_forms {name}: the masked-attention kernel launched {launches} times in the stage")
         check(bool(torch.isfinite(logits).all()), f"rerank_forms {name}: non-finite logits")
         slots = valid
@@ -1467,7 +1656,7 @@ def rerank_forms_check(torch, np, searcher, queries, device="cuda") -> dict:
             masked_attention_cuda.launches = 0
             ranked, _ = s.search(queries, batch_size=BATCH)
             res["kernel_launches_search"] = masked_attention_cuda.launches
-            check(res["kernel_launches_search"] > 0 if flash else res["kernel_launches_search"] == 0,
+            check(res["kernel_launches_search"] > 0 if on_fa else res["kernel_launches_search"] == 0,
                   f"rerank_forms {name}: the masked-attention kernel launched "
                   f"{res['kernel_launches_search']} times in the search")
             check_ranked(torch, np, ranked, len(queries), TOPK, N_DOCS)
@@ -5420,6 +5609,8 @@ def main() -> int:
     rerank = rerank_check(torch, np, reranked, queries, smi, kernels)
     phase("rerank", t0, gpu=repr(smi), **rerank)
     t0 = time.perf_counter()
+    phase("rerank_packed_fa", t0, gpu=repr(smi), **packed_fa_check(torch, np))
+    t0 = time.perf_counter()
     attn = attention_check(torch, reranked, queries, RUNS)
     phase("attention", t0, gpu=repr(smi), **attn)
     t0 = time.perf_counter()
@@ -5724,13 +5915,14 @@ def main() -> int:
         entry("scatter_pregathered_chunk_major", "scatter_score.cu", "scripts/probe_scatter_kernel.py:37",
               probe_counts["probe_scatter_kernel"]["P5"], pg_err["chunk_major"], *pg_times["chunk_major"],
               pg_bound["chunk_major"]),
-        # the flash form's kernel: launches in [rerank_forms]' packed flash
-        # search (its path), times at the main path's packed shape, the
-        # library call scaled_dot_product_attention (memory-efficient)
+        # FA: launches in the main path's packed search ([rerank]; the
+        # packed rows of the default einsum form, and the flash form's path),
+        # times at the main path's packed shape, the library call
+        # scaled_dot_product_attention (memory-efficient)
         entry("masked_attention", "attention.cu",
               "fusion_tpu/models/encoder.py:225 (jax.experimental.pallas.ops.tpu.flash_attention, "
               "forward pallas_call at flash_attention.py:758)",
-              forms["packed_flash"]["kernel_launches_search"], attn["max_abs_err"], attn["packed"]["ms"],
+              rerank["launches"]["FA"], attn["max_abs_err"], attn["packed"]["ms"],
               attn["packed"]["plain_ms"], attn["packed"]["bound_ms"], library_ms=attn["packed"]["library_ms"],
               shapes={c: attention_shape(attn[c], ATTENTION_KERNELS[:1]) for c in ("packed", "bench_doc")},
               sharded_launches=sharded_launches["FA"], sharded_server_launches=server_launches["FA"],

@@ -486,7 +486,13 @@ class PairRerankMixin:
         the last packed row, and the empty rows of the last busy chunk, are
         skipped (their table entries are all fillers).  The plan runs in the
         host-only span ``rerank.plan``, which counts the scored rows' fill
-        under tracing (``_count_rows``)."""
+        under tracing (``_count_rows``).  On the card the rows' attention in
+        the ``flash`` form, and in the ``einsum`` form in bf16, runs the
+        masked-attention kernel, which skips the key tiles between pairs
+        (``models/encoder.packed_on_kernel``: inference, no dropout, head
+        dim 64); each call counts ``attention.packed_kernel`` under tracing,
+        and one that keeps its form's chain counts
+        ``attention.packed_einsum``."""
         del doc_mask
         qn, kr = head_ids.shape
         with span("rerank.plan"):

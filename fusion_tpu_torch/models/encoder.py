@@ -12,7 +12,16 @@ The same trunk as ``fusion_tpu/models/encoder.py``, layer for layer:
     hand-written kernels on the card (the forward, and under a gradient its
     residual mode and the backward kernels, through ``MaskedAttention``)
     and the ``einsum`` form's arithmetic on the CPU.  Padding is an additive -1e9 bias in every form,
-    so a row with no attended key softmaxes uniformly instead of giving NaN;
+    so a row with no attended key softmaxes uniformly instead of giving NaN.
+    Packed rows (``segment_ids`` given) under ``einsum`` take that path too,
+    where the call shows the kernel's bf16 body computes the same arithmetic
+    (``packed_on_kernel``: bf16 ``q`` on the card, no gradient needed, no
+    active dropout, head dim 64): it skips the key tiles between pairs and
+    builds no ``[B, heads, L, L]`` tensor.  ``einsum_bf16``, f32 forwards,
+    rows without segments, training and the CPU keep their form's path.  Under
+    ``utils/profiling.tracing()`` each packed call counts
+    ``attention.packed_kernel`` or ``attention.packed_einsum`` by the path it
+    took;
   * positions count non-pad ids (RoBERTa scheme, offset past the pad index),
     read from the ids and not from the attention mask, unless the caller
     passes ``position_ids`` (the packed rerank restarts them per pair);
@@ -74,8 +83,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fusion_tpu_torch.core.device import resolve_device
-from fusion_tpu_torch.ops.attention import allowed_keys, masked_attention, split_qkv
+from fusion_tpu_torch.ops.attention import (
+    HEAD_DIM,
+    allowed_keys,
+    kernel_masks,
+    masked_attention,
+    split_qkv,
+)
 from fusion_tpu_torch.parallel.sharding import copy_to_model, reduce_from_model
+from fusion_tpu_torch.utils.profiling import count
 
 
 ATTENTION_IMPLS = ("einsum", "einsum_bf16", "flash")
@@ -241,6 +257,25 @@ def trunk_linear(layer: nn.Linear, x: torch.Tensor, cfg) -> torch.Tensor:
     return layer(x)
 
 
+def packed_on_kernel(q, k, v, cfg, drop: DropoutKey | None) -> bool:
+    """Whether packed rows' attention (``segment_ids`` given) in the
+    ``einsum`` form goes to ``masked_attention`` as the ``flash`` form's
+    does, from what the call shows it computes there: the kernel's bf16 body
+    (f32 logits of the bf16 q, k, the f32 -1e9 bias, an f32 softmax, P in
+    bf16), with ``q`` on the card, no gradient needed, no active dropout and
+    a head dim of 64.  The kernel skips the key tiles between pairs, where
+    the ``einsum`` chain builds and passes over every row's ``[heads, L,
+    L]`` f32 logits six times."""
+    return (
+        cfg.attention_impl == "einsum"
+        and q.is_cuda
+        and q.dtype == torch.bfloat16
+        and q.shape[-1] == HEAD_DIM
+        and (drop is None or cfg.dropout == 0.0)
+        and not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)))
+    )
+
+
 def attention(
     q, k, v, attention_mask: torch.Tensor, segment_ids: torch.Tensor | None, cfg,
     drop: DropoutKey | None = None, layer: int = 0,
@@ -250,10 +285,17 @@ def attention(
     gives for ``attention_mask`` and ``segment_ids`` → context [B, L, heads,
     hd].  Dropout (site ``SITE_ATTN_PROBS`` of ``layer``) falls on the
     probabilities; ``flash`` with active dropout computes the ``einsum``
-    form."""
+    form.  ``flash`` runs ``masked_attention``, and so do packed ``einsum``
+    rows where ``packed_on_kernel`` says so; under tracing each packed call
+    counts ``attention.packed_kernel`` or ``attention.packed_einsum`` by
+    the path it took."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     impl = cfg.attention_impl
-    if impl == "flash" and (drop is None or cfg.dropout == 0.0):
+    flash = impl == "flash" and (drop is None or cfg.dropout == 0.0)
+    if segment_ids is not None:
+        flash = flash or packed_on_kernel(q, k, v, cfg, drop)
+        count("attention.packed_kernel" if flash and q.is_cuda else "attention.packed_einsum")
+    if flash:
         return masked_attention(q, k, v, attention_mask, segment_ids, scale)
     allowed = allowed_keys(attention_mask, segment_ids)
     if impl == "einsum_bf16":
@@ -411,6 +453,8 @@ class Encoder(nn.Module):
         drop: DropoutKey | None = None,
     ) -> torch.Tensor:
         x = self.embeddings(input_ids, position_ids, drop)
+        if segment_ids is not None:  # packed rows: the kernel's masks, made once for every layer
+            attention_mask, segment_ids = kernel_masks(attention_mask, segment_ids)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:  # the masks come from seeded generators, not the global RNG state

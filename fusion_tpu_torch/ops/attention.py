@@ -192,7 +192,10 @@ def _check_operands(name, q, k, v, attention_mask, segment_ids, *more) -> None:
             raise ValueError(f"{name} needs a contiguous last dim and 16-byte aligned rows, got strides {t.stride()}")
 
 
-def _masks(attention_mask, segment_ids):
+def kernel_masks(attention_mask, segment_ids):
+    """The masks as the kernels read them: contiguous int32 ``[B, L]`` (no
+    copy where they already are, so a caller that converts once serves
+    every layer's launch)."""
     mask = attention_mask.to(torch.int32).contiguous()
     return mask, None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
 
@@ -219,7 +222,7 @@ def masked_attention_cuda(q, k, v, attention_mask, segment_ids, scale: float, re
     if out.numel() == 0:
         return (out, *stats) if residuals else out
     maps = _maps(q, k, v, out) if q.dtype == torch.bfloat16 else None
-    mask, seg = _masks(attention_mask, segment_ids)
+    mask, seg = kernel_masks(attention_mask, segment_ids)
     lib = _bind()
     rc = lib.masked_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -276,7 +279,7 @@ def masked_attention_backward_cuda(q, k, v, out, m, l, d_out, attention_mask, se
     maps = _maps(q, k, v, d_out, *dqkv.unbind(2)) if q.dtype == torch.bfloat16 else None
     d = rowdot_cuda(d_out, out)
     m, l = m.float().contiguous(), l.float().contiguous()
-    mask, seg = _masks(attention_mask, segment_ids)
+    mask, seg = kernel_masks(attention_mask, segment_ids)
     lib = _bind()
     rc = lib.masked_attention_backward(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), m.data_ptr(), l.data_ptr(),

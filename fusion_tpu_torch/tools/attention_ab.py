@@ -77,7 +77,7 @@ def bind(name: str):
         b, length, heads, hd = q.shape
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         st = torch.empty((2, b, heads, length), dtype=torch.float32, device=q.device) if residuals else None
-        m, s = att._masks(mask, seg)
+        m, s = att.kernel_masks(mask, seg)
         rc = lib.masked_attention(
             0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *([None if st is None else st[0].data_ptr(), None if st is None else st[1].data_ptr()] * has_bwd),
@@ -100,7 +100,7 @@ def bind(name: str):
                 raise RuntimeError(f"{name}: masked_attention_rowdot launch failed ({rc})")
         else:
             d = (d_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        ms, s = att._masks(mask, seg)
+        ms, s = att.kernel_masks(mask, seg)
         rc = lib.masked_attention_backward(
             0, q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), m.data_ptr(), l.data_ptr(), d.data_ptr(),
             ms.data_ptr(), None if s is None else s.data_ptr(), dqkv.data_ptr(),

@@ -6,7 +6,9 @@ seeded numpy token arrays and its Flax params converted into the port.
 JAX's ``flash`` on the CPU runs its ``einsum`` form (the Pallas kernel
 needs a TPU), so the port's ``flash`` on the CPU, the plain version of its
 masked-attention kernel (``ops/attention.py``), is held to that.  The kernel
-itself runs only on the card (``cuda`` marker).  Tolerances:
+itself runs only on the card (``cuda`` marker); the rule that sends packed
+rows to it on the card (``packed_on_kernel``) is held here with its entry
+stubbed and tensors that read as on the card.  Tolerances:
 
   * f32 ``einsum`` / ``flash``: atol 1e-5 (only the order of f32 sums
     differs);
@@ -330,3 +332,132 @@ def test_masked_attention_kernel_matches_plain(dtype, atol):
         got = masked_attention_cuda(*t.unbind(2), m, s, 1 / 8)
         want = masked_attention_plain(*t.unbind(2), m, s, 1 / 8)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+class _CardTensor(torch.Tensor):
+    """A CPU tensor that reads as one on the card (``is_cuda``), and so does
+    every tensor computed from it: the CPU reaches the packed rows' kernel
+    branch with the kernel's entry stubbed."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _einsum_chain(q, k, v, mask, seg, cfg, drop=None):
+    """The ``einsum`` form's chain spelled out: f32 logits · scale, the f32
+    -1e9 bias off the allowed keys, the f32 softmax cast to ``cfg.dtype``,
+    dropout on the probabilities, · v."""
+    from fusion_tpu_torch.models.encoder import SITE_ATTN_PROBS, dropout
+    from fusion_tpu_torch.ops.attention import allowed_keys
+
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / np.sqrt(q.shape[-1]))
+    bias = torch.where(allowed_keys(mask, seg), 0.0, -1e9).to(torch.float32)
+    probs = dropout(torch.softmax(logits + bias, dim=-1).to(cfg.dtype), cfg.dropout, drop, 0, SITE_ATTN_PROBS)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _stub_kernel(monkeypatch):
+    """Point the trunk's ``masked_attention`` (the kernel on the card) at its
+    plain version, recording each call's masks → the list of (mask, segment
+    ids) calls."""
+    import fusion_tpu_torch.models.encoder as encoder_mod
+    from fusion_tpu_torch.ops.attention import masked_attention_plain
+
+    calls = []
+
+    def kernel(q, k, v, mask, seg, scale):
+        calls.append((mask, seg))
+        plain = (t.as_subclass(torch.Tensor) for t in (q, k, v, mask, seg))
+        return masked_attention_plain(*plain, scale)
+
+    monkeypatch.setattr(encoder_mod, "masked_attention", kernel)
+    return calls
+
+
+# (form, dtype, packed, on the card, gradient, dropout, head dim) → the path
+BF16, F32 = torch.bfloat16, torch.float32
+PACKED_RULE_CASES = {
+    "packed_einsum_card": ("einsum", BF16, True, True, False, False, 64, "kernel"),
+    "packed_flash_card": ("flash", BF16, True, True, False, False, 64, "kernel"),
+    "packed_flash_card_f32": ("flash", F32, True, True, False, False, 64, "kernel"),
+    "no_segments": ("einsum", BF16, False, True, False, False, 64, "chain"),
+    "einsum_bf16": ("einsum_bf16", BF16, True, True, False, False, 64, "chain"),
+    "einsum_f32": ("einsum", F32, True, True, False, False, 64, "chain"),
+    "gradient": ("einsum", BF16, True, True, True, False, 64, "chain"),
+    "dropout": ("einsum", BF16, True, True, False, True, 64, "chain"),
+    "head_dim_32": ("einsum", BF16, True, True, False, False, 32, "chain"),
+    "cpu_tensor": ("einsum", BF16, True, False, False, False, 64, "chain"),
+}
+
+
+@pytest.mark.parametrize("case", list(PACKED_RULE_CASES))
+def test_packed_rows_take_the_kernel_by_rule(monkeypatch, case):
+    """Packed rows' attention runs the masked-attention kernel exactly when
+    the call shows it computes the ``einsum`` arithmetic: segments given,
+    the form ``flash`` (its own path, in either dtype) or ``einsum`` with
+    ``q`` in bf16 on the card, no gradient, no active dropout, head dim 64.
+    Every other call runs its form's chain, bit for bit on the CPU (an f32
+    forward, a reference of the bf16 one, included), and the kernel's entry
+    is not called.  Under
+    tracing each packed call counts ``attention.packed_kernel`` or
+    ``attention.packed_einsum``, a call without segments neither."""
+    from fusion_tpu_torch.models.encoder import DropoutKey, attention
+    from fusion_tpu_torch.utils import profiling
+
+    impl, dtype, packed, card, grad, drop, hd, path = PACKED_RULE_CASES[case]
+    calls = _stub_kernel(monkeypatch)
+    qkv, mask, seg = _attention_case(9, hd=hd)
+    cfg = EncoderConfig.tiny(attention_impl=impl, dtype=dtype, dropout=0.1 if drop else 0.0)
+    base = torch.as_tensor(qkv).to(dtype)
+    qkv_t = base.requires_grad_(grad).as_subclass(_CardTensor) if card else base.requires_grad_(grad)
+    mask_t, seg_t = torch.as_tensor(mask), torch.as_tensor(seg) if packed else None
+    key = DropoutKey(seed=4, step=2) if drop else None
+    profiling.reset()
+    with profiling.tracing():
+        got = attention(*qkv_t.unbind(2), mask_t, seg_t, cfg, key)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    got = got.as_subclass(torch.Tensor)
+    if path == "kernel":
+        from fusion_tpu_torch.ops.attention import masked_attention_plain
+
+        assert len(calls) == 1 and counters == {"attention.packed_kernel": 1}
+        assert torch.equal(got, masked_attention_plain(*base.unbind(2), mask_t, seg_t, 1 / 8))
+        return
+    assert not calls
+    assert counters == ({"attention.packed_einsum": 1} if packed else {})
+    if impl == "einsum_bf16":  # its own chain: the same call on a tensor the card does not hold
+        want = attention(*base.unbind(2), mask_t, seg_t, cfg)
+    else:
+        want = _einsum_chain(*base.unbind(2), mask_t, seg_t, cfg, key)
+    assert got.requires_grad == grad and torch.equal(got, want)
+
+
+def test_packed_trunk_converts_the_masks_once(monkeypatch, rng):
+    """A packed trunk forward on the card hands every layer's kernel call the
+    same int32 masks, converted once at the trunk's entry, and counts one
+    ``attention.packed_kernel`` a layer; its hidden states are those of the
+    kernel's plain version (the ``flash`` form's CPU path)."""
+    from fusion_tpu_torch.utils import profiling
+
+    cfg = EncoderConfig.tiny(vocab_size=512, hidden_size=128, num_heads=2, dtype=torch.bfloat16)
+    einsum = Encoder(cfg)
+    init_weights(einsum, seed=5)
+    flash = Encoder(dataclasses.replace(cfg, attention_impl="flash"))
+    flash.load_state_dict(einsum.state_dict())
+    einsum, flash = place(einsum, torch.bfloat16, DEVICE), place(flash, torch.bfloat16, DEVICE)
+    ids, mask, seg, pos = (torch.as_tensor(a, dtype=torch.int64) for a in _packed(rng))
+    with torch.inference_mode():
+        want = flash(ids, mask, pos, seg)
+    calls = _stub_kernel(monkeypatch)
+    profiling.reset()
+    with torch.inference_mode(), profiling.tracing():
+        got = einsum(ids.as_subclass(_CardTensor), mask, pos, seg).as_subclass(torch.Tensor)
+        counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters == {"attention.packed_kernel": cfg.num_layers} and len(calls) == cfg.num_layers
+    first_mask, first_seg = calls[0]
+    assert first_mask.dtype == first_seg.dtype == torch.int32
+    assert all(m is first_mask and s is first_seg for m, s in calls)
+    assert torch.equal(got, want)

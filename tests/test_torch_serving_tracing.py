@@ -40,6 +40,8 @@ NESTING = {
 }
 HOST_ONLY = ("tokenize.", "rerank.plan")
 COUNTERS = ("rerank.rows", "rerank.row_tokens", "rerank.row_slots", "rerank.attn_pairs", "rerank.attn_slots")
+# the packed rows' attention calls by path: on the CPU the einsum chain
+PACKED_CALLS = "attention.packed_einsum"
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +80,7 @@ def test_search_emits_the_layer_spans_with_their_nesting(models, traced):
     calls = {name: s["calls"] for name, s in snap["spans"].items()}
     # two batches; search.fetch reads each back, then joins them
     assert calls == {name: 3 if name == "search.fetch" else 2 for name in NESTING}
-    assert set(snap["counters"]) == set(COUNTERS)
+    assert set(snap["counters"]) == {*COUNTERS, PACKED_CALLS}
 
 
 class _Creations(TorchDispatchMode):
@@ -122,18 +124,21 @@ def _expected(plen_rows):
 @pytest.mark.parametrize("form", ["packed", "bucketed", "flat"])
 def test_rerank_counters_equal_the_plan(models, traced, monkeypatch, form):
     """Packed: recomputed from ``plan_packed``'s ``desc`` (the rows that hold
-    a pair, each pair's specials, query and doc tokens).  Bucketed and flat:
-    one pair a row, from the attention masks the stage scores."""
+    a pair, each pair's specials, query and doc tokens), and one attention
+    call a layer for each chunk of rows scored.  Bucketed and flat: one pair
+    a row, from the attention masks the stage scores, and no packed
+    attention call."""
     rerank = {"packed": dict(rerank_row_width=128), "bucketed": dict(rerank_buckets=(8, 16), rerank_packed=False),
               "flat": dict(rerank_packed=False)}[form]
     searcher = _searcher(models, **rerank)
-    ce, seen = searcher.cross_encoder, []
+    ce, seen, chunks = searcher.cross_encoder, [], []
     plan, score = ce.plan_packed, ce._score_pairs_chunked
 
     def plan_spy(*a, **kw):
         out = plan(*a, **kw)
         desc, width = out[0], out[2]
         seen.append((ce.PAIR_SPECIALS + desc[4] + desc[5], int(desc[2].max()) + 1, width))
+        chunks.append(-(-seen[-1][1] // out[4]))
         return out
 
     def score_spy(ids, mask, pair_chunk):
@@ -145,7 +150,10 @@ def test_rerank_counters_equal_the_plan(models, traced, monkeypatch, form):
     with profiling.tracing():
         searcher.search(QUERIES, batch_size=4)
     got = profiling.snapshot()["counters"]
-    assert len(seen) >= 2 and got == _expected(seen)
+    want = _expected(seen)
+    if form == "packed":
+        want[PACKED_CALLS] = ce.cfg.num_layers * sum(chunks)
+    assert len(seen) >= 2 and got == want
     assert 0 < got["rerank.row_tokens"] <= got["rerank.row_slots"]
     assert 0 < got["rerank.attn_pairs"] <= got["rerank.attn_slots"]
     if form == "packed":  # 2 batches x 4 queries x 6 candidates, each pair in one row
